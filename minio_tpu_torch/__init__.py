@@ -1,0 +1,16 @@
+"""minio_tpu_torch: the PyTorch/CUDA port of minio_tpu's erasure data path.
+
+One erasure set (``objectlayer.erasure_object.ErasureObjects``) doing PUT,
+ranged and degraded GET, and heal over local drives, with the two device
+kernels of that path written by hand for Hopper (``csrc/``):
+
+  * ``gf8_apply.cu``: GF(2^8) matrix apply (encode, decode, heal);
+  * ``hh256.cu``: keyed HighwayHash-256 bitrot digests (PUT framing, GET
+    verification, heal re-framing).
+
+The device decides the engine: a CUDA tensor goes to the kernel, a CPU
+tensor to the plain PyTorch version beside it.  Entry points default to
+``device="cuda"`` and raise when no card is present.  The package imports
+neither jax nor anything of ``minio_tpu``; its drives are byte-compatible
+with ``minio_tpu``'s (xl.meta, inline data, framed ``part.1`` files).
+"""

@@ -1,0 +1,206 @@
+"""Reed-Solomon GF(2^8) matrix apply on tensors (Kernel A and its plain
+version), and the encode/decode/reconstruct functions built on it.
+
+Counterpart of ``minio_tpu/ops/rs_kernels.py`` plus ``rs_pallas.py``.
+``apply_matrix(M, shards)`` computes ``out[b] = M (GF) @ shards[b]`` for a
+batch of stripes.  A CUDA tensor launches ``csrc/gf8_apply.cu``; a CPU
+tensor runs ``gf_apply_ref``, the torch form of ``rs_kernels._gf2_apply``:
+bytes unpacked to 0/1 bit planes, multiplied by the expanded GF(2) matrix,
+the sum's parity taken as XOR, and the planes packed back.  The plain
+version multiplies in float32 because CUDA has no integer matmul and an
+int8 ``@`` on the CPU wraps; every sum is at most 8k <= 2048, which
+float32 holds exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build, gf8
+
+COUNTS = _build.Counts()
+MAX_SHARDS = 256
+_ZERO_LOG = 510     # log of 0: exp[i] = 0 for every i >= 510
+
+
+@functools.lru_cache(maxsize=None)
+def _host_tables() -> tuple[np.ndarray, np.ndarray]:
+    """log (uint16, log[0] = 510) and exp (1024 bytes, zero from 510)."""
+    log = gf8.GF_LOG.astype(np.uint16)
+    log[0] = _ZERO_LOG
+    exp = np.zeros(1024, dtype=np.uint8)
+    exp[:510] = gf8.GF_EXP[np.arange(510) % 255]
+    return log, exp
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    log, exp = _host_tables()
+    return (torch.from_numpy(log.view(np.int16)).to(device),
+            torch.from_numpy(exp).to(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_coef(key: bytes, r: int, k: int,
+                 device: torch.device) -> torch.Tensor:
+    """(r, k) coefficient logs on the device, cached by content; bounded
+    because decode matrices vary with the survivor pattern."""
+    M = np.frombuffer(key, dtype=np.uint8).reshape(r, k)
+    lc = _host_tables()[0][M]
+    return torch.from_numpy(lc.view(np.int16)).to(device)
+
+
+def gf_apply_ref(M: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+    """Plain version of Kernel A: (B, k, n) uint8 -> (B, r, n) uint8."""
+    COUNTS.plain += 1
+    B, k, n = shards.shape
+    r = M.shape[0]
+    E = torch.from_numpy(gf8.gf2_expand(M).astype(np.float32)).to(
+        shards.device)                                       # (8r, 8k)
+    shifts = torch.arange(8, dtype=torch.uint8, device=shards.device)
+    bits = (shards[:, :, None, :] >> shifts[None, None, :, None]) & 1
+    acc = E @ bits.reshape(B, 8 * k, n).to(torch.float32)  # (B, 8r, n)
+    par = (acc.to(torch.int32) & 1).to(torch.uint8).reshape(B, r, 8, n)
+    return (par << shifts[None, None, :, None]).sum(
+        dim=2, dtype=torch.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("gf8_apply").mt_gf8_apply
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(M: np.ndarray, shards: torch.Tensor, out: torch.Tensor) -> None:
+    B, k, n = shards.shape
+    r = M.shape[0]
+    dev = shards.device
+    fn = _kernel()
+    log_t, exp_t = _device_tables(dev)
+    coef = _device_coef(M.tobytes(), r, k, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        COUNTS.launches += 1
+        rc = fn(shards.data_ptr(), shards.stride(0), shards.stride(1),
+                out.data_ptr(), out.stride(0), out.stride(1),
+                coef.data_ptr(), log_t.data_ptr(), exp_t.data_ptr(),
+                B, k, r, n, stream)
+    _build.check(rc, "gf8_apply")
+
+
+def apply_matrix(M, shards: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """out[b] = M (GF) @ shards[b].
+
+    M: (r, k) uint8 GF coefficients (host).  shards: (B, k, n) or (k, n)
+    uint8; the byte axis must be dense, the batch and row axes may have
+    any stride.  ``out`` (optional): a (B, r, n) / (r, n) uint8 tensor on
+    the same device, byte axis dense, written in place.  Returns the
+    result on the shards' device."""
+    M = np.ascontiguousarray(M, dtype=np.uint8)
+    if M.ndim != 2 or not (1 <= M.shape[0] <= MAX_SHARDS
+                           and 1 <= M.shape[1] <= MAX_SHARDS):
+        raise ValueError(f"bad coefficient matrix shape {M.shape}")
+    if not isinstance(shards, torch.Tensor) or shards.dtype != torch.uint8:
+        raise TypeError("shards must be a uint8 tensor")
+    squeeze = shards.ndim == 2
+    if squeeze:
+        shards = shards[None]
+        out = None if out is None else out[None]
+    if shards.ndim != 3 or shards.shape[1] != M.shape[1]:
+        raise ValueError(f"shards {tuple(shards.shape)} do not match "
+                         f"matrix {M.shape}")
+    B, k, n = shards.shape
+    r = M.shape[0]
+    if out is None:
+        out = torch.empty((B, r, n), dtype=torch.uint8, device=shards.device)
+    elif (out.dtype != torch.uint8 or tuple(out.shape) != (B, r, n)
+          or out.device != shards.device):
+        raise ValueError(f"out must be uint8 {(B, r, n)} on {shards.device}")
+    if shards.device.type == "cpu":
+        out.copy_(gf_apply_ref(M, shards))
+    elif shards.device.type == "cuda":
+        if n > 1 and (shards.stride(2) != 1 or out.stride(2) != 1):
+            raise ValueError("the byte axis must be dense")
+        if B and n:
+            _launch(M, shards, out)
+    else:
+        raise ValueError(f"unsupported device {shards.device}")
+    return out[0] if squeeze else out
+
+
+def encode_parity(data_shards: torch.Tensor, parity: int,
+                  matrix: np.ndarray | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, k, n) or (k, n) data -> (B, m, n) / (m, n) parity."""
+    k = data_shards.shape[-2]
+    if matrix is None:
+        matrix = gf8.rs_matrix(k, k + parity)
+    return apply_matrix(np.asarray(matrix)[k:], data_shards, out)
+
+
+def decode_rows(matrix: np.ndarray, data_blocks: int,
+                present: list[int], wanted: list[int]) -> np.ndarray:
+    """(len(wanted), k) GF rows mapping the k survivors ``present``
+    (sorted shard indices) to the ``wanted`` shards, data or parity."""
+    if len(present) != data_blocks:
+        raise ValueError(f"need exactly {data_blocks} survivors")
+    matrix = np.asarray(matrix)
+    dec = gf8.gf_mat_inv(matrix[present])
+    rows = [dec[w] if w < data_blocks
+            else gf8.gf_matmul(matrix[w][None, :], dec)[0] for w in wanted]
+    return np.stack(rows).astype(np.uint8)
+
+
+def reconstruct(shards: list, data_blocks: int, parity_blocks: int,
+                data_only: bool = False,
+                matrix: np.ndarray | None = None) -> list:
+    """Rebuild the missing (None or empty) shards of one stripe.
+
+    ``shards``: k+m entries, present ones equal-length 1-D uint8 tensors
+    on one device.  Returns a new list with the missing data shards (and
+    parity shards unless ``data_only``) filled in."""
+    total = data_blocks + parity_blocks
+    if len(shards) != total:
+        raise ValueError("wrong shard count")
+    present = [i for i, s in enumerate(shards)
+               if s is not None and len(s) > 0]
+    if len(present) < data_blocks:
+        raise gf8.ReconstructError(
+            f"need {data_blocks} shards, have {len(present)}")
+    if matrix is None:
+        matrix = gf8.rs_matrix(data_blocks, total)
+    limit = data_blocks if data_only else total
+    missing = [i for i in range(limit)
+               if shards[i] is None or len(shards[i]) == 0]
+    out = list(shards)
+    if not missing:
+        return out
+    use = present[:data_blocks]
+    rows = decode_rows(matrix, data_blocks, use, missing)
+    rebuilt = apply_matrix(rows, torch.stack([shards[i] for i in use]))
+    for j, i in enumerate(missing):
+        out[i] = rebuilt[j]
+    return out
+
+
+def reconstruct_batch(shards: torch.Tensor, present: list[int],
+                      wanted: list[int], data_blocks: int,
+                      parity_blocks: int,
+                      matrix: np.ndarray | None = None) -> torch.Tensor:
+    """(B, k, n) survivors (rows ordered as ``present``), the same missing
+    pattern in every stripe -> (B, len(wanted), n), one launch."""
+    if matrix is None:
+        matrix = gf8.rs_matrix(data_blocks, data_blocks + parity_blocks)
+    rows = decode_rows(matrix, data_blocks, list(present), list(wanted))
+    return apply_matrix(rows, shards)
