@@ -2,22 +2,32 @@
 
     python3 chip_smoke.py
 
-1. Device: the card's name and power limit; build both kernels (one nvcc
-   per source, started together) and print the build time.
+1. Device: the card's name and power limit; build the three kernels (one
+   nvcc per source, started together) and print the build time.
 2. Kernel A (csrc/gf8_apply.cu) against its plain version on the card, at
    the path's shape (6 stripes of 12 x 873,814 bytes, encode rows and the
    decode rows of 4 lost data shards) and at ragged shapes; exact.
 3. Kernel B (csrc/hh256.cu) against its plain version on the card, at the
    path's shape (96 rows x 873,814 bytes) and at ragged lengths, and both
    against the published HighwayHash test vectors; exact.
-4. The path: a 16-drive erasure set (12 data + 4 parity, 10 MiB blocks)
+4. Kernel C (csrc/rs_fused.cu) against its plain version on the card, at
+   the path's shape (6 stripes, 12 + 4, 873,814 bytes, parity hashed),
+   against Kernel A then Kernel B at that shape, at ragged shapes in both
+   hash_parity modes, and in place inside a frame tensor; exact.
+5. The path: a 16-drive erasure set (12 data + 4 parity, 10 MiB blocks)
    under a temporary directory.  PUT seeded objects (0 B to 256 MiB), GET
    each whole and as a range, wipe the drives holding four data shards of
    the 256 MiB object, GET it degraded, heal it, and check the healed part
    files byte for byte.  Launch counts are reset before the path and read
-   after each of PUT, GET and heal: both kernels must have run in each,
-   and no plain version anywhere in the path.
-5. One JSON line describing each kernel, the card line, and the result
+   after each of PUT, GET and heal: Kernels A and B must have run in
+   each, and no plain version anywhere in the path.
+6. The mesh path: the same set built on a one-device mesh (the mesh data
+   plane), driven the same way with the same bodies.  Its part files must
+   equal the first set's drive by drive; its PUT must launch Kernel C
+   once per full-block batch and once per short last block, and Kernels A
+   and B not at all; its degraded GET and heal launch Kernels A and B; no
+   plain version runs.
+7. One JSON line describing each kernel, the card line, and the result
    line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -30,6 +40,7 @@ import hashlib
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -38,6 +49,12 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+# The HighwayHash update's loop-carried dependency chain, from the SASS of
+# csrc/rs_fused.cu: v1 += mul0 + packet (IADD3, IADD3.X), the zipper of v1
+# into v0 (two dependent PRMTs, then IADD3, IADD3.X), the zipper of v0
+# into v1 (two PRMTs, IADD3, IADD3.X): 10 dependent integer instructions
+# per packet, each at least 4 cycles on Hopper.
+CHAIN_CYCLES_PER_UPDATE = 10 * 4
 K, M = 12, 4
 BLOCK = 10 * 1024 * 1024
 N_PATH = -(-BLOCK // K)            # 873,814: shard width at 10 MiB blocks
@@ -64,6 +81,18 @@ def cuda_ms(fn, iters: int) -> float:
 def rand_bytes(shape, gen) -> torch.Tensor:
     return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
                          generator=gen)
+
+
+def chain_bound_ms(clock_mhz: float) -> float:
+    """The least time one row's HighwayHash-256 at the path's shard width
+    can take: its packet, remainder and 10 permute updates in series, each
+    the update's dependency chain long, at the card's maximum SM clock."""
+    updates = N_PATH // 32 + (1 if N_PATH % 32 else 0) + 10
+    ms = updates * CHAIN_CYCLES_PER_UPDATE / (clock_mhz * 1e3)
+    print(f"chain bound: {updates} updates per row x "
+          f"{CHAIN_CYCLES_PER_UPDATE} cycles at {clock_mhz:.0f} MHz = "
+          f"{ms:.4f} ms")
+    return ms
 
 
 def phase_kernel_a(gen) -> dict:
@@ -111,7 +140,7 @@ HH256_VECTOR_0 = (0xDD44482AC2C874F5, 0xD946017313C7351F,
                   0xB3AEBECCB98714FF, 0x41DA233145751DF4)
 
 
-def phase_kernel_b(gen) -> dict:
+def phase_kernel_b(gen, clock_mhz: float) -> dict:
     from minio_tpu_torch.ops import hh
     for n, want in HH64_VECTORS.items():
         row = torch.arange(n, dtype=torch.uint8, device="cuda").reshape(1, n)
@@ -136,20 +165,26 @@ def phase_kernel_b(gen) -> dict:
     plain_ms = cuda_ms(lambda: plain.append(hh.hh256_batch_ref(x)), 1)
     check(torch.equal(got, plain[0]), f"kernel B at {rows} rows x {N_PATH}")
     ms = cuda_ms(lambda: hh.hh256_batch(x), 5)
+    # one stripe's 16 rows: half of one warp, as Kernel C hashes them
+    ms16 = cuda_ms(lambda: hh.hh256_batch(x[:K + M]), 5)
     nbytes = rows * N_PATH + rows * 32
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     packets = N_PATH // 32
+    chain_ms = chain_bound_ms(clock_mhz)
     print(f"kernel B: published vectors and {len(lengths)} ragged lengths x "
           f"300 rows exact; {rows} rows x {N_PATH}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
-          f"(bytes); chain of {packets} packets per row: "
-          f"{ms * 1e6 / packets:.1f} ns per packet")
+          f"(bytes), chain bound {chain_ms:.4f} ms; chain of {packets} "
+          f"packets per row: "
+          f"{ms * 1e6 / packets:.1f} ns per packet; {K + M} rows: "
+          f"{ms16:.4f} ms, {ms16 * 1e6 / packets:.1f} ns per packet")
     return {"name": "hh256", "route": "cuda",
             "source": "minio_tpu_torch/csrc/hh256.cu",
             "replaces": "minio_tpu/ops/hh_pallas.py:163",
             "exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "shape": [rows, N_PATH], "chain_packets": packets}
+            "chain_bound_ms": chain_ms, "shape": [rows, N_PATH],
+            "chain_packets": packets, "ms_16_rows": ms16}
 
 
 def phase_encode_layout(gen) -> None:
@@ -162,34 +197,134 @@ def phase_encode_layout(gen) -> None:
     check(torch.equal(got.cpu(), want), "encode_object cuda vs cpu")
 
 
+def phase_kernel_c(gen, clock_mhz: float) -> dict:
+    from minio_tpu_torch.ops import gf8, hh, rs_fused, rs_kernels
+    ragged = 0
+    for k, m in ((K, M), (4, 2), (5, 1), (3, 2)):
+        mat = gf8.rs_matrix(k, k + m)[k:]
+        for n in (1, 31, 32, 33, 2047, 2048, 2049, 4097):
+            for b in (1, 7):
+                x = rand_bytes((b, k, n), gen)
+                for hp in (True, False):
+                    got = rs_fused.encode_hash_device(mat, x, hash_parity=hp)
+                    want = rs_fused.encode_hash_ref(mat, x, hash_parity=hp)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"kernel C at B={b} k={k} m={m} n={n} "
+                          f"hash_parity={hp}")
+                    ragged += 1
+    enc = gf8.rs_matrix(K, K + M)[K:]
+    # in place inside a frame tensor: 3 frames of 32-byte digest slots and
+    # 5,001-byte payloads on 16 rows; only the parity payloads may change
+    ss, nf = 5001, 3
+    frames = rand_bytes((K + M, nf * (32 + ss)), gen)
+    before = frames.clone()
+    view = frames.unflatten(1, (nf, 32 + ss)).transpose(0, 1)
+    _, dig = rs_fused.encode_hash_device(enc, view[:, :K, 32:],
+                                         out_parity=view[:, K:, 32:])
+    par, want = rs_fused.encode_hash_ref(enc, view[:, :K, 32:].contiguous())
+    check(torch.equal(view[:, K:, 32:], par) and torch.equal(dig, want),
+          "kernel C strided into a frame tensor")
+    view[:, K:, 32:] = before.unflatten(1, (nf, 32 + ss)).transpose(
+        0, 1)[:, K:, 32:]
+    check(torch.equal(frames, before),
+          "kernel C wrote outside the parity payloads")
+
+    data = rand_bytes((B_PATH, K, N_PATH), gen)
+    got = rs_fused.encode_hash_device(enc, data)
+    plain = []                     # one run: the plain chain takes ~30 s
+    plain_ms = cuda_ms(lambda: plain.append(rs_fused.encode_hash_ref(enc,
+                                                                     data)), 1)
+    check(all(torch.equal(g, w) for g, w in zip(got, plain[0])),
+          "kernel C at the path shape")
+    par_a = rs_kernels.apply_matrix(enc, data)
+    dig_b = hh.hh256_batch(torch.cat([data, par_a], dim=1))
+    check(torch.equal(got[0], par_a) and torch.equal(got[1], dig_b),
+          "kernel C against Kernel A then Kernel B at the path shape")
+    ms = cuda_ms(lambda: rs_fused.encode_hash_device(enc, data), 10)
+    # the same launch with an empty hashed width: tile loads, parity and
+    # stores only; the difference is the hash phases
+    nohash_ms = cuda_ms(
+        lambda: rs_fused.encode_hash_device(enc, data, n_real=0), 10)
+    rows = K + M
+    nbytes = B_PATH * rows * N_PATH + B_PATH * rows * 32
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain_bound_ms(clock_mhz)
+    packets = N_PATH // 32
+    print(f"kernel C: exact against its plain version at {ragged} ragged "
+          f"shapes, in place in a frame tensor, and at the path shape, and "
+          f"against Kernel A then Kernel B there; B={B_PATH} k={K} r={M} "
+          f"n={N_PATH}: kernel {ms:.4f} ms (of which without the hash "
+          f"phases {nohash_ms:.4f} ms), plain {plain_ms:.1f} ms (one run), "
+          f"byte bound {bound_ms:.4f} ms ({nbytes} bytes), chain bound "
+          f"{chain_ms:.4f} ms; "
+          f"{ms * 1e6 / packets:.1f} ns per packet, hash phases "
+          f"{(ms - nohash_ms) * 1e6 / packets:.1f} ns per packet")
+    return {"name": "rs_fused", "route": "cuda",
+            "source": "minio_tpu_torch/csrc/rs_fused.cu",
+            "replaces": "minio_tpu/ops/rs_fused.py:171",
+            "exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "chain_bound_ms": chain_ms, "nohash_ms": nohash_ms,
+            "shape": [B_PATH, K, M, N_PATH], "chain_packets": packets}
+
+
+KERNELS = ("gf8_apply", "hh256", "rs_fused")
+
+
 def snapshot():
-    from minio_tpu_torch.ops import hh, rs_kernels
-    return {"gf8_apply": (rs_kernels.COUNTS.launches, rs_kernels.COUNTS.plain),
-            "hh256": (hh.COUNTS.launches, hh.COUNTS.plain)}
+    from minio_tpu_torch.ops import hh, rs_fused, rs_kernels
+    counts = {"gf8_apply": rs_kernels.COUNTS, "hh256": hh.COUNTS,
+              "rs_fused": rs_fused.COUNTS}
+    return {k: (c.launches, c.plain) for k, c in counts.items()}
+
+
+def reset_counts():
+    from minio_tpu_torch.ops import hh, rs_fused, rs_kernels
+    for c in (rs_kernels.COUNTS, hh.COUNTS, rs_fused.COUNTS):
+        c.reset()
 
 
 def delta(a, b):
     return {k: (b[k][0] - a[k][0], b[k][1] - a[k][1]) for k in a}
 
 
-def phase_path(gen, card: str) -> dict:
-    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
-    from minio_tpu_torch.ops import hh, rs_kernels
-    from minio_tpu_torch.storage.xl_storage import XLStorage
+def make_bodies(gen) -> dict:
     sizes = {"empty": 0, "inline": 100 * 1024, "1MiB": 1 << 20,
              "block+1": BLOCK + 1, "256MiB": 256 << 20}
-    bodies = {name: rand_bytes((size,), gen).cpu().numpy().tobytes()
-              for name, size in sizes.items()}
+    return {name: rand_bytes((size,), gen).cpu().numpy().tobytes()
+            for name, size in sizes.items()}
+
+
+def part_digests(root: str, name: str) -> dict:
+    """{drive: sha256 of the object's part.1} over the drives that hold
+    one (inline objects have none)."""
+    out = {}
+    for d in range(K + M):
+        obj = f"{root}/d{d}/smoke/{name}"
+        for sub in sorted(os.listdir(obj)):
+            part = f"{obj}/{sub}/part.1"
+            if os.path.isfile(part):
+                with open(part, "rb") as f:
+                    out[d] = hashlib.sha256(f.read()).digest()
+    return out
+
+
+def drive_set(label: str, bodies: dict, card: str, mesh=None):
+    """PUT, GET, degraded GET, heal and GET through the healed drives on a
+    fresh 16-drive set; returns the launch counts per phase, the part-file
+    digests after PUT and the set (still open, drives removed)."""
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.ops import rs_kernels
+    from minio_tpu_torch.storage.xl_storage import XLStorage
     root = tempfile.mkdtemp(prefix="chip-smoke-drives-")
     try:
         drives = []
         for i in range(K + M):
             os.makedirs(f"{root}/d{i}")
             drives.append(XLStorage(f"{root}/d{i}"))
-        er = ErasureObjects(drives, parity=M, device="cuda")
+        er = ErasureObjects(drives, parity=M, device="cuda", mesh=mesh)
         er.make_bucket("smoke")
-        rs_kernels.COUNTS.reset()
-        hh.COUNTS.reset()
+        reset_counts()
         s0 = snapshot()
 
         t0 = time.perf_counter()
@@ -199,6 +334,7 @@ def phase_path(gen, card: str) -> dict:
         torch.cuda.synchronize()
         put_s = time.perf_counter() - t0
         s_put = snapshot()
+        parts = {name: part_digests(root, name) for name in bodies}
 
         big = bodies["256MiB"]
         for name, body in bodies.items():
@@ -243,31 +379,77 @@ def phase_path(gen, card: str) -> dict:
             shutil.rmtree(f"{root}/d{d}/smoke/256MiB")
         _, got = er.get_object("smoke", "256MiB")
         check(got == big, "GET through healed drives")
+        s_end = snapshot()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     phases = {"put": delta(s0, s_put), "get": delta(s_put, s_get),
               "heal": delta(s_get, s_heal)}
-    for phase, counts in phases.items():
-        for kernel, (launches, plain) in counts.items():
-            check(launches > 0, f"{kernel} not launched during {phase}")
-    total = delta(s0, snapshot())
+    total = delta(s0, s_end)
     for kernel, (_, plain) in total.items():
-        check(plain == 0, f"{kernel} plain version ran {plain} times")
+        check(plain == 0, f"{label}: {kernel} plain version ran {plain} "
+              "times")
     put_bytes = sum(len(b) for b in bodies.values())
-    print(f"path on {card}: PUT {put_bytes / put_s / 2**30:.3f} GiB/s "
+    print(f"{label} on {card}: PUT {put_bytes / put_s / 2**30:.3f} GiB/s "
           f"({put_bytes} bytes in {put_s:.3f} s), degraded GET of 256 MiB "
           f"{len(big) / get_s / 2**30:.3f} GiB/s ({get_s:.3f} s), heal of 4 "
           f"shards {heal_s:.3f} s")
-    print("launches per phase (kernel, plain): " + json.dumps(phases))
-    put_breakdown(er, big)
+    print(f"{label} launches per phase (kernel, plain): "
+          + json.dumps(phases))
+    return phases, total, parts, er
+
+
+def phase_path(bodies: dict, card: str):
+    phases, total, parts, er = drive_set("path", bodies, card)
+    for phase, counts in phases.items():
+        for kernel in ("gf8_apply", "hh256"):
+            check(counts[kernel][0] > 0,
+                  f"{kernel} not launched during {phase}")
+    put_breakdown("path", er, bodies["256MiB"])
+    er.close()
+    return {k: v[0] for k, v in total.items()}, parts
+
+
+def fused_launches(bodies: dict, batch: int) -> int:
+    """Kernel C launches a mesh PUT of ``bodies`` needs: per stream batch,
+    one for its full blocks and one for a short last block."""
+    count = 0
+    for body in bodies.values():
+        for off in range(0, len(body), batch):
+            nfull, tail = divmod(min(batch, len(body) - off), BLOCK)
+            count += (nfull > 0) + (tail > 0)
+    return count
+
+
+def phase_mesh_path(bodies: dict, card: str, ref_parts: dict):
+    from minio_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh([torch.device("cuda", 0)])
+    phases, total, parts, er = drive_set("mesh path", bodies, card,
+                                         mesh=mesh)
+    for name in bodies:
+        check(parts[name] == ref_parts[name],
+              f"mesh set part files of {name} differ from the first set's")
+    want = fused_launches(bodies, er._batch_bytes())
+    check(phases["put"]["rs_fused"][0] == want,
+          f"mesh PUT launched Kernel C {phases['put']['rs_fused'][0]} "
+          f"times, expected {want}")
+    for kernel in ("gf8_apply", "hh256"):
+        check(phases["put"][kernel][0] == 0,
+              f"{kernel} launched during the mesh PUT")
+        for phase in ("get", "heal"):
+            check(phases[phase][kernel][0] > 0,
+                  f"{kernel} not launched during the mesh {phase}")
+    print(f"mesh path: part files of {len(ref_parts)} objects equal to the "
+          f"first set's on every drive; Kernel C launched {want} times "
+          "during PUT")
+    put_breakdown("mesh path", er, bodies["256MiB"])
     er.close()
     return {k: v[0] for k, v in total.items()}
 
 
-def put_breakdown(er, body: bytes) -> None:
+def put_breakdown(label: str, er, body: bytes) -> None:
     """Two stages of PUT timed alone on one 60 MiB stream batch: the host
-    MD5 and encode + frame (host-to-device copy, Kernels A and B,
+    MD5 and encode + frame (host-to-device copy, the kernels,
     device-to-host copy).  The rest of PUT's wall time is drive I/O and
     Python."""
     batch = body[:er._batch_bytes()]
@@ -278,9 +460,18 @@ def put_breakdown(er, body: bytes) -> None:
     t0 = time.perf_counter()
     er._encode_and_frame(batch)
     enc_s = time.perf_counter() - t0
-    print(f"PUT stages for one {len(batch)}-byte batch: MD5 "
+    print(f"{label} PUT stages for one {len(batch)}-byte batch: MD5 "
           f"{md5_s * 1e3:.1f} ms, encode + frame incl. copies "
           f"{enc_s * 1e3:.1f} ms")
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def main() -> int:
@@ -292,18 +483,24 @@ def main() -> int:
     from minio_tpu_torch.ops import _build
     card = card_name_and_power_limit()
     kind = torch.cuda.get_device_name(0)
-    print(f"device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {kind}")
+    clock = sm_clock_mhz()
+    print(f"device: {card} | max SM clock {clock:.0f} MHz | torch "
+          f"{torch.__version__} cuda {torch.version.cuda} | {kind}")
     t0 = time.perf_counter()
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261016)
-    kernels = [phase_kernel_a(gen), phase_kernel_b(gen)]
+    kernels = [phase_kernel_a(gen), phase_kernel_b(gen, clock),
+               phase_kernel_c(gen, clock)]
     phase_encode_layout(gen)
-    launches = phase_path(gen, card)
+    bodies = make_bodies(gen)
+    path, parts = phase_path(bodies, card)
+    mesh_path = phase_mesh_path(bodies, card, parts)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = path[k["name"]] + mesh_path[k["name"]]
+        k["launches_by_path"] = {"path": path[k["name"]],
+                                 "mesh_path": mesh_path[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

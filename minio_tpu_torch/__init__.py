@@ -1,12 +1,14 @@
 """minio_tpu_torch: the PyTorch/CUDA port of minio_tpu's erasure data path.
 
 One erasure set (``objectlayer.erasure_object.ErasureObjects``) doing PUT,
-ranged and degraded GET, and heal over local drives, with the two device
+ranged and degraded GET, and heal over local drives, with the device
 kernels of that path written by hand for Hopper (``csrc/``):
 
   * ``gf8_apply.cu``: GF(2^8) matrix apply (encode, decode, heal);
   * ``hh256.cu``: keyed HighwayHash-256 bitrot digests (PUT framing, GET
-    verification, heal re-framing).
+    verification, heal re-framing);
+  * ``rs_fused.cu``: parity and digests in one pass, the PUT of the mesh
+    data plane (``parallel.mesh``, ``ops.rs_mesh``) on one device.
 
 The device decides the engine: a CUDA tensor goes to the kernel, a CPU
 tensor to the plain PyTorch version beside it.  Entry points default to

@@ -9,7 +9,9 @@ versions of the kernels.
 from __future__ import annotations
 
 import subprocess
+import warnings
 
+import numpy as np
 import torch
 
 
@@ -27,6 +29,17 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_tensor(data, device: torch.device) -> torch.Tensor:
+    """Bytes-like or tensor -> flat uint8 tensor on ``device``."""
+    if isinstance(data, torch.Tensor):
+        return data.reshape(-1).to(device)
+    buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+    with warnings.catch_warnings():
+        # read-only source: torch warns, but nothing writes through it
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(buf).to(device)
 
 
 def card_name_and_power_limit() -> str:

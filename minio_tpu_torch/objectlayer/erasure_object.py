@@ -4,7 +4,8 @@
   * PUT: objects up to 128 KiB are framed into xl.meta (inline); larger
     ones are encoded in 64 MiB stripe batches (a whole number of blocks),
     each batch one Kernel A launch for the parity and one Kernel B launch
-    for the bitrot digests (a short last block adds one of each), then
+    for the bitrot digests (a short last block adds one of each) — or, on
+    a mesh set, one Kernel C launch for both (``rs_mesh``) — then
     written to the drives: one ``write_data_commit`` per drive when the
     object fits one batch, else tmp create/append and a quorum
     ``rename_data`` at the end.
@@ -32,8 +33,9 @@ import numpy as np
 import torch
 
 from ..hashing import bitrot
-from ..ops import gf8, rs_kernels
+from ..ops import gf8, rs_kernels, rs_mesh
 from ..ops.codec import Erasure
+from ..parallel.mesh import Mesh
 from ..storage import errors as serrors
 from ..storage.datatypes import (ChecksumInfo, ErasureInfo, FileInfo,
                                  ObjectPartInfo, now_ns)
@@ -94,7 +96,11 @@ class ErasureObjects:
 
     def __init__(self, disks: list, parity: Optional[int] = None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: run the data path on that device mesh (the mesh data
+        plane, ``minio_tpu``'s ``backend="mesh"``); ``device`` is then not
+        read."""
         if not disks:
             raise ValueError("no disks")
         self.disks = list(disks)
@@ -105,7 +111,7 @@ class ErasureObjects:
             raise ValueError("parity too large for drive count")
         self.block_size = block_size
         self.codec = Erasure(self.data_blocks, self.parity, block_size,
-                             device=device)
+                             device=device, mesh=mesh)
         self.device = self.codec.device
         self._pool = ThreadPoolExecutor(max_workers=n)
         self._lock = threading.Lock()
@@ -154,9 +160,15 @@ class ErasureObjects:
     def _encode_and_frame(self, chunk) -> np.ndarray:
         """Encode one batch of blocks and frame every shard on the device;
         returns the (k + m, framed_len) on-disk bytes on the host."""
-        shards = self.codec.encode_object(chunk)
-        return bitrot.frame_batch(shards, self.codec.shard_size()).cpu() \
-            .numpy()
+        codec = self.codec
+        if codec.mesh is not None:
+            framed = rs_mesh.encode_object_framed_fused(
+                codec.data_blocks, codec.parity_blocks, codec.block_size,
+                chunk, mesh=codec.mesh)
+        else:
+            framed = bitrot.frame_batch(codec.encode_object(chunk),
+                                        codec.shard_size())
+        return framed.cpu().numpy()
 
     def put_object(self, bucket: str, object_name: str, data,
                    opts: Optional[PutObjectOptions] = None) -> ObjectInfo:
@@ -344,7 +356,7 @@ class ErasureObjects:
             got = self._read_verified(
                 fi, part.number, shuffled, sfis, dead,
                 seg_off + bb0 * hlen, seg_len + (bb1 - bb0) * hlen, seg_len)
-            body = _assemble(got, fi, covered)
+            body = _assemble(self.codec, got, fi, covered)
             lo = max(offset - bb0 * bs, 0)
             hi = min(end - bb0 * bs, covered)
             yield body[lo:hi].tobytes()
@@ -449,22 +461,24 @@ def _disk_fileinfo(fi: FileInfo, shard_idx: int) -> FileInfo:
     return dfi
 
 
-def rebuild(rows: np.ndarray, surv: torch.Tensor, nfull: int, ss: int,
-            out: torch.Tensor) -> None:
-    """out[j] = rows[j] (GF) @ surv over a shard-file segment: all full
-    stripes in one Kernel A launch, the short last stripe in one more.
-    surv: (k, L) survivor payloads, out: (len(rows), L)."""
+def rebuild(codec: Erasure, rows: np.ndarray, surv: torch.Tensor,
+            nfull: int, ss: int, out: torch.Tensor) -> None:
+    """out[j] = rows[j] (GF) @ surv over a shard-file segment through the
+    codec's GF engine: all full stripes in one launch, the short last
+    stripe in one more.  surv: (k, L) survivor payloads, out:
+    (len(rows), L)."""
     if nfull:
         span = nfull * ss
-        rs_kernels.apply_matrix(
+        codec.apply_matrix(
             rows, surv[:, :span].unflatten(1, (nfull, ss)).transpose(0, 1),
             out=out[:, :span].unflatten(1, (nfull, ss)).transpose(0, 1))
     if surv.shape[1] > nfull * ss:
-        rs_kernels.apply_matrix(rows, surv[:, nfull * ss:],
-                                out=out[:, nfull * ss:])
+        codec.apply_matrix(rows, surv[:, nfull * ss:],
+                           out=out[:, nfull * ss:])
 
 
-def _assemble(got: dict, fi: FileInfo, covered: int) -> np.ndarray:
+def _assemble(codec: Erasure, got: dict, fi: FileInfo,
+              covered: int) -> np.ndarray:
     """Rebuild missing data shards of a segment and concatenate the data
     blocks without their padding (writeDataBlocks, cmd/erasure-utils.go:40);
     returns ``covered`` bytes on the host."""
@@ -483,8 +497,8 @@ def _assemble(got: dict, fi: FileInfo, covered: int) -> np.ndarray:
         rows = rs_kernels.decode_rows(gf8.rs_matrix(k, k + m), k, present,
                                       missing)
         rebuilt = any_row.new_empty((len(missing), any_row.numel()))
-        rebuild(rows, torch.stack([got[i] for i in present]), nfull, ss,
-                rebuilt)
+        rebuild(codec, rows, torch.stack([got[i] for i in present]), nfull,
+                ss, rebuilt)
         data[missing] = rebuilt
     out = any_row.new_empty(covered)
     if nfull:

@@ -3,10 +3,11 @@ objects, inline or in part files.
 
 Each drive is classified for the quorum version as ok / offline / missing
 / outdated / corrupt.  The missing, outdated and corrupt shards are
-rebuilt from k verified healthy ones: one Kernel A launch for all full
-stripes (and one for the short last stripe), framed on the device with
-Kernel B, and committed to each stale drive with tmp + ``rename_data``
-(or into xl.meta for inline objects).
+rebuilt from k verified healthy ones through the set's codec (its device
+or mesh): one Kernel A launch for all full stripes (and one for the short
+last stripe), framed on the device with Kernel B, and committed to each
+stale drive with tmp + ``rename_data`` (or into xl.meta for inline
+objects).
 """
 
 from __future__ import annotations
@@ -113,8 +114,8 @@ def heal_object(er: ErasureObjects, bucket: str,
                                       healable)
         surv = torch.stack([got[i] for i in present])
         rebuilt = surv.new_empty((len(healable), sfsize))
-        rebuild(rows, surv, part.size // ec.block_size, ec.shard_size(),
-                rebuilt)
+        rebuild(er.codec, rows, surv, part.size // ec.block_size,
+                ec.shard_size(), rebuilt)
         framed = bitrot.frame_batch(rebuilt, ec.shard_size()).cpu().numpy()
         src = fi
     inline = any(f is not None and f.inline_data is not None for f in s_fis)

@@ -3,8 +3,9 @@
 Each source is compiled on first use with nvcc into its own shared
 library under ``minio_tpu_torch/build/`` and loaded with ctypes: a plain
 C interface, pointers and the stream passed as ``c_void_p``.  The library
-name carries a hash of its source and flags, so an edited kernel is never
-served from a stale build.  A failed build raises; nothing falls back.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited kernel is never served from a stale build.  A
+failed build raises; nothing falls back.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no nvcc.
@@ -26,7 +27,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("gf8_apply", "hh256")
+SOURCES = ("gf8_apply", "hh256", "rs_fused")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -54,6 +55,8 @@ def _nvcc() -> str:
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     tag = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):      # shared device code
+        tag.update(header.read_bytes())
     return src, BUILD / f"lib{name}-{tag.hexdigest()[:12]}.so"
 
 

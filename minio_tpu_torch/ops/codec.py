@@ -1,22 +1,24 @@
 """Erasure codec — the port's counterpart of MinIO's ``Erasure``
 (cmd/erasure-coding.go:28-143, ``minio_tpu/ops/codec.py``).
 
-One (k, m, blockSize) geometry on one device.  Shards are uint8 tensors on
-that device; the GF(2^8) work runs through ``rs_kernels.apply_matrix``
-(Kernel A on a card, its plain version on the CPU).  The shard layout,
-padding and matrix are those of klauspost/reedsolomon's defaults, so the
-shard files equal ``minio_tpu``'s byte for byte.
+One (k, m, blockSize) geometry on one device, or on a device mesh.
+Shards are uint8 tensors on that device; the GF(2^8) work runs through
+``apply_matrix``: ``rs_kernels.apply_matrix`` (Kernel A on a card, its
+plain version on the CPU), or with a mesh ``rs_mesh.apply_matrix`` (the
+counterpart of ``backend="mesh"``).  The device, never a backend string,
+decides kernel against plain version.  The shard layout, padding and
+matrix are those of klauspost/reedsolomon's defaults, so the shard files
+equal ``minio_tpu``'s byte for byte.
 """
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
-from ..device import resolve
-from . import gf8, rs_kernels
+from ..device import as_tensor, resolve
+from ..parallel.mesh import Mesh
+from . import gf8, rs_kernels, rs_mesh
 
 MAX_SHARDS = 256  # data + parity <= 256 (cmd/erasure-coding.go:41)
 
@@ -25,22 +27,14 @@ class ErasureError(ValueError):
     pass
 
 
-def as_tensor(data, device: torch.device) -> torch.Tensor:
-    """Bytes-like or tensor -> flat uint8 tensor on ``device``."""
-    if isinstance(data, torch.Tensor):
-        return data.reshape(-1).to(device)
-    buf = np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
-    with warnings.catch_warnings():
-        # read-only source: torch warns, but nothing writes through it
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(buf).to(device)
-
-
 class Erasure:
     """Erasure coding for one (k, m, block size) geometry."""
 
     def __init__(self, data_blocks: int, parity_blocks: int,
-                 block_size: int, device: str | torch.device = "cuda"):
+                 block_size: int, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
+        """``mesh``: run on that device mesh (the mesh data plane); the
+        codec's device is then the mesh's and ``device`` is not read."""
         if data_blocks <= 0 or parity_blocks <= 0:
             raise ErasureError("invalid shard number")
         if data_blocks + parity_blocks > MAX_SHARDS:
@@ -48,8 +42,23 @@ class Erasure:
         self.data_blocks = data_blocks
         self.parity_blocks = parity_blocks
         self.block_size = int(block_size)
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = (rs_mesh.mesh_device(mesh) if mesh is not None
+                       else resolve(device))
         self.matrix = gf8.rs_matrix(data_blocks, data_blocks + parity_blocks)
+
+    # -- the GF(2^8) engine --------------------------------------------------
+
+    def apply_matrix(self, rows: np.ndarray, shards: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+        """out[b] = rows (GF) @ shards[b] on the codec's device or mesh."""
+        if self.mesh is not None:
+            return rs_mesh.apply_matrix(rows, shards, out, mesh=self.mesh)
+        return rs_kernels.apply_matrix(rows, shards, out)
+
+    def _encode_parity(self, data: torch.Tensor, out: torch.Tensor) -> None:
+        self.apply_matrix(np.asarray(self.matrix)[self.data_blocks:], data,
+                          out)
 
     # -- coding ------------------------------------------------------------
 
@@ -63,7 +72,7 @@ class Erasure:
         per = gf8.ceil_frac(buf.numel(), k)
         shards = buf.new_zeros((k + m, per))
         shards[:k].view(-1)[:buf.numel()] = buf
-        rs_kernels.encode_parity(shards[:k], m, self.matrix, out=shards[k:])
+        self._encode_parity(shards[:k], shards[k:])
         return list(shards)
 
     def encode_object(self, data) -> torch.Tensor:
@@ -72,7 +81,7 @@ class Erasure:
         Returns (k + m, L) uint8 on the codec's device; row i is the
         concatenation of shard i of every block, as block-by-block
         encode_data writes it (cmd/erasure-encode.go:80-107).  All full
-        blocks go through one Kernel A launch that reads the data rows and
+        blocks go through one GF launch that reads the data rows and
         writes the parity rows in place; the short last block takes one
         more."""
         buf = as_tensor(data, self.device)
@@ -93,15 +102,13 @@ class Erasure:
                 padded = buf.new_zeros((nfull, k * ss))
                 padded[:, :bs] = buf[:nfull * bs].view(nfull, bs)
                 stripes[:, :k] = padded.view(nfull, k, ss)
-            rs_kernels.encode_parity(stripes[:, :k], m, self.matrix,
-                                     out=stripes[:, k:])
+            self._encode_parity(stripes[:, :k], stripes[:, k:])
         if tail:
             tstripe = out[:, nfull * ss:]
             flat = buf.new_zeros(k * t_ss)
             flat[:tail] = buf[nfull * bs:]
             tstripe[:k] = flat.view(k, t_ss)
-            rs_kernels.encode_parity(tstripe[:k], m, self.matrix,
-                                     out=tstripe[k:])
+            self._encode_parity(tstripe[:k], tstripe[k:])
         return out
 
     def _reconstruct(self, shards, data_only: bool) -> list:
@@ -111,7 +118,8 @@ class Erasure:
         return rs_kernels.reconstruct(shards, self.data_blocks,
                                       self.parity_blocks,
                                       data_only=data_only,
-                                      matrix=self.matrix)
+                                      matrix=self.matrix,
+                                      apply=self.apply_matrix)
 
     def decode_data_blocks(self, shards: list) -> list:
         """DecodeDataBlocks (cmd/erasure-coding.go:89): rebuild the data

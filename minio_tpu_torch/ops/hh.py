@@ -109,6 +109,13 @@ def hh256_batch_ref(blocks: torch.Tensor, key: bytes = MAGIC_KEY,
     """Plain version of Kernel B: the HighwayHash-256 of each row as
     little-endian bytes, or with ``out_bytes=8`` its HighwayHash-64."""
     COUNTS.plain += 1
+    return hh_plain(blocks, key, out_bytes)
+
+
+def hh_plain(blocks: torch.Tensor, key: bytes = MAGIC_KEY,
+             out_bytes: int = 32) -> torch.Tensor:
+    """``hh256_batch_ref`` without the count, for plain versions of other
+    kernels that contain this hash."""
     lead, n = tuple(blocks.shape[:-1]), blocks.shape[-1]
     rows = blocks.reshape(math.prod(lead), n)
     R, dev = rows.shape[0], rows.device

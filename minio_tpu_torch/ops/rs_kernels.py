@@ -57,6 +57,12 @@ def _device_coef(key: bytes, r: int, k: int,
 def gf_apply_ref(M: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
     """Plain version of Kernel A: (B, k, n) uint8 -> (B, r, n) uint8."""
     COUNTS.plain += 1
+    return gf_apply_plain(M, shards)
+
+
+def gf_apply_plain(M: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
+    """``gf_apply_ref`` without the count, for plain versions of other
+    kernels that contain this product."""
     B, k, n = shards.shape
     r = M.shape[0]
     E = torch.from_numpy(gf8.gf2_expand(M).astype(np.float32)).to(
@@ -164,12 +170,14 @@ def decode_rows(matrix: np.ndarray, data_blocks: int,
 
 def reconstruct(shards: list, data_blocks: int, parity_blocks: int,
                 data_only: bool = False,
-                matrix: np.ndarray | None = None) -> list:
+                matrix: np.ndarray | None = None,
+                apply=None) -> list:
     """Rebuild the missing (None or empty) shards of one stripe.
 
     ``shards``: k+m entries, present ones equal-length 1-D uint8 tensors
     on one device.  Returns a new list with the missing data shards (and
-    parity shards unless ``data_only``) filled in."""
+    parity shards unless ``data_only``) filled in.  ``apply(rows,
+    shards)`` is the GF product (default ``apply_matrix``)."""
     total = data_blocks + parity_blocks
     if len(shards) != total:
         raise ValueError("wrong shard count")
@@ -188,7 +196,8 @@ def reconstruct(shards: list, data_blocks: int, parity_blocks: int,
         return out
     use = present[:data_blocks]
     rows = decode_rows(matrix, data_blocks, use, missing)
-    rebuilt = apply_matrix(rows, torch.stack([shards[i] for i in use]))
+    rebuilt = (apply or apply_matrix)(
+        rows, torch.stack([shards[i] for i in use]))
     for j, i in enumerate(missing):
         out[i] = rebuilt[j]
     return out

@@ -8,6 +8,10 @@ drive by drive, each layer must read the other's objects, a GET with four
 drives wiped must return the body, and heal must restore the wiped files
 byte for byte.
 
+The same checks run on the port's mesh engine (``ErasureObjects(mesh=
+<1 x 1 CPU mesh>)``, the counterpart of ``backend="mesh"``), whose PUT
+goes through Kernel C's plain version instead of Kernels A and B.
+
 The reference layer runs with its writer plane off (``_pipe_depth = 0``):
 with it on, objects past the inline threshold go to packed segment files,
 which this slice of the port does not read.
@@ -20,12 +24,14 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 import minio_tpu.objectlayer.erasure_object as ref_eo
 from minio_tpu.storage.xl_meta import XLMeta as RefXLMeta
 from minio_tpu.storage.xl_storage import XLStorage as RefStorage
 from minio_tpu_torch.objectlayer import erasure_object as port_eo
-from minio_tpu_torch.ops import hh, rs_kernels
+from minio_tpu_torch.ops import hh, rs_fused, rs_kernels
+from minio_tpu_torch.parallel.mesh import make_mesh
 from minio_tpu_torch.storage.xl_storage import XLStorage
 
 N, M, BS = 16, 4, 4096
@@ -45,13 +51,19 @@ def _name(size: int) -> str:
     return f"obj-{size}"
 
 
-def _port_layer(root) -> port_eo.ErasureObjects:
+def _engine(mesh: bool) -> dict:
+    """The port's engine: the CPU device, or a 1 x 1 CPU mesh."""
+    return ({"mesh": make_mesh([torch.device("cpu")])} if mesh
+            else {"device": "cpu"})
+
+
+def _port_layer(root, mesh: bool = False) -> port_eo.ErasureObjects:
     disks = []
     for i in range(N):
         os.makedirs(f"{root}/d{i}", exist_ok=True)
         disks.append(XLStorage(f"{root}/d{i}"))
     return port_eo.ErasureObjects(disks, parity=M, block_size=BS,
-                                  device="cpu")
+                                  **_engine(mesh))
 
 
 def _ref_layer(root) -> ref_eo.ErasureObjects:
@@ -65,20 +77,29 @@ def _ref_layer(root) -> ref_eo.ErasureObjects:
     return lay
 
 
-@pytest.fixture(scope="module")
-def layers(tmp_path_factory):
+def _build_layers(tmp_path_factory, mesh: bool):
     mp = pytest.MonkeyPatch()
     mp.setattr(port_eo, "STREAM_BATCH_BYTES", BATCH)
     mp.setattr(ref_eo, "STREAM_BATCH_BYTES", BATCH)
     root = tmp_path_factory.mktemp("eo")
-    port, ref = _port_layer(root / "port"), _ref_layer(root / "ref")
+    port, ref = _port_layer(root / "port", mesh), _ref_layer(root / "ref")
     for lay in (port, ref):
         lay.make_bucket(BUCKET)
         for size in SIZES:
             lay.put_object(BUCKET, _name(size), _body(size))
-    yield root, port, ref
+    yield root, port, ref, mesh
     port.close()
     mp.undo()
+
+
+@pytest.fixture(scope="module")
+def layers(tmp_path_factory):
+    yield from _build_layers(tmp_path_factory, mesh=False)
+
+
+@pytest.fixture(scope="module")
+def mesh_layers(tmp_path_factory):
+    yield from _build_layers(tmp_path_factory, mesh=True)
 
 
 def _shard_bytes(root, size: int, i: int) -> bytes:
@@ -92,8 +113,7 @@ def _shard_bytes(root, size: int, i: int) -> bytes:
         return RefXLMeta.load(f.read()).versions[0]["inline"]
 
 
-@pytest.mark.parametrize("size", SIZES)
-def test_shard_files_match_reference(layers, size):
+def _check_shard_files(layers, size):
     root = layers[0]
     inline = size <= INLINE
     for i in range(N):
@@ -106,8 +126,17 @@ def test_shard_files_match_reference(layers, size):
 
 
 @pytest.mark.parametrize("size", SIZES)
-def test_each_layer_reads_the_other(layers, tmp_path, size):
-    root, port, ref = layers
+def test_shard_files_match_reference(layers, size):
+    _check_shard_files(layers, size)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_mesh_shard_files_match_reference(mesh_layers, size):
+    _check_shard_files(mesh_layers, size)
+
+
+def _check_reads(layers, size):
+    root, port, ref, mesh = layers
     body = _body(size)
     info, got = port.get_object(BUCKET, _name(size))
     assert got == body
@@ -116,7 +145,7 @@ def test_each_layer_reads_the_other(layers, tmp_path, size):
     # swap: each layer over the other's drives
     port_on_ref = port_eo.ErasureObjects(
         [XLStorage(f"{root}/ref/d{i}") for i in range(N)], parity=M,
-        block_size=BS, device="cpu")
+        block_size=BS, **_engine(mesh))
     ref_on_port = ref_eo.ErasureObjects(
         [RefStorage(f"{root}/port/d{i}") for i in range(N)], parity=M,
         block_size=BS, backend="numpy")
@@ -132,6 +161,16 @@ def test_each_layer_reads_the_other(layers, tmp_path, size):
         port_on_ref.close()
 
 
+@pytest.mark.parametrize("size", SIZES)
+def test_each_layer_reads_the_other(layers, size):
+    _check_reads(layers, size)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_mesh_each_layer_reads_the_other(mesh_layers, size):
+    _check_reads(mesh_layers, size)
+
+
 def _wipe_data_drives(root, layer, name: str, count: int) -> list[int]:
     """Remove the object from the drives holding its first ``count`` data
     shards; returns their drive numbers."""
@@ -143,11 +182,12 @@ def _wipe_data_drives(root, layer, name: str, count: int) -> list[int]:
     return victims
 
 
-@pytest.mark.parametrize("size", [INLINE - 1, 3 * BS + 777,
-                                  2 * BATCH + 3 * BS + 5])
-def test_degraded_get_and_heal(tmp_path, monkeypatch, size):
+HEAL_SIZES = [INLINE - 1, 3 * BS + 777, 2 * BATCH + 3 * BS + 5]
+
+
+def _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh):
     monkeypatch.setattr(port_eo, "STREAM_BATCH_BYTES", BATCH)
-    lay = _port_layer(tmp_path)
+    lay = _port_layer(tmp_path, mesh)
     try:
         lay.make_bucket(BUCKET)
         body, name = _body(size), _name(size)
@@ -179,6 +219,16 @@ def test_degraded_get_and_heal(tmp_path, monkeypatch, size):
         lay.close()
 
 
+@pytest.mark.parametrize("size", HEAL_SIZES)
+def test_degraded_get_and_heal(tmp_path, monkeypatch, size):
+    _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh=False)
+
+
+@pytest.mark.parametrize("size", HEAL_SIZES)
+def test_mesh_degraded_get_and_heal(tmp_path, monkeypatch, size):
+    _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh=True)
+
+
 def test_delete_and_missing(tmp_path):
     lay = _port_layer(tmp_path)
     try:
@@ -206,5 +256,31 @@ def test_path_uses_plain_versions_on_cpu(tmp_path):
         assert lay.get_object(BUCKET, "o")[1] == _body(3 * BS)
         assert rs_kernels.COUNTS.launches == hh.COUNTS.launches == 0
         assert rs_kernels.COUNTS.plain > 0 and hh.COUNTS.plain > 0
+    finally:
+        lay.close()
+
+
+def test_mesh_put_runs_kernel_c_plain_version(tmp_path, monkeypatch):
+    """On the mesh engine PUT runs Kernel C's plain version (one pass per
+    batch's full blocks and one per short last block), never Kernel A's or
+    Kernel B's; degraded GET and heal still run A and B."""
+    monkeypatch.setattr(port_eo, "STREAM_BATCH_BYTES", BATCH)
+    lay = _port_layer(tmp_path, mesh=True)
+    try:
+        lay.make_bucket(BUCKET)
+        for c in (rs_fused.COUNTS, rs_kernels.COUNTS, hh.COUNTS):
+            c.reset()
+        size = 2 * BATCH + 3 * BS + 5          # 3 batches, a short tail
+        body = _body(size)
+        lay.put_object(BUCKET, "o", body)
+        assert rs_fused.COUNTS.plain == 4
+        assert rs_kernels.COUNTS.plain == hh.COUNTS.plain == 0
+        assert rs_fused.COUNTS.launches == rs_kernels.COUNTS.launches == \
+            hh.COUNTS.launches == 0
+        _wipe_data_drives(tmp_path, lay, "o", M)
+        assert lay.get_object(BUCKET, "o")[1] == body
+        lay.heal_object(BUCKET, "o")
+        assert rs_kernels.COUNTS.plain > 0 and hh.COUNTS.plain > 0
+        assert rs_fused.COUNTS.plain == 4
     finally:
         lay.close()
