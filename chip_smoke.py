@@ -9,11 +9,17 @@
    decode rows of 4 lost data shards) and at ragged shapes; exact.
 3. Kernel B (csrc/hh256.cu) against its plain version on the card, at the
    path's shape (96 rows x 873,814 bytes) and at ragged lengths, and both
-   against the published HighwayHash test vectors; exact.
+   against the published HighwayHash test vectors; exact.  Timed at 1, 16
+   and 96 rows x 873,814 bytes, in ns per packet of a row's chain.
 4. Kernel C (csrc/rs_fused.cu) against its plain version on the card, at
    the path's shape (6 stripes, 12 + 4, 873,814 bytes, parity hashed),
    against Kernel A then Kernel B at that shape, at ragged shapes in both
-   hash_parity modes, and in place inside a frame tensor; exact.
+   hash_parity modes (one with two hashing warps), and in place inside a
+   frame tensor; exact.  Timed
+   with and without the hash (n_real=0).
+   Kernels B and C report their bound as the larger of the byte bound and
+   the chain bound (one row's packet updates in series), which is the
+   chain.
 5. The path: a 16-drive erasure set (12 data + 4 parity, 10 MiB blocks)
    under a temporary directory.  PUT seeded objects (0 B to 256 MiB), GET
    each whole and as a range, wipe the drives holding four data shards of
@@ -83,6 +89,16 @@ def rand_bytes(shape, gen) -> torch.Tensor:
                          generator=gen)
 
 
+def bounds(nbytes: int, clock_mhz: float) -> dict:
+    """The bound fields of a hashing kernel: bytes moved over the card's
+    memory rate, the chain bound, and the larger of the two."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain_bound_ms(clock_mhz)
+    return {"bound_ms": max(byte_ms, chain_ms),
+            "bound_by": "chain" if chain_ms >= byte_ms else "bytes",
+            "byte_bound_ms": byte_ms, "chain_bound_ms": chain_ms}
+
+
 def chain_bound_ms(clock_mhz: float) -> float:
     """The least time one row's HighwayHash-256 at the path's shard width
     can take: its packet, remainder and 10 permute updates in series, each
@@ -140,7 +156,7 @@ HH256_VECTOR_0 = (0xDD44482AC2C874F5, 0xD946017313C7351F,
                   0xB3AEBECCB98714FF, 0x41DA233145751DF4)
 
 
-def phase_kernel_b(gen, clock_mhz: float) -> dict:
+def phase_kernel_b(gen, clock_mhz: float, card: str) -> dict:
     from minio_tpu_torch.ops import hh
     for n, want in HH64_VECTORS.items():
         row = torch.arange(n, dtype=torch.uint8, device="cuda").reshape(1, n)
@@ -164,27 +180,29 @@ def phase_kernel_b(gen, clock_mhz: float) -> dict:
     plain = []                     # one run: the chain takes ~30 s here
     plain_ms = cuda_ms(lambda: plain.append(hh.hh256_batch_ref(x)), 1)
     check(torch.equal(got, plain[0]), f"kernel B at {rows} rows x {N_PATH}")
-    ms = cuda_ms(lambda: hh.hh256_batch(x), 5)
-    # one stripe's 16 rows: half of one warp, as Kernel C hashes them
-    ms16 = cuda_ms(lambda: hh.hh256_batch(x[:K + M]), 5)
-    nbytes = rows * N_PATH + rows * 32
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    cuda_ms(lambda: hh.hh256_batch(x), 1)                 # warm
+    by_rows = {r: cuda_ms(lambda: hh.hh256_batch(x[:r]), 5)
+               for r in (1, K + M, rows)}
+    ms = by_rows[rows]
     packets = N_PATH // 32
-    chain_ms = chain_bound_ms(clock_mhz)
+    b = bounds(rows * N_PATH + rows * 32, clock_mhz)
+    times = ", ".join(f"{r} rows {t:.4f} ms ({t * 1e6 / packets:.1f} ns per "
+                      "packet)" for r, t in by_rows.items())
     print(f"kernel B: published vectors and {len(lengths)} ragged lengths x "
-          f"300 rows exact; {rows} rows x {N_PATH}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.1f} ms (one run), bound {bound_ms:.4f} ms "
-          f"(bytes), chain bound {chain_ms:.4f} ms; chain of {packets} "
-          f"packets per row: "
-          f"{ms * 1e6 / packets:.1f} ns per packet; {K + M} rows: "
-          f"{ms16:.4f} ms, {ms16 * 1e6 / packets:.1f} ns per packet")
+          f"300 rows exact, and {rows} rows x {N_PATH}; plan "
+          f"{hh.plan(rows, N_PATH)}; x {N_PATH}: {times}; plain "
+          f"{plain_ms:.1f} ms (one run, {rows} rows); byte bound "
+          f"{b['byte_bound_ms']:.4f} ms, chain bound "
+          f"{b['chain_bound_ms']:.4f} ms ({packets} packets per row); {card}")
     return {"name": "hh256", "route": "cuda",
             "source": "minio_tpu_torch/csrc/hh256.cu",
             "replaces": "minio_tpu/ops/hh_pallas.py:163",
             "exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "chain_bound_ms": chain_ms, "shape": [rows, N_PATH],
-            "chain_packets": packets, "ms_16_rows": ms16}
+            **b, "library_ms": None, "shape": [rows, N_PATH],
+            "chain_packets": packets,
+            "ms_by_rows": {str(r): t for r, t in by_rows.items()},
+            "ns_per_packet_by_rows": {str(r): t * 1e6 / packets
+                                      for r, t in by_rows.items()}}
 
 
 def phase_encode_layout(gen) -> None:
@@ -197,10 +215,11 @@ def phase_encode_layout(gen) -> None:
     check(torch.equal(got.cpu(), want), "encode_object cuda vs cpu")
 
 
-def phase_kernel_c(gen, clock_mhz: float) -> dict:
+def phase_kernel_c(gen, clock_mhz: float, card: str) -> dict:
     from minio_tpu_torch.ops import gf8, hh, rs_fused, rs_kernels
     ragged = 0
-    for k, m in ((K, M), (4, 2), (5, 1), (3, 2)):
+    # (20, 4): more than 16 hashed rows, a second hashing warp
+    for k, m in ((K, M), (4, 2), (5, 1), (3, 2), (20, 4)):
         mat = gf8.rs_matrix(k, k + m)[k:]
         for n in (1, 31, 32, 33, 2047, 2048, 2049, 4097):
             for b in (1, 7):
@@ -241,30 +260,31 @@ def phase_kernel_c(gen, clock_mhz: float) -> dict:
     check(torch.equal(got[0], par_a) and torch.equal(got[1], dig_b),
           "kernel C against Kernel A then Kernel B at the path shape")
     ms = cuda_ms(lambda: rs_fused.encode_hash_device(enc, data), 10)
-    # the same launch with an empty hashed width: tile loads, parity and
-    # stores only; the difference is the hash phases
+    # the same launch with an empty hashed width: loads, product and
+    # stores only, the hashing warp idle
     nohash_ms = cuda_ms(
         lambda: rs_fused.encode_hash_device(enc, data, n_real=0), 10)
     rows = K + M
     nbytes = B_PATH * rows * N_PATH + B_PATH * rows * 32
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    chain_ms = chain_bound_ms(clock_mhz)
+    b = bounds(nbytes, clock_mhz)
     packets = N_PATH // 32
     print(f"kernel C: exact against its plain version at {ragged} ragged "
           f"shapes, in place in a frame tensor, and at the path shape, and "
-          f"against Kernel A then Kernel B there; B={B_PATH} k={K} r={M} "
-          f"n={N_PATH}: kernel {ms:.4f} ms (of which without the hash "
-          f"phases {nohash_ms:.4f} ms), plain {plain_ms:.1f} ms (one run), "
-          f"byte bound {bound_ms:.4f} ms ({nbytes} bytes), chain bound "
-          f"{chain_ms:.4f} ms; "
-          f"{ms * 1e6 / packets:.1f} ns per packet, hash phases "
-          f"{(ms - nohash_ms) * 1e6 / packets:.1f} ns per packet")
+          f"against Kernel A then Kernel B there; plan "
+          f"{rs_fused.plan(B_PATH, K, M, N_PATH)}; B={B_PATH} k={K} r={M} "
+          f"n={N_PATH}: kernel {ms:.4f} ms ({ms * 1e6 / packets:.1f} ns per "
+          f"packet), without the hash {nohash_ms:.4f} ms "
+          f"({nohash_ms * 1e6 / packets:.1f} ns per packet), plain "
+          f"{plain_ms:.1f} ms (one run), byte bound "
+          f"{b['byte_bound_ms']:.4f} ms ({nbytes} bytes), chain bound "
+          f"{b['chain_bound_ms']:.4f} ms; {card}")
     return {"name": "rs_fused", "route": "cuda",
             "source": "minio_tpu_torch/csrc/rs_fused.cu",
             "replaces": "minio_tpu/ops/rs_fused.py:171",
             "exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "chain_bound_ms": chain_ms, "nohash_ms": nohash_ms,
+            **b, "library_ms": None, "nohash_ms": nohash_ms,
+            "ns_per_packet": ms * 1e6 / packets,
+            "nohash_ns_per_packet": nohash_ms * 1e6 / packets,
             "shape": [B_PATH, K, M, N_PATH], "chain_packets": packets}
 
 
@@ -491,8 +511,8 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261016)
-    kernels = [phase_kernel_a(gen), phase_kernel_b(gen, clock),
-               phase_kernel_c(gen, clock)]
+    kernels = [phase_kernel_a(gen), phase_kernel_b(gen, clock, card),
+               phase_kernel_c(gen, clock, card)]
     phase_encode_layout(gen)
     bodies = make_bodies(gen)
     path, parts = phase_path(bodies, card)

@@ -11,251 +11,370 @@
 // permute rounds and the reduction to XLA (_digests_from_planes).  Here the
 // kernel finishes the digests itself, as hh256.cu does.
 //
-// Bound: the per-row packet chain, not bytes.  Each row is a chain of
-// n / 32 dependent packet updates; at the PUT path's widths (873,814-byte
-// shards) that chain takes far longer than moving the stripe's bytes.  The
-// standalone hash kernel (hh256.cu) feeds its chain from device memory and
-// waits on memory latency between packets; here the chain reads packets
-// from shared memory, which the block filled for the GF(2^8) product
-// anyway, so no update waits on device memory.  The rows of a stripe share
-// one warp, so each packet costs that warp the update's instructions in
-// series: the instruction count, more than the dependency latency, sets
-// the pace (PERF.md, PR 3).
+// Bounds.  Bytes: data read once, parity and digests written once, over
+// 3.35 TB/s: 0.025 ms for a 64 MiB PUT batch (6 stripes x 12 + 4 rows x
+// 873,814 bytes).  The chain: each hashed row is n / 32 dependent packet
+// updates, then the remainder and 10 permute rounds (27,317 updates at
+// 873,814 bytes), 0.55 ms at 1,980 MHz (chip_smoke.py's chain bound).
+// The product, a stripe's 42 M byte products, is work for the integer
+// units of the stripe's one SM beside the hash: about 12 instructions per
+// byte column and data row here (cuobjdump -sass), at 2 cycles per warp
+// instruction on each of 3 schedulers.  At the path's shape that is about
+// 2.2 ms on an H100, above the chain, so the product paces this kernel
+// (PERF.md).
 //
-// Design (first, simple version):
-//   * one thread block owns one stripe and walks its width in tiles of
-//     `tile` bytes (a multiple of 32; the host plan picks it so the data
-//     and parity tiles fit the shared-memory budget);
-//   * phase 1: all threads copy the tile of the k data rows into shared
-//     memory.  Rows start anywhere (873,814 mod 16 = 6): a row's tile is
-//     copied in 16-byte chunks aligned to its device address, as vectors
-//     where the chunk lies inside the row and byte by byte at its two
-//     ends, so no load leaves the row.  The shared row keeps the device
-//     row's alignment mod 16 (row byte c at s_row + (addr & 15) + c);
-//   * phase 2: all threads compute the tile of the ro parity rows into
-//     shared memory, byte by byte, with the log/exp tables and the zero
-//     sentinel of gf8_apply.cu (log 0 = 510, exp[i >= 510] = 0), then
-//     store them to device memory the same chunked way;
-//   * phase 3: thread i < R (R = k, or k + ro with hash_parity) advances
-//     row i's state over the tile's packets, read from shared memory as
-//     aligned 8-byte words; the state stays in registers across tiles.
-//     After the last tile it hashes the remainder packet, runs the 10
-//     permute rounds and the reduction, and writes the digest.
-//   __syncthreads() separates the phases.  Overlapping the next tile's
-//   loads with this tile's hashing is later work.
+// What held the first version back (PERF.md; NVIDIA H100 80GB HBM3 at
+// 700 W, as all times here): its tile loads, its
+// GF(2^8) product (60 dependent shared-memory log/exp lookups per byte
+// column and four parity rows) and its hash ran as three phases in series
+// between __syncthreads, the hash on 16 threads of one warp issuing the
+// whole update per row: 10.29 ms, of which 6.49 ms without the hash.
+// This design is a warp-specialised pipeline, one block per stripe:
+//   * warp 4, the producer, fills a ring of kStages stages, each `tile`
+//     bytes of the k data rows, with cp.async (consecutive lanes on
+//     consecutive 16-byte chunks of a row), and marks a stage full on an
+//     mbarrier once its copies have landed.  Only a row's two ends are
+//     copied byte by byte (ring.cuh): byte copies at every stage edge
+//     would cost each stage a device-memory round trip per row;
+//   * warps 1-3 and 5-7, the product warps (on schedulers 1-3: warp w
+//     issues on scheduler w mod 4), compute each stage's parity into the
+//     ring, mark it on a second mbarrier, and store it to device memory.
+//     The product uses split-nibble tables, the GPU form of the PSHUFB
+//     method of klauspost/reedsolomon's galMulAVX2: c * x =
+//     Tlo[c][x & 15] ^ Thi[c][x >> 4].  A coefficient's two 16-byte tables
+//     are loaded into registers (two 16-byte loads, the same address in
+//     every lane) and looked up four data bytes at a time: __byte_perm
+//     picks entries 0-7 and 8-15 of each table by the nibble's low three
+//     bits, and a byte mask from its bit 3 selects between them.  The
+//     nibble selectors of a data word serve all parity rows, and the next
+//     data row's tables load while this one's are used;
+//   * warp 0, the hashing warp (scheduler 0, shared only with the light
+//     producer), hashes 16 rows with two lanes each (hh256_core.cuh) from
+//     the ring, behind the product, and marks the stage empty on a third
+//     mbarrier, which the product warps also arrive on; the producer waits
+//     for it before refilling the slot.  Stripes of more than 16 hashed
+//     rows (k + ro up to 256) add a hashing warp per 16 rows (warps 8 on),
+//     which share schedulers with the product warps.
+// A tensor-core product (int8 mma on 0/1 bit planes, as the TPU kernel
+// does on its MXU) would free the integer units, but expanding bytes to
+// bit planes and packing the sums back costs about as many integer
+// instructions as the table lookups it replaces.
+//
+// Layout: data rows keep their device alignment mod 16 in the ring
+// (ring.cuh); parity rows are written aligned (column c at row + c) and
+// the store realigns them to the device rows in 16-byte chunks, bytes at
+// the ends, so no byte outside the parity rows is written.  The row pitch
+// is tile + 16, 16 mod 128 bytes.
 //
 // Strides are in bytes and free on the batch and row axes of the data and
 // the parity; the column axis is dense.  Digests cover the first n_hash
 // bytes of each row (n_hash <= n) and go to a dense (B, R, 32) tensor.
-// The launch returns cudaGetLastError().
+// `tabs` holds Tlo then Thi (32 bytes) for each coefficient, (k, ro4)
+// row-major, ro4 = ro rounded up to a multiple of 4, zero past ro.  The
+// launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hh256_core.cuh"
+#include "ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 256;    // k + ro: one hashing thread per row
-constexpr int kExpLen = 1024;    // exp table, zero from index 510 on
-constexpr int kRT = 4;           // parity rows per pass of the GF loop
-constexpr int kPad = 32;         // row pitch = tile + kPad (see load_packet)
-constexpr int kMaxSmem = 232448; // opt-in shared memory of one H100 block
+constexpr int kStages = 4;          // ring slots
+constexpr int kMaxRows = 256;       // k + ro
+constexpr int kHashRows = 16;       // rows per hashing warp, two lanes each
+constexpr int kProdThreads = 192;   // warps 1-3 and 5-7
+constexpr int kProducerWarp = 4;
+constexpr int kWPT = 4;             // parity words per product thread and pass
+constexpr int kRT = 4;              // parity rows per pass
+constexpr int kBarBytes = 128;      // 3 x kStages mbarriers
+constexpr int kSlack = 16;          // reads past the ring's last row
+constexpr int kMaxSmem = 232448;    // opt-in shared memory of one H100 block
 
 struct Geometry {
   long long in_bstride, in_rstride, par_bstride, par_rstride, n, n_hash;
-  int B, k, ro, R, tile;
+  int B, k, ro, ro4, R, tile, hash_warps;
 };
 
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+__host__ __device__ inline int pitch_of(int tile) { return tile + 16; }
 
-// shared-memory layout in bytes; the host plan (ops/rs_fused.py::plan)
-// computes the same total
-struct Layout {
-  int log, coef, off, data, par, pitch, total;
-  __host__ __device__ Layout(int k, int ro, int tile) {
-    pitch = tile + kPad;
-    log = kExpLen;                                   // u16[256]
-    coef = log + 512;                                // u16[ro4][k]
-    off = coef + align16(2 * k * ((ro + kRT - 1) / kRT * kRT));
-    data = off + align16(k + ro);                    // u8 offsets
-    par = data + k * pitch;
-    total = par + ro * pitch;
-  }
+// shared memory in bytes; the host plan (ops/rs_fused.py::plan) computes
+// the same total
+__host__ inline int smem_bytes(int k, int ro, int tile) {
+  return kBarBytes + kStages * (k + ro) * pitch_of(tile) + kSlack;
+}
+
+// PTX prmt: byte i of the result is byte (s >> 4i) & 7 of (b:a), or with
+// bit 3 of that nibble set, its sign replicated.  __byte_perm ignores bit
+// 3, which costs a mask of the selector before every permute.
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// byte i of the result: 0xFF where bit 7 of byte i of x is set, else 0
+__device__ __forceinline__ uint32_t prmt_sign(uint32_t x) { return prmt(x, 0, 0xBA98u); }
+
+// selectors and masks of the four bytes of a data word
+struct Sel {
+  uint32_t slo, shi, mlo, mhi;
 };
 
-// global row tile [src, src + w) -> shared row buffer s (16-aligned):
-// device byte src + c lands at s + (src & 15) + c.  Work items are
-// (row, chunk) pairs over all rows, strided over the block's threads.
-__device__ __forceinline__ void load_rows(const uint8_t* base, long long rstride, int rows,
-                                          long long c0, int w, uint8_t* s, int pitch) {
-  const int chunks = (w + 30) / 16;  // ceil((15 + w) / 16)
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int j = idx / chunks, q = idx - j * chunks;
-    const uint8_t* src = base + j * rstride + c0;
-    const int lo = 16 * q - static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-    if (lo >= w) continue;
-    uint8_t* dst = s + j * pitch + 16 * q;
-    if (lo >= 0 && lo + 16 <= w) {
-      *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src + lo));
-    } else {
+__device__ __forceinline__ Sel selectors(uint32_t x) {
+  Sel s;
+  const uint32_t tl = x & 0x07070707u, th = (x >> 4) & 0x07070707u;
+  // nibble i of the low 16 bits: bits 0-2 of byte i's low / high nibble
+  s.slo = __byte_perm(tl | (tl >> 4), 0, 0x0020);
+  s.shi = __byte_perm(th | (th >> 4), 0, 0x0020);
+  s.mlo = prmt_sign(x << 4);  // bit 3 of each low nibble
+  s.mhi = prmt_sign(x);       // bit 3 of each high nibble
+  return s;
+}
+
+// 16-entry table t looked up at the four nibbles of (s, m); the selector
+// nibbles have bit 3 clear
+__device__ __forceinline__ uint32_t lookup(const uint4& t, uint32_t s, uint32_t m) {
+  const uint32_t a = prmt(t.x, t.y, s), b = prmt(t.z, t.w, s);
+  return (a & ~m) | (b & m);
+}
+
+// shared parity row s (column c at s + c) -> device row tile [dst, dst + w):
+// chunk q, aligned to the device address
+__device__ __forceinline__ void store_chunk(uint8_t* dst, int w, const uint8_t* s, int q) {
+  const int lo = 16 * q - static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
+  if (lo >= w) return;
+  if (lo >= 0 && lo + 16 <= w) {
+    uint64_t a, b;
+    ring::read16(s + lo, a, b);
+    *reinterpret_cast<uint4*>(dst + lo) =
+        make_uint4(static_cast<uint32_t>(a), static_cast<uint32_t>(a >> 32),
+                   static_cast<uint32_t>(b), static_cast<uint32_t>(b >> 32));
+  } else {
 #pragma unroll
-      for (int t = 0; t < 16; ++t)
-        if (lo + t >= 0 && lo + t < w) dst[t] = src[lo + t];
-    }
+    for (int t = 0; t < 16; ++t)
+      if (lo + t >= 0 && lo + t < w) dst[lo + t] = s[lo + t];
   }
 }
 
-// shared row buffers -> global row tiles, the inverse of load_rows
-__device__ __forceinline__ void store_rows(uint8_t* base, long long rstride, int rows,
-                                           long long c0, int w, const uint8_t* s, int pitch) {
-  const int chunks = (w + 30) / 16;  // ceil((15 + w) / 16)
-  for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-    const int j = idx / chunks, q = idx - j * chunks;
-    uint8_t* dst = base + j * rstride + c0;
-    const int lo = 16 * q - static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
-    if (lo >= w) continue;
-    const uint8_t* src = s + j * pitch + 16 * q;
-    if (lo >= 0 && lo + 16 <= w) {
-      *reinterpret_cast<uint4*>(dst + lo) = *reinterpret_cast<const uint4*>(src);
-    } else {
-#pragma unroll
-      for (int t = 0; t < 16; ++t)
-        if (lo + t >= 0 && lo + t < w) dst[lo + t] = src[t];
+__device__ __forceinline__ int width(const Geometry& g, long long c0) {
+  return static_cast<int>(g.n - c0 < g.tile ? g.n - c0 : g.tile);
+}
+
+__device__ void producer(const uint8_t* __restrict__ in, const Geometry& g, uint8_t* ring,
+                         uint64_t* full, uint64_t* empty) {
+  const int lane = threadIdx.x & 31;
+  const int pitch = pitch_of(g.tile), slot_bytes = (g.k + g.ro) * pitch;
+  unsigned gi = 0;  // stages issued by this block so far
+  for (int b = blockIdx.x; b < g.B; b += gridDim.x) {
+    const uint8_t* in_b = in + b * g.in_bstride;
+    for (long long c0 = 0; c0 < g.n; c0 += g.tile, ++gi) {
+      const int slot = gi % kStages;
+      if (gi >= kStages) ring::bar_wait(&empty[slot], (gi / kStages - 1) & 1);
+      const int w = width(g, c0), nc = ring::chunks(w);
+      uint8_t* base = ring + slot * slot_bytes;
+      for (int j = 0; j < g.k; ++j)
+        for (int q = lane; q < nc; q += 32)
+          ring::copy_chunk(in_b + j * g.in_rstride, g.n, c0, w, base + j * pitch, q);
+      ring::commit();
+      if (gi >= 1) {  // the previous stage's copies have landed
+        ring::wait_group<1>();
+        ring::bar_arrive(&full[(gi - 1) % kStages]);
+      }
     }
+  }
+  if (gi >= 1) {
+    ring::wait_group<0>();
+    ring::bar_arrive(&full[(gi - 1) % kStages]);
   }
 }
 
-// the 4 little-endian words of the packet at p, p in a shared row buffer.
-// Reads the 5 aligned words that cover it: at most 7 bytes past the
-// packet, inside the row's kPad slack.
-__device__ __forceinline__ void load_packet(const uint8_t* p, uint64_t (&lanes)[4]) {
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(p);
-  const int sh = static_cast<int>(addr & 7) * 8;
-  const uint64_t* w = reinterpret_cast<const uint64_t*>(addr & ~uintptr_t(7));
-  uint64_t x[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) x[i] = w[i];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) lanes[i] = sh ? (x[i] >> sh) | (x[i + 1] << (64 - sh)) : x[i];
-}
-
-__global__ void __launch_bounds__(kThreads)
-rs_fused_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ par,
-                const uint16_t* __restrict__ coef_log,  // (ro, k)
-                const uint16_t* __restrict__ log_tab,   // (256,)
-                const uint8_t* __restrict__ exp_tab,    // (1024,)
-                uint8_t* __restrict__ dig, hh::Key key, Geometry g) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const Layout L(g.k, g.ro, g.tile);
-  uint8_t* s_exp = smem;
-  uint16_t* s_log = reinterpret_cast<uint16_t*>(smem + L.log);
-  uint16_t* s_coef = reinterpret_cast<uint16_t*>(smem + L.coef);
-  uint8_t* s_off = smem + L.off;
-  uint8_t* s_data = smem + L.data;
-  uint8_t* s_par = smem + L.par;
-  const int ro4 = (g.ro + kRT - 1) / kRT * kRT;
-
-  for (int i = threadIdx.x; i < kExpLen; i += blockDim.x) s_exp[i] = exp_tab[i];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_log[i] = log_tab[i];
-  for (int i = threadIdx.x; i < ro4 * g.k; i += blockDim.x)
-    s_coef[i] = i < g.ro * g.k ? coef_log[i] : 510;
-
+__device__ void product(const uint8_t* __restrict__ in, uint8_t* __restrict__ par,
+                        const uint4* __restrict__ tabs, const Geometry& g, uint8_t* ring,
+                        uint64_t* full, uint64_t* prod, uint64_t* empty, int pt) {
+  const int pitch = pitch_of(g.tile), slot_bytes = (g.k + g.ro) * pitch;
+  unsigned gi = 0;
   for (int b = blockIdx.x; b < g.B; b += gridDim.x) {
     const uint8_t* in_b = in + b * g.in_bstride;
     uint8_t* par_b = par + b * g.par_bstride;
-    __syncthreads();  // the previous stripe's last hash phase is done
-    for (int i = threadIdx.x; i < g.k + g.ro; i += blockDim.x) {
-      const uint8_t* row = i < g.k ? in_b + i * g.in_rstride : par_b + (i - g.k) * g.par_rstride;
-      s_off[i] = static_cast<uint8_t>(reinterpret_cast<uintptr_t>(row) & 15);
-    }
-
-    hh::State st;
-    const int me = threadIdx.x;
-    const bool hashing = me < g.R;
-    if (hashing) hh::init(st, key);
-
-    for (long long c0 = 0; c0 < g.n; c0 += g.tile) {
-      const int w = static_cast<int>(g.n - c0 < g.tile ? g.n - c0 : g.tile);
-      __syncthreads();  // previous tile's hash phase is done with the buffers
-      load_rows(in_b, g.in_rstride, g.k, c0, w, s_data, L.pitch);
-      __syncthreads();
-
-      for (int c = threadIdx.x; c < w; c += blockDim.x) {
+    for (long long c0 = 0; c0 < g.n; c0 += g.tile, ++gi) {
+      const int slot = gi % kStages;
+      ring::bar_wait(&full[slot], (gi / kStages) & 1);
+      const int w = width(g, c0), words = (w + 3) >> 2;
+      uint8_t* base = ring + slot * slot_bytes;
+      uint8_t* pbase = base + g.k * pitch;
+      for (int c4 = pt * kWPT; c4 < words; c4 += kProdThreads * kWPT) {
         for (int og = 0; og < g.ro; og += kRT) {
-          uint8_t acc[kRT];
+          uint32_t acc[kRT][kWPT];
 #pragma unroll
-          for (int o = 0; o < kRT; ++o) acc[o] = 0;
-          for (int j = 0; j < g.k; ++j) {
-            const int lx = s_log[s_data[j * L.pitch + s_off[j] + c]];
-            const uint16_t* lc = s_coef + og * g.k + j;
+          for (int o = 0; o < kRT; ++o)
 #pragma unroll
-            for (int o = 0; o < kRT; ++o) acc[o] ^= s_exp[lx + lc[o * g.k]];
+            for (int m = 0; m < kWPT; ++m) acc[o][m] = 0;
+          // tables of data row j, parity rows og..og + 3, loaded one data
+          // row ahead of their use into the other of two buffers
+          auto load_tabs = [&](int j, uint4(&t)[kRT][2]) {
+            const uint4* p = tabs + 2 * (j * g.ro4 + og);
+#pragma unroll
+            for (int o = 0; o < kRT; ++o) {
+              t[o][0] = __ldg(p + 2 * o);
+              t[o][1] = __ldg(p + 2 * o + 1);
+            }
+          };
+          auto step = [&](int j, const uint4(&t)[kRT][2]) {
+            const int off = static_cast<int>(
+                reinterpret_cast<uintptr_t>(in_b + j * g.in_rstride) & 15);
+            uint64_t d01, d23;
+            ring::read16(base + j * pitch + off + 4 * c4, d01, d23);
+            const uint32_t x[kWPT] = {static_cast<uint32_t>(d01), static_cast<uint32_t>(d01 >> 32),
+                                      static_cast<uint32_t>(d23), static_cast<uint32_t>(d23 >> 32)};
+            Sel s[kWPT];
+#pragma unroll
+            for (int m = 0; m < kWPT; ++m) s[m] = selectors(x[m]);
+#pragma unroll
+            for (int o = 0; o < kRT; ++o)
+#pragma unroll
+              for (int m = 0; m < kWPT; ++m)
+                acc[o][m] ^= lookup(t[o][0], s[m].slo, s[m].mlo) ^
+                             lookup(t[o][1], s[m].shi, s[m].mhi);
+          };
+          uint4 ta[kRT][2], tb[kRT][2];
+          load_tabs(0, ta);
+          for (int j = 0; j < g.k; j += 2) {
+            if (j + 1 < g.k) load_tabs(j + 1, tb);
+            step(j, ta);
+            if (j + 1 < g.k) {
+              if (j + 2 < g.k) load_tabs(j + 2, ta);
+              step(j + 1, tb);
+            }
           }
 #pragma unroll
-          for (int o = 0; o < kRT; ++o) {
-            const int r = og + o;
-            if (r < g.ro) s_par[r * L.pitch + s_off[g.k + r] + c] = acc[o];
-          }
+          for (int o = 0; o < kRT; ++o)
+#pragma unroll
+            for (int m = 0; m < kWPT; ++m)
+              if (og + o < g.ro && c4 + m < words)
+                reinterpret_cast<uint32_t*>(pbase + (og + o) * pitch)[c4 + m] = acc[o][m];
         }
       }
-      __syncthreads();
-      store_rows(par_b, g.par_rstride, g.ro, c0, w, s_par, L.pitch);
-
-      if (hashing) {
-        const long long left = g.n_hash - c0;
-        const int hw = left <= 0 ? 0 : left < w ? static_cast<int>(left) : w;
-        const uint8_t* row = me < g.k ? s_data + me * L.pitch + s_off[me]
-                                      : s_par + (me - g.k) * L.pitch + s_off[me];
-        const int packets = hw >> 5;
-        if (packets > 0) {
-          uint64_t cur[4], nxt[4];
-          load_packet(row, cur);
-          for (int p = 1; p < packets; ++p) {
-            load_packet(row + 32 * p, nxt);
-            hh::update(st, cur);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
-          }
-          hh::update(st, cur);
-        }
-        // hw % 32 != 0 only in the tile where the hashed width ends
-        if (hw & 31) hh::remainder(st, row + 32 * packets, hw & 31);
+      ring::bar_arrive(&prod[slot]);
+      ring::bar_wait(&prod[slot], (gi / kStages) & 1);  // every parity word is in
+      const int nc = ring::chunks(w);
+      for (int idx = pt; idx < g.ro * nc; idx += kProdThreads) {
+        const int o = idx / nc, q = idx - o * nc;
+        store_chunk(par_b + o * g.par_rstride + c0, w, pbase + o * pitch, q);
       }
+      ring::bar_arrive(&empty[slot]);
     }
-    if (hashing) hh::finish256(st, dig + (static_cast<long long>(b) * g.R + me) * 32);
   }
+}
+
+__device__ void hasher(const uint8_t* __restrict__ in, uint8_t* __restrict__ dig,
+                       const hh::Key& key, const Geometry& g, uint8_t* ring, uint64_t* prod,
+                       uint64_t* empty, int hw) {
+  const int lane = threadIdx.x & 31, r = lane >> 1, h = lane & 1;
+  const int ri = hw * kHashRows + r;
+  const bool hashing = ri < g.R;
+  const int pitch = pitch_of(g.tile), slot_bytes = (g.k + g.ro) * pitch;
+  unsigned gi = 0;
+  for (int b = blockIdx.x; b < g.B; b += gridDim.x) {
+    const uint8_t* in_b = in + b * g.in_bstride;
+    // data rows keep their device alignment in the ring, parity rows none
+    const int off = hashing && ri < g.k ? static_cast<int>(reinterpret_cast<uintptr_t>(
+                                              in_b + ri * g.in_rstride) & 15)
+                                        : 0;
+    hh::HalfState st;
+    hh::init_half(st, key, h);
+    for (long long c0 = 0; c0 < g.n; c0 += g.tile, ++gi) {
+      const int slot = gi % kStages;
+      ring::bar_wait(&prod[slot], (gi / kStages) & 1);
+      const long long left = g.n_hash - c0;
+      const int w = width(g, c0);
+      const int hwid = left <= 0 ? 0 : left < w ? static_cast<int>(left) : w;
+      if (hashing) {
+        const uint8_t* row = ring + slot * slot_bytes + ri * pitch + off + 16 * h;
+        const int packets = hwid >> 5;
+        if (packets > 0) {
+          const ring::Reader rd(row);
+          uint64_t a, bb, na, nb;
+          rd.read16(0, a, bb);
+          for (int q = 1; q < packets; ++q) {
+            rd.read16(8 * q, na, nb);
+            hh::update_half(st, a, bb);
+            a = na;
+            bb = nb;
+          }
+          hh::update_half(st, a, bb);
+        }
+        // hwid % 32 != 0 only in the stage where the hashed width ends
+        if (hwid & 31) hh::remainder_half(st, h, row - 16 * h + 32 * packets, hwid & 31);
+      }
+      ring::bar_arrive(&empty[slot]);
+    }
+    hh::finish256_half(st, h, dig + (static_cast<long long>(b) * g.R + (hashing ? ri : 0)) * 32,
+                       hashing, 0xFFFFFFFFu);
+  }
+}
+
+// kWide: more than one hashing warp (R > 16), a block of up to 23 warps
+template <bool kWide>
+__global__ void __launch_bounds__(32 * (kWide ? 7 + kMaxRows / kHashRows : 8))
+rs_fused_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ par,
+                const uint4* __restrict__ tabs, uint8_t* __restrict__ dig, hh::Key key,
+                Geometry g) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* prod = full + kStages;
+  uint64_t* empty = prod + kStages;
+  uint8_t* ring = smem + kBarBytes;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      ring::bar_init(&full[i], 32);
+      ring::bar_init(&prod[i], kProdThreads);
+      ring::bar_init(&empty[i], kProdThreads + 32 * g.hash_warps);
+    }
+  }
+  __syncthreads();
+  // roles by warp; none meets another at a block barrier after this
+  const int warp = threadIdx.x >> 5;
+  if (warp == kProducerWarp)
+    producer(in, g, ring, full, empty);
+  else if (warp == 0 || warp >= 8)
+    hasher(in, dig, key, g, ring, prod, empty, warp == 0 ? 0 : warp - 7);
+  else
+    product(in, par, tabs, g, ring, full, prod, empty,
+            (warp < kProducerWarp ? warp - 1 : warp - 2) * 32 + (threadIdx.x & 31));
 }
 
 }  // namespace
 
 extern "C" int mt_rs_fused(const void* in, long long in_bstride, long long in_rstride,
                            void* par, long long par_bstride, long long par_rstride,
-                           const void* coef_log, const void* log_tab, const void* exp_tab,
-                           void* dig, int B, int k, int ro, int hash_parity, long long n,
-                           long long n_hash, int tile, unsigned long long k0,
-                           unsigned long long k1, unsigned long long k2,
-                           unsigned long long k3, void* stream) {
+                           const void* tabs, void* dig, int B, int k, int ro, int hash_parity,
+                           long long n, long long n_hash, int tile, int stages,
+                           unsigned long long k0, unsigned long long k1,
+                           unsigned long long k2, unsigned long long k3, void* stream) {
   if (B <= 0) return 0;
   const int R = k + (hash_parity ? ro : 0);
   if (k < 1 || ro < 1 || k + ro > kMaxRows || n < 0 || n_hash < 0 || n_hash > n ||
-      tile < 32 || tile % 32 != 0)
+      tile < 128 || tile % 128 != 0 || stages != kStages)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(k, ro, tile);
-  if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (L.total > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rs_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  const int smem = smem_bytes(k, ro, tile);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int hash_warps = (R + kHashRows - 1) / kHashRows;
+  const bool wide = hash_warps > 1;
+  auto kernel = wide ? rs_fused_kernel<true> : rs_fused_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const Geometry g{in_bstride, in_rstride, par_bstride, par_rstride, n, n_hash,
-                   B, k, ro, R, tile};
+                   B, k, ro, (ro + kRT - 1) / kRT * kRT, R, tile, hash_warps};
   const hh::Key key{{k0, k1, k2, k3}};
+  const int warps = 7 + hash_warps;
   const unsigned grid = static_cast<unsigned>(B < 65535 ? B : 65535);
-  rs_fused_kernel<<<grid, kThreads, L.total, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(in), static_cast<uint8_t*>(par),
-      static_cast<const uint16_t*>(coef_log), static_cast<const uint16_t*>(log_tab),
-      static_cast<const uint8_t*>(exp_tab), static_cast<uint8_t*>(dig), key, g);
+      static_cast<const uint4*>(tabs), static_cast<uint8_t*>(dig), key, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,10 @@ and a 32x32 product overflows signed int64, so products are built from
 16-bit halves as ``hh_kernels._mul32`` does.  ``hh64_batch`` (the 64-bit
 finalization) exists to hold both versions to the published HighwayHash64
 test vectors.
+
+``plan`` is the kernel's launch geometry (two threads per row, rows per
+warp, warps per block, the shared-memory ring), in Python so that the CPU
+tests cover it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ from ..hashing.highwayhash import MAGIC_KEY, init_state
 from . import _build
 
 COUNTS = _build.Counts()
+SMS = 132                   # H100 SXM streaming multiprocessors
+SCHEDULERS = 4              # warp schedulers per SM: one hashing warp each
+MAX_ROWS_PER_WARP = 8       # 16 lanes; 8-byte reads of 8 rows hit distinct banks
+STAGES = 4                  # ring stages per row (csrc/hh256.cu kStages)
+TILE = 2048                 # bytes of a row per stage, at most
+SMEM_BUDGET = 200 * 1024    # shared memory one block may take
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
 
@@ -185,6 +195,30 @@ def _modred(s32, s10, hi_lane: int, lo_lane: int):
 
 # -- kernel ------------------------------------------------------------------
 
+def plan(rows: int, n: int) -> dict:
+    """Launch geometry of Kernel B for ``rows`` rows of ``n`` bytes: two
+    lanes per row; as few rows per warp as fill one hashing warp per
+    scheduler of the card (at most ``MAX_ROWS_PER_WARP``); at most
+    ``SCHEDULERS`` warps per block, so a block's warps issue on distinct
+    schedulers; a ring of ``STAGES`` stages of ``tile`` bytes per row,
+    rows ``pitch`` = tile + 16 bytes apart (16 mod 128, tile a multiple
+    of 128).  ``smem`` is the block's shared memory as the kernel
+    computes it."""
+    if rows < 1 or n < 0:
+        raise ValueError(f"degenerate batch ({rows}, {n})")
+    rpw = min(MAX_ROWS_PER_WARP, max(1, -(-rows // (SMS * SCHEDULERS))))
+    warps = min(SCHEDULERS, -(-rows // (SMS * rpw)))
+    per_block = warps * rpw
+    tile = min(TILE, max(128, -(-n // 128) * 128))
+    while per_block * STAGES * (tile + 16) + 16 > SMEM_BUDGET:
+        tile = max(128, tile // 256 * 128)
+    pitch = tile + 16
+    return {"rows_per_warp": rpw, "warps": warps, "threads": 32 * warps,
+            "rows_per_block": per_block, "blocks": -(-rows // per_block),
+            "stages": STAGES, "tile": tile, "pitch": pitch,
+            "smem": warps * rpw * STAGES * pitch + 16}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("hh256").mt_hh_batch
@@ -192,6 +226,7 @@ def _kernel():
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
                    ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -202,13 +237,15 @@ def _launch(blocks: torch.Tensor, key: bytes, out: torch.Tensor) -> None:
     G, R, n = grouped.shape
     if G * R == 0:
         return
+    p = plan(G * R, n)
     fn = _kernel()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         COUNTS.launches += 1
         rc = fn(grouped.data_ptr(), grouped.stride(0), grouped.stride(1), R,
                 G * R, n, *struct.unpack("<4Q", key), out.data_ptr(),
-                out.shape[-1], stream)
+                out.shape[-1], p["rows_per_warp"], p["warps"], p["tile"],
+                p["stages"], stream)
     _build.check(rc, "hh256")
 
 

@@ -10,8 +10,8 @@ the finished digests; a CPU tensor runs ``encode_hash_ref``, Kernel A's
 plain product followed by Kernel B's plain hash.
 
 The TPU tile plan (stripes packed into (S, 128) hash lanes) does not carry
-over: ``plan`` sizes the port's own tiles, one thread block per stripe
-walking the width in tiles that fit the shared-memory budget.
+over: ``plan`` sizes the port's own pipeline, one thread block per stripe
+walking the width in ``tile``-byte stages of a shared-memory ring.
 """
 
 from __future__ import annotations
@@ -28,40 +28,64 @@ from . import _build, gf8, rs_kernels
 from .hh import hh_plain
 
 COUNTS = _build.Counts()
-MAX_ROWS = 256              # k + ro: one hashing thread per row
-TILE_MAX = 2048             # bytes of width per tile
-SMEM_BUDGET = 96 * 1024     # shared memory one block may take
-_PAD, _RT = 32, 4           # row pitch slack and parity rows per pass
-
-
-def _align16(x: int) -> int:
-    return (x + 15) & ~15
+MAX_ROWS = 256              # k + ro
+TILE_MAX = 3072             # bytes of width per stage
+STAGES = 4                  # ring slots (csrc/rs_fused.cu kStages)
+SMEM_BUDGET = 200 * 1024    # shared memory one block may take
+HASH_ROWS = 16              # rows per hashing warp, two lanes each
+_BARS, _SLACK = 128, 16     # mbarrier bytes, read slack past the ring
 
 
 def smem_bytes(k: int, ro: int, tile: int) -> int:
-    """Shared memory of one block (the ``Layout`` of csrc/rs_fused.cu):
-    exp and log tables, coefficient logs, row offsets, data and parity
-    tiles."""
-    ro4 = -(-ro // _RT) * _RT
-    head = 1024 + 512 + _align16(2 * k * ro4) + _align16(k + ro)
-    return head + (k + ro) * (tile + _PAD)
+    """Shared memory of one block (``smem_bytes`` of csrc/rs_fused.cu):
+    the mbarriers and ``STAGES`` slots of k data and ro parity rows,
+    ``tile`` + 16 bytes apart."""
+    return _BARS + STAGES * (k + ro) * (tile + 16) + _SLACK
 
 
 def plan(B: int, k: int, ro: int, n: int, hash_parity: bool = True) -> dict:
-    """Tile plan for a (B, k, n) stripe batch with ro parity rows: the
-    tile width (a multiple of 32, at most ``TILE_MAX``, shrunk until the
-    block fits ``SMEM_BUDGET``) and the rows hashed per stripe.  Raises
-    ValueError on geometry the kernel cannot take."""
+    """Pipeline plan for a (B, k, n) stripe batch with ro parity rows: the
+    stage width ``tile`` (a multiple of 128, at most ``TILE_MAX``, shrunk
+    until the block fits ``SMEM_BUDGET``), the rows hashed per stripe, the
+    hashing warps and the block's threads (producer, six product warps,
+    hashing warps).  Raises ValueError on geometry the kernel cannot
+    take."""
     if B < 1 or n < 1:
         raise ValueError(f"degenerate batch ({B}, {n})")
     if k < 1 or ro < 1 or k + ro > MAX_ROWS:
         raise ValueError(f"{k}+{ro} shards per stripe: the kernel takes "
                          f"1 <= k, ro and k + ro <= {MAX_ROWS}")
-    tile = min(TILE_MAX, -(-n // 32) * 32)
+    tile = min(TILE_MAX, -(-n // 128) * 128)
     while smem_bytes(k, ro, tile) > SMEM_BUDGET:
-        tile -= 32
-    return {"R": k + (ro if hash_parity else 0), "tile": tile,
+        tile -= 128
+    R = k + (ro if hash_parity else 0)
+    hash_warps = -(-R // HASH_ROWS)
+    return {"R": R, "tile": tile, "stages": STAGES, "pitch": tile + 16,
+            "hash_warps": hash_warps,
+            "threads": 32 * (7 + hash_warps),
             "smem": smem_bytes(k, ro, tile)}
+
+
+def nibble_tables(M: np.ndarray) -> np.ndarray:
+    """Split-nibble tables of the (ro, k) coefficients as the kernel reads
+    them: (k, ro4, 32) uint8, data row major, ``[c * i for i < 16]`` then
+    ``[c * (i << 4) for i < 16]`` for coefficient c, so that c * x =
+    lo[x & 15] ^ hi[x >> 4]; parity rows padded with zero tables to ro4,
+    a multiple of 4 (the parity rows of one pass of the product)."""
+    ro, k = M.shape
+    c = M.T[..., None]                                       # (k, ro, 1)
+    i = np.arange(16)
+    out = np.zeros((k, -(-ro // 4) * 4, 32), dtype=np.uint8)
+    out[:, :ro] = np.concatenate([gf8.GF_MUL[c, i], gf8.GF_MUL[c, i << 4]],
+                                 axis=-1)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(key: bytes, ro: int, k: int,
+                   device: torch.device) -> torch.Tensor:
+    M = np.frombuffer(key, dtype=np.uint8).reshape(ro, k)
+    return torch.from_numpy(nibble_tables(M)).to(device)
 
 
 def encode_hash_ref(M: np.ndarray, shards: torch.Tensor, *,
@@ -84,10 +108,10 @@ def _kernel():
     fn = _build.load("rs_fused").mt_rs_fused
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_uint64, ctypes.c_uint64,
                    ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -95,21 +119,20 @@ def _kernel():
 
 def _launch(M: np.ndarray, shards: torch.Tensor, parity: torch.Tensor,
             digests: torch.Tensor, n_real: int, hash_parity: bool,
-            tile: int) -> None:
+            p: dict) -> None:
     B, k, n = shards.shape
     ro = M.shape[0]
     dev = shards.device
     fn = _kernel()
-    log_t, exp_t = rs_kernels._device_tables(dev)
-    coef = rs_kernels._device_coef(M.tobytes(), ro, k, dev)
+    tabs = _device_tables(M.tobytes(), ro, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         COUNTS.launches += 1
         rc = fn(shards.data_ptr(), shards.stride(0), shards.stride(1),
                 parity.data_ptr(), parity.stride(0), parity.stride(1),
-                coef.data_ptr(), log_t.data_ptr(), exp_t.data_ptr(),
-                digests.data_ptr(), B, k, ro, int(hash_parity), n, n_real,
-                tile, *struct.unpack("<4Q", MAGIC_KEY), stream)
+                tabs.data_ptr(), digests.data_ptr(), B, k, ro,
+                int(hash_parity), n, n_real, p["tile"], p["stages"],
+                *struct.unpack("<4Q", MAGIC_KEY), stream)
     _build.check(rc, "rs_fused")
 
 
@@ -155,7 +178,7 @@ def encode_hash_device(M, shards: torch.Tensor, *, n_real: int | None = None,
     if n > 1 and (shards.stride(2) != 1 or out_parity.stride(2) != 1):
         raise ValueError("the byte axis must be dense")
     digests = torch.empty((B, p["R"], 32), dtype=torch.uint8, device=dev)
-    _launch(M, shards, out_parity, digests, n_real, hash_parity, p["tile"])
+    _launch(M, shards, out_parity, digests, n_real, hash_parity, p)
     return out_parity, digests
 
 

@@ -86,6 +86,79 @@ def test_init_state_matches_reference_limbs():
         assert [x & 0xFFFFFFFF for x in word] == [int(v) for v in lo]
 
 
+def _random_state_and_packet(seed):
+    """A random (hi, lo)-limb state of 3 rows and one packet, as
+    ``hh._update`` takes them."""
+    rng = np.random.default_rng(seed)
+    limbs = [torch.from_numpy(rng.integers(0, 1 << 32, (3, 4), dtype=np.int64))
+             for _ in range(10)]
+    return tuple(limbs[:8]), limbs[8], limbs[9]
+
+
+@pytest.mark.parametrize("changed", ["packet", "state"])
+@pytest.mark.parametrize("half", [0, 1])
+def test_lane_pairs_are_independent(changed, half):
+    """The packet update never mixes lanes {0, 1} with lanes {2, 3}: new
+    values in one half's packet or state lanes leave the other half of the
+    updated state bit-identical.  Kernels B and C split each row over two
+    threads on this."""
+    st, lh, ll = _random_state_and_packet(half)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64)
+    perm = torch.tensor(hh._zipper_perm())
+    mine = slice(2 * half, 2 * half + 2)
+    other = slice(2 - 2 * half, 4 - 2 * half)
+    flip = torch.zeros_like(lh)
+    flip[:, mine] = 0x5A5A5A5A
+    if changed == "packet":
+        st2, lh2, ll2 = st, lh ^ flip, ll ^ flip
+    else:
+        st2, lh2, ll2 = tuple(t ^ flip for t in st), lh, ll
+    before = hh._update(st, lh, ll, shifts, perm)
+    after = hh._update(st2, lh2, ll2, shifts, perm)
+    for a, b in zip(before, after):
+        assert torch.equal(a[:, other], b[:, other])
+    assert any(not torch.equal(a[:, mine], b[:, mine])
+               for a, b in zip(before, after))
+
+
+def _banks_of_8_byte_reads(pitch, rows):
+    """The 4-byte banks (of 32) an 8-byte read touches in each row, rows
+    ``pitch`` bytes apart, at one column."""
+    return [{(r * pitch // 4 + i) % 32 for i in (0, 1)} for r in range(rows)]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 16, 96, 133, 300, 528, 529, 5000,
+                                  10 ** 6])
+@pytest.mark.parametrize("n", [0, 1, 33, 2049, 873814])
+def test_plan(rows, n):
+    """Kernel B's launch geometry: two lanes per row, at most one warp per
+    scheduler in a block, every row covered once, the shared memory of
+    one block within the card's 227 KB, and a row pitch at which one
+    warp's 8-byte reads of its rows at one column hit distinct banks."""
+    p = hh.plan(rows, n)
+    assert 2 * p["rows_per_warp"] <= 32
+    assert 1 <= p["warps"] <= hh.SCHEDULERS
+    assert p["threads"] == 32 * p["warps"]
+    assert p["rows_per_block"] == p["warps"] * p["rows_per_warp"]
+    assert (p["blocks"] - 1) * p["rows_per_block"] < rows \
+        <= p["blocks"] * p["rows_per_block"]
+    assert p["tile"] % 128 == 0 and p["tile"] >= 128
+    assert p["pitch"] >= p["tile"] + 16 and p["pitch"] % 128 == 16
+    assert p["smem"] == (p["warps"] * p["rows_per_warp"] * p["stages"]
+                         * p["pitch"] + 16)
+    assert p["smem"] <= 232448
+    banks = _banks_of_8_byte_reads(p["pitch"], p["rows_per_warp"])
+    assert sum(len(b) for b in banks) == len(set().union(*banks))
+
+
+def test_plan_spreads_a_put_batch():
+    """A 64 MiB PUT batch (96 rows) gets one row per warp and one warp per
+    block, so its 96 hashing warps land on 96 SMs."""
+    p = hh.plan(96, 873814)
+    assert (p["rows_per_warp"], p["warps"], p["blocks"]) == (1, 1, 96)
+    assert hh.plan(16, 873814)["blocks"] == 16
+
+
 def test_rejects_bad_input():
     with pytest.raises(TypeError):
         hh.hh256_batch(torch.zeros((2, 8), dtype=torch.int32))

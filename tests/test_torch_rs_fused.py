@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from minio_tpu.hashing.highwayhash import MAGIC_KEY, HighwayHash256
+from minio_tpu.ops import gf8 as ref_gf8
 from minio_tpu.ops import gf8_ref
 from minio_tpu.ops import rs_fused as ref_fused
 from minio_tpu_torch.ops import gf8, rs_fused
@@ -104,14 +105,54 @@ def test_plan_rejects_oversized_stripe():
 
 
 def test_plan_fits_the_shared_memory_budget():
-    """The 12+4 path takes 2 KiB tiles; the widest stripe (k + ro = 256)
-    still gets whole packets."""
-    assert rs_fused.plan(6, 12, 4, 873814)["tile"] == 2048
-    assert rs_fused.plan(1, 4, 2, 33)["tile"] == 64
+    """The 12+4 path takes 3 KiB stages; the widest stripe (k + ro = 256)
+    still gets whole 128-byte stages and a hashing warp per 16 rows."""
+    assert rs_fused.plan(6, 12, 4, 873814)["tile"] == 3072
+    assert rs_fused.plan(1, 4, 2, 33)["tile"] == 128
     for k, ro in ((128, 128), (255, 1), (1, 255)):
         p = rs_fused.plan(1, k, ro, 10 ** 6)
-        assert p["tile"] >= 32 and p["tile"] % 32 == 0
+        assert p["tile"] >= 128 and p["tile"] % 128 == 0
         assert p["smem"] <= rs_fused.SMEM_BUDGET
+        assert p["hash_warps"] == 16 and p["threads"] <= 1024
+
+
+@pytest.mark.parametrize("k,ro,hp", [(12, 4, True), (12, 4, False),
+                                     (4, 2, True), (17, 3, True),
+                                     (100, 28, False)])
+def test_plan_geometry(k, ro, hp):
+    """Stage width, pitch (16 mod 128 bytes), the shared-memory total of
+    the kernel's layout, and the block's warps: a producer, six product
+    warps and one hashing warp per 16 hashed rows."""
+    p = rs_fused.plan(3, k, ro, 873814, hp)
+    R = k + (ro if hp else 0)
+    assert p["R"] == R
+    assert p["pitch"] == p["tile"] + 16 and p["pitch"] % 128 == 16
+    assert p["smem"] == 128 + p["stages"] * (k + ro) * p["pitch"] + 16
+    assert p["hash_warps"] == -(-R // 16)
+    assert p["threads"] == 32 * (7 + p["hash_warps"])
+
+
+def test_nibble_tables_multiply():
+    """c * x = lo[x & 15] ^ hi[x >> 4] for every coefficient and byte,
+    against minio_tpu's GF(2^8) product table."""
+    M = np.arange(256, dtype=np.uint8).reshape(1, 256)
+    T = rs_fused.nibble_tables(M)[:, 0]                      # (256, 32)
+    x = np.arange(256)
+    got = T[:, x & 15] ^ T[:, 16 + (x >> 4)]                 # (256, 256)
+    assert np.array_equal(got, ref_gf8.GF_MUL)
+
+
+def test_nibble_tables_layout():
+    """The kernel reads the tables data row major, parity rows padded to
+    a multiple of 4 with zero tables."""
+    M = gf8.rs_matrix(5, 11)[5:]                                # (6, 5)
+    T = rs_fused.nibble_tables(M)
+    assert T.shape == (5, 8, 32)
+    for o in range(6):
+        for j in range(5):
+            assert list(T[j, o, :16]) == [ref_gf8.GF_MUL[M[o, j], i]
+                                          for i in range(16)]
+    assert not T[:, 6:].any()
 
 
 def test_rejects_bad_input():
