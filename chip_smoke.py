@@ -6,7 +6,9 @@
    nvcc per source, started together) and print the build time.
 2. Kernel A (csrc/gf8_apply.cu) against its plain version on the card, at
    the path's shape (6 stripes of 12 x 873,814 bytes, encode rows and the
-   decode rows of 4 lost data shards) and at ragged shapes; exact.
+   decode rows of 4 lost data shards), in place on the degraded GET's
+   strided rebuild views, at r = 1, 5 and 8 (two passes), at k + r = 256
+   and at ragged shapes; exact.  Timed at the path shape beside its plan.
 3. Kernel B (csrc/hh256.cu) against its plain version on the card, at the
    path's shape (96 rows x 873,814 bytes) and at ragged lengths, and both
    against the published HighwayHash test vectors; exact.  Timed at 1, 16
@@ -61,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 # into v1 (two PRMTs, IADD3, IADD3.X): 10 dependent integer instructions
 # per packet, each at least 4 cycles on Hopper.
 CHAIN_CYCLES_PER_UPDATE = 10 * 4
+QUEUE_AHEAD_CYCLES = 40_000_000   # ~20 ms of sleep at the SM clock
 K, M = 12, 4
 BLOCK = 10 * 1024 * 1024
 N_PATH = -(-BLOCK // K)            # 873,814: shard width at 10 MiB blocks
@@ -73,9 +76,13 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
+    """Mean milliseconds per call of ``fn`` on the current stream.  A
+    sleep kernel holds the stream while the host queues the calls, so a
+    kernel shorter than its Python wrapper is timed back to back, not at
+    the host's pace."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -111,6 +118,16 @@ def chain_bound_ms(clock_mhz: float) -> float:
     return ms
 
 
+def check_apply(rows, x, what: str, out=None) -> None:
+    """Kernel A against its plain version on the same inputs, exact; with
+    ``out``, in place."""
+    from minio_tpu_torch.ops import rs_kernels
+    got = rs_kernels.apply_matrix(rows, x, out=out)
+    want = rs_kernels.gf_apply_ref(rows, x.contiguous())
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"kernel A {what}")
+
+
 def phase_kernel_a(gen) -> dict:
     from minio_tpu_torch.ops import gf8, rs_kernels
     enc = gf8.rs_matrix(K, K + M)[K:]
@@ -119,33 +136,64 @@ def phase_kernel_a(gen) -> dict:
                                  list(range(M)))
     data = rand_bytes((B_PATH, K, N_PATH), gen)
     for name, rows in (("encode", enc), ("decode", dec)):
-        got = rs_kernels.apply_matrix(rows, data)
-        want = rs_kernels.gf_apply_ref(rows, data)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"kernel A {name} at path shape")
-    ragged = 0
+        check_apply(rows, data, f"{name} at the path shape")
+    # the degraded GET's rebuild: survivors (k, L) and the rebuilt rows
+    # (4, L) as (stripes, rows, shard) views, batch stride one shard,
+    # written in place inside a larger tensor whose margins must not move
+    span = B_PATH * N_PATH
+    surv = rand_bytes((K, span), gen)
+    buf = rand_bytes((M, span + 32), gen)
+    before = buf.clone()
+
+    def view(t):
+        return t.unflatten(1, (B_PATH, N_PATH)).transpose(0, 1)
+    check_apply(dec, view(surv), "rebuild view at the degraded-GET shape",
+                out=view(buf[:, 19:19 + span]))
+    check(torch.equal(buf[:, :19], before[:, :19])
+          and torch.equal(buf[:, 19 + span:], before[:, 19 + span:]),
+          "kernel A wrote outside the rebuild view")
+    shapes = 3
+    for r in (1, 5, 8):                              # one to two passes
+        check_apply(gf8.rs_matrix(K, K + r)[K:],
+                    rand_bytes((3, K, 100_003), gen), f"r={r}")
+        shapes += 1
+    for k in (4, 128, 252):                          # k + r = 256
+        check_apply(gf8.rs_matrix(k, 256)[k:], rand_bytes((2, k, 1000), gen),
+                    f"k={k} r={256 - k}")
+        shapes += 1
     for k, m in ((K, M), (4, 2)):
         mat = gf8.rs_matrix(k, k + m)[k:]
-        for n in (1, 31, 300, 4097):
+        for n in (1, 15, 16, 17, 31, 300, 4097):
             for b in (1, 64):
-                x = rand_bytes((b, k, n), gen)
-                check(torch.equal(rs_kernels.apply_matrix(mat, x),
-                                  rs_kernels.gf_apply_ref(mat, x)),
-                      f"kernel A at B={b} k={k} m={m} n={n}")
-                ragged += 1
-    ms = cuda_ms(lambda: rs_kernels.apply_matrix(enc, data), 20)
+                check_apply(mat, rand_bytes((b, k, n), gen),
+                            f"B={b} k={k} m={m} n={n}")
+                shapes += 1
+    ms = cuda_ms(lambda: rs_kernels.apply_matrix(enc, data), 50)
     plain_ms = cuda_ms(lambda: rs_kernels.gf_apply_ref(enc, data), 3)
     nbytes = (K + M) * N_PATH * B_PATH
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"kernel A: exact at the path shape (encode, decode) and {ragged} "
-          f"ragged shapes; B={B_PATH} k={K} r={M} n={N_PATH}: kernel "
+    plan = rs_kernels.plan(B_PATH, K, M, N_PATH)
+    # what limits it: eight output rows are two passes of the product over
+    # the same staged input (twice the product, 1.25 times the bytes), and
+    # a device copy of the input shows the memory rate the card gives
+    enc8 = gf8.rs_matrix(K, K + 8)[K:]
+    ms_r8 = cuda_ms(lambda: rs_kernels.apply_matrix(enc8, data), 50)
+    copy = torch.empty_like(data)
+    copy_ms = cuda_ms(lambda: copy.copy_(data), 50)
+    print(f"kernel A: exact at {shapes} shapes (the path's encode and "
+          f"decode, the rebuild view in place, r = 1, 5, 8, k + r = 256, "
+          f"ragged); B={B_PATH} k={K} r={M} n={N_PATH}: plan {plan}; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes} bytes)")
+          f"({nbytes} bytes), {bound_ms / ms:.1%} of the bound; r=8 "
+          f"{ms_r8:.4f} ms; a device copy of the input {copy_ms:.4f} ms "
+          f"({2 * data.numel() / copy_ms / 1e9:.3f} TB/s)")
     return {"name": "gf8_apply", "route": "cuda",
             "source": "minio_tpu_torch/csrc/gf8_apply.cu",
             "replaces": "minio_tpu/ops/rs_pallas.py:95",
             "exact": True, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "share_of_bound": bound_ms / ms, "plan": plan,
+            "ms_r8": ms_r8, "copy_ms": copy_ms,
             "shape": [B_PATH, K, M, N_PATH]}
 
 

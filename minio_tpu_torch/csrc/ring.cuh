@@ -1,7 +1,7 @@
 // Staging rows of device memory through shared memory, shared by
-// hh256.cu and rs_fused.cu: cp.async copies of 16-byte chunks, unaligned
-// reads from the staged rows, and the mbarrier calls of rs_fused.cu's
-// pipeline.
+// gf8_apply.cu, hh256.cu and rs_fused.cu: cp.async copies of 16-byte
+// chunks, unaligned reads from the staged rows, and the mbarrier calls of
+// rs_fused.cu's pipeline.
 //
 // Rows start at any byte (a 12 + 4 set's 873,814-byte shards lie at
 // 6 mod 16).  A stage, the stretch [c0, c0 + w) of a row, is staged in
@@ -68,6 +68,10 @@ struct Reader {
     const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
     w = reinterpret_cast<const uint32_t*>(p - mis);
     sh = static_cast<uint32_t>(mis) * 8;
+  }
+  // the 4 bytes at p + 4 * word: two aligned words, one funnel shift
+  __device__ __forceinline__ uint32_t read4(int word) const {
+    return __funnelshift_r(w[word], w[word + 1], sh);
   }
   // the 16 bytes at p + 4 * word as two little-endian words.  Reads the
   // five aligned words that cover them: up to 3 bytes past the 16, which

@@ -9,9 +9,11 @@
     written to the drives: one ``write_data_commit`` per drive when the
     object fits one batch, else tmp create/append and a quorum
     ``rename_data`` at the end.
-  * GET: per batch of blocks, read the framed ranges of k shards, verify
-    them on the device (Kernel B), extend into parity shards on failure,
-    and rebuild missing data shards in one launch (Kernel A).
+  * GET: per batch of blocks, read the framed ranges of k shards that
+    hold the quorum version (inline, in part files, or in a packed segment
+    that ``minio_tpu`` wrote), verify them on the device (Kernel B), extend
+    into parity shards on failure, and rebuild missing data shards in one
+    launch (Kernel A).
   * heal: ``healing.heal_object``.
 
 The ETag is the body's MD5 (the reference's strict-compat mode).  Calls
@@ -344,7 +346,11 @@ class ErasureObjects:
         part = fi.parts[0]
         shuffled = meta.shuffle_disks(self.disks, ec.distribution)
         sfis = meta.shuffle_parts_metadata(fis, ec.distribution)
-        dead = {j for j in range(k + m) if shuffled[j] is None}
+        # only drives holding the quorum version are read: a drive that
+        # missed an overwrite keeps a self-consistent old shard, which
+        # would pass the bitrot check (listOnlineDisks)
+        dead = {j for j in range(k + m)
+                if shuffled[j] is None or not meta.same_version(sfis[j], fi)}
         batch_blocks = max(1, self._batch_bytes() // bs)
         sfsize = ec.shard_file_size(part.size)
         end = offset + length
@@ -365,7 +371,8 @@ class ErasureObjects:
                        sfis: list, dead: set, framed_off: int,
                        framed_len: int, seg_len: int) -> dict:
         """Read one framed window from k healthy shards, verified on the
-        device; failures extend into the next shards.  Returns
+        device; failures extend into the next shards.  Every shard not in
+        ``dead`` holds the quorum version (``sfis``).  Returns
         {shard index: payload (seg_len,) tensor on the device}."""
         k = fi.erasure.data_blocks
         ss = fi.erasure.shard_size()
@@ -373,15 +380,15 @@ class ErasureObjects:
 
         def read_one(j):
             disk, dfi = shuffled[j], sfis[j]
-            if disk is None:
-                raise serrors.DiskNotFound("offline")
-            if dfi is not None and dfi.inline_data is not None:
+            if dfi.inline_data is not None:
                 framed = dfi.inline_data[framed_off:framed_off + framed_len]
                 if len(framed) < framed_len:
                     raise serrors.FileCorrupt("short inline data")
                 return framed
-            if dfi is not None and dfi.seg is not None:
-                raise serrors.FileCorrupt("packed segments are not read here")
+            if dfi.seg is not None:             # a packed extent
+                return disk.read_segment(dfi.seg["sid"],
+                                         dfi.seg["off"] + framed_off,
+                                         framed_len)
             return disk.read_file_stream(fi.volume, path, framed_off,
                                          framed_len)
 

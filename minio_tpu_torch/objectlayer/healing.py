@@ -1,5 +1,9 @@
 """Object healing (cmd/erasure-healing.go:233 healObject), single-part
-objects, inline or in part files.
+objects, inline or in part files.  For an object that ``minio_tpu``
+packed into segment files, the shards are read from their segments and
+rebuilt; a healed shard belongs in the target drive's own segment, which
+the port cannot write yet (ROADMAP Queue 1 item 4), so heal then raises
+NotImplementedError before it writes anything.
 
 Each drive is classified for the quorum version as ok / offline / missing
 / outdated / corrupt.  The missing, outdated and corrupt shards are
@@ -57,7 +61,7 @@ def classify_disks(er: ErasureObjects, fi, fis: list, errs: list
             states.append(MISSING)
         elif derr is not None:
             states.append(CORRUPT)
-        elif dfi is None or dfi.mod_time != fi.mod_time:
+        elif not meta.same_version(dfi, fi):
             states.append(OUTDATED)
         elif dfi.inline_data is not None:
             states.append(OK)
@@ -92,11 +96,10 @@ def heal_object(er: ErasureObjects, bucket: str,
     shuffled = meta.shuffle_disks(er.disks, ec.distribution)
     s_fis = meta.shuffle_parts_metadata(fis, ec.distribution)
     ok_idx = [i for i, s in enumerate(states) if s == OK]
-    for i in healable:                      # healBucket first
-        try:
-            shuffled[i].stat_vol(bucket)
-        except serrors.VolumeNotFound:
-            shuffled[i].make_vol(bucket)
+    # the layout comes from the quorum version's healthy drives, never
+    # from the stale targets
+    inline = any(s_fis[i].inline_data is not None for i in ok_idx)
+    packed = any(s_fis[i].seg is not None for i in ok_idx)
 
     if fi.size == 0 or not fi.parts:
         # nothing to rebuild: copy a healthy drive's version
@@ -118,7 +121,15 @@ def heal_object(er: ErasureObjects, bucket: str,
                 ec.shard_size(), rebuilt)
         framed = bitrot.frame_batch(rebuilt, ec.shard_size()).cpu().numpy()
         src = fi
-    inline = any(f is not None and f.inline_data is not None for f in s_fis)
+    if packed:                              # before any write
+        raise NotImplementedError(
+            "healing a packed object needs segment writes (ROADMAP Queue 1 "
+            "item 4)")
+    for i in healable:                      # healBucket first
+        try:
+            shuffled[i].stat_vol(bucket)
+        except serrors.VolumeNotFound:
+            shuffled[i].make_vol(bucket)
 
     def heal_one(pos):
         i = healable[pos]
@@ -163,6 +174,9 @@ def _read_sources(er: ErasureObjects, fi, shuffled: list, s_fis: list,
         dfi = s_fis[i]
         if dfi.inline_data is not None:
             return dfi.inline_data
+        if dfi.seg is not None:                 # a packed extent
+            return shuffled[i].read_segment(dfi.seg["sid"], dfi.seg["off"],
+                                            dfi.seg["len"])
         return shuffled[i].read_all(fi.volume, path)
 
     got: dict[int, torch.Tensor] = {}

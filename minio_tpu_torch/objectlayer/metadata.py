@@ -48,6 +48,13 @@ def find_file_info_in_quorum(fis: list[FileInfo | None],
     return fis[hashes.index(best)]
 
 
+def same_version(dfi: FileInfo | None, fi: FileInfo) -> bool:
+    """Whether a drive's FileInfo is the quorum version ``fi``: the same
+    mod time and version id (a drive that missed a write holds another)."""
+    return (dfi is not None and dfi.mod_time == fi.mod_time
+            and dfi.version_id == fi.version_id)
+
+
 def reduce_errs(errs: list[Exception | None], quorum: int,
                 quorum_error: type[Exception]) -> None:
     """reduceQuorumErrs: return when >= quorum drives succeeded; raise the

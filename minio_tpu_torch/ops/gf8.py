@@ -117,6 +117,21 @@ def _companion() -> np.ndarray:
     return bits.astype(np.uint8)
 
 
+def nibble_tables(M: np.ndarray) -> np.ndarray:
+    """Split-nibble tables of the (r, k) coefficients as Kernels A and C
+    read them (csrc/gf8_nibble.cuh): (k, r4, 32) uint8, data row major,
+    ``[c * i for i < 16]`` then ``[c * (i << 4) for i < 16]`` for
+    coefficient c, so that c * x = lo[x & 15] ^ hi[x >> 4]; output rows
+    padded with zero tables to r4, a multiple of 4 (the output rows of one
+    pass of the product)."""
+    r, k = M.shape
+    c = M.T[..., None]                                       # (k, r, 1)
+    i = np.arange(16)
+    out = np.zeros((k, -(-r // 4) * 4, 32), dtype=np.uint8)
+    out[:, :r] = np.concatenate([GF_MUL[c, i], GF_MUL[c, i << 4]], axis=-1)
+    return out
+
+
 def gf2_expand(M: np.ndarray) -> np.ndarray:
     """(r, k) GF(2^8) coefficients -> (8r, 8k) GF(2) matrix, shard-major:
     out_bits[8i+b] = sum_j,b' E[8i+b, 8j+b'] in_bits[8j+b'] (mod 2)."""

@@ -25,6 +25,7 @@ import torch
 
 from ..hashing.highwayhash import MAGIC_KEY
 from . import _build, gf8, rs_kernels
+from .gf8 import nibble_tables  # noqa: F401  (re-exported: its old home)
 from .hh import hh_plain
 
 COUNTS = _build.Counts()
@@ -66,28 +67,6 @@ def plan(B: int, k: int, ro: int, n: int, hash_parity: bool = True) -> dict:
             "smem": smem_bytes(k, ro, tile)}
 
 
-def nibble_tables(M: np.ndarray) -> np.ndarray:
-    """Split-nibble tables of the (ro, k) coefficients as the kernel reads
-    them: (k, ro4, 32) uint8, data row major, ``[c * i for i < 16]`` then
-    ``[c * (i << 4) for i < 16]`` for coefficient c, so that c * x =
-    lo[x & 15] ^ hi[x >> 4]; parity rows padded with zero tables to ro4,
-    a multiple of 4 (the parity rows of one pass of the product)."""
-    ro, k = M.shape
-    c = M.T[..., None]                                       # (k, ro, 1)
-    i = np.arange(16)
-    out = np.zeros((k, -(-ro // 4) * 4, 32), dtype=np.uint8)
-    out[:, :ro] = np.concatenate([gf8.GF_MUL[c, i], gf8.GF_MUL[c, i << 4]],
-                                 axis=-1)
-    return out
-
-
-@functools.lru_cache(maxsize=64)
-def _device_tables(key: bytes, ro: int, k: int,
-                   device: torch.device) -> torch.Tensor:
-    M = np.frombuffer(key, dtype=np.uint8).reshape(ro, k)
-    return torch.from_numpy(nibble_tables(M)).to(device)
-
-
 def encode_hash_ref(M: np.ndarray, shards: torch.Tensor, *,
                     n_real: int | None = None,
                     hash_parity: bool = True
@@ -124,7 +103,7 @@ def _launch(M: np.ndarray, shards: torch.Tensor, parity: torch.Tensor,
     ro = M.shape[0]
     dev = shards.device
     fn = _kernel()
-    tabs = _device_tables(M.tobytes(), ro, k, dev)
+    tabs = rs_kernels.device_tables(M, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         COUNTS.launches += 1

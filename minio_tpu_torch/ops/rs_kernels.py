@@ -3,7 +3,8 @@ version), and the encode/decode/reconstruct functions built on it.
 
 Counterpart of ``minio_tpu/ops/rs_kernels.py`` plus ``rs_pallas.py``.
 ``apply_matrix(M, shards)`` computes ``out[b] = M (GF) @ shards[b]`` for a
-batch of stripes.  A CUDA tensor launches ``csrc/gf8_apply.cu``; a CPU
+batch of stripes.  A CUDA tensor launches ``csrc/gf8_apply.cu`` with the
+geometry of ``plan`` and the split-nibble tables of ``device_tables``; a CPU
 tensor runs ``gf_apply_ref``, the torch form of ``rs_kernels._gf2_apply``:
 bytes unpacked to 0/1 bit planes, multiplied by the expanded GF(2) matrix,
 the sum's parity taken as XOR, and the planes packed back.  The plain
@@ -24,34 +25,60 @@ from . import _build, gf8
 
 COUNTS = _build.Counts()
 MAX_SHARDS = 256
-_ZERO_LOG = 510     # log of 0: exp[i] = 0 for every i >= 510
+THREADS = 128               # threads of a block, at most (16 bytes each)
+OUT_ROWS = 4                # output rows per pass (csrc/gf8_apply.cu kRT)
+SM_SMEM = 233472            # shared memory of one H100 SM
+BLOCK_SMEM_MAX = 232448     # of one block, opted in
+BLOCK_RESERVED = 1024       # the runtime's own per block
+# two blocks on an SM, so one block's staging overlaps another's product
+SMEM_BUDGET = SM_SMEM // 2 - BLOCK_RESERVED
 
 
-@functools.lru_cache(maxsize=None)
-def _host_tables() -> tuple[np.ndarray, np.ndarray]:
-    """log (uint16, log[0] = 510) and exp (1024 bytes, zero from 510)."""
-    log = gf8.GF_LOG.astype(np.uint16)
-    log[0] = _ZERO_LOG
-    exp = np.zeros(1024, dtype=np.uint8)
-    exp[:510] = gf8.GF_EXP[np.arange(510) % 255]
-    return log, exp
+def smem_bytes(k: int, tile: int) -> int:
+    """Shared memory of one block (``smem_bytes`` of csrc/gf8_apply.cu):
+    one pass's split-nibble tables, ``OUT_ROWS`` output rows of ``tile``
+    + 16 bytes and k staged input rows of ``tile`` + 32 bytes."""
+    return k * OUT_ROWS * 32 + OUT_ROWS * (tile + 16) + k * (tile + 32)
 
 
-@functools.lru_cache(maxsize=16)
-def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    log, exp = _host_tables()
-    return (torch.from_numpy(log.view(np.int16)).to(device),
-            torch.from_numpy(exp).to(device))
+def plan(B: int, k: int, r: int, n: int) -> dict:
+    """Launch geometry of Kernel A for a (B, k, n) batch and r output
+    rows: one block per ``tile`` bytes of columns and stripe, ``threads``
+    threads of 16 bytes each (``tile`` = 16 x ``threads``), as few as a
+    narrow row needs, shrunk until the block fits ``SMEM_BUDGET`` (two
+    blocks per SM).  Above k = 169 not even 32 threads fit that; they
+    take one block per SM, within ``BLOCK_SMEM_MAX`` up to k = 256.
+    ``blocks_per_sm`` counts what shared memory and threads allow.
+    Raises ValueError on geometry the kernel cannot take."""
+    if B < 1 or n < 1:
+        raise ValueError(f"degenerate batch ({B}, {n})")
+    if not (1 <= k <= MAX_SHARDS and 1 <= r <= MAX_SHARDS):
+        raise ValueError(f"k={k}, r={r}: the kernel takes 1 to "
+                         f"{MAX_SHARDS} rows of each")
+    threads = min(THREADS, -(-n // 512) * 32)
+    while threads > 32 and smem_bytes(k, 16 * threads) > SMEM_BUDGET:
+        threads -= 32
+    tile = 16 * threads
+    smem = smem_bytes(k, tile)
+    return {"tile": tile, "threads": threads, "smem": smem,
+            "grid": (-(-n // tile), min(B, 65535)),
+            "passes": -(-r // OUT_ROWS),
+            "blocks_per_sm": min(SM_SMEM // (smem + BLOCK_RESERVED),
+                                 2048 // threads, 32)}
 
 
 @functools.lru_cache(maxsize=256)
-def _device_coef(key: bytes, r: int, k: int,
-                 device: torch.device) -> torch.Tensor:
-    """(r, k) coefficient logs on the device, cached by content; bounded
-    because decode matrices vary with the survivor pattern."""
+def _device_tables(key: bytes, r: int, k: int,
+                   device: torch.device) -> torch.Tensor:
     M = np.frombuffer(key, dtype=np.uint8).reshape(r, k)
-    lc = _host_tables()[0][M]
-    return torch.from_numpy(lc.view(np.int16)).to(device)
+    return torch.from_numpy(gf8.nibble_tables(M)).to(device)
+
+
+def device_tables(M: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``gf8.nibble_tables(M)`` on the device, cached by content (bounded,
+    since decode matrices vary with the survivor pattern); Kernels A and C
+    read them."""
+    return _device_tables(M.tobytes(), *M.shape, device)
 
 
 def gf_apply_ref(M: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
@@ -80,9 +107,9 @@ def _kernel():
     fn = _build.load("gf8_apply").mt_gf8_apply
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -91,16 +118,16 @@ def _launch(M: np.ndarray, shards: torch.Tensor, out: torch.Tensor) -> None:
     B, k, n = shards.shape
     r = M.shape[0]
     dev = shards.device
+    p = plan(B, k, r, n)
     fn = _kernel()
-    log_t, exp_t = _device_tables(dev)
-    coef = _device_coef(M.tobytes(), r, k, dev)
+    tabs = device_tables(M, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         COUNTS.launches += 1
         rc = fn(shards.data_ptr(), shards.stride(0), shards.stride(1),
                 out.data_ptr(), out.stride(0), out.stride(1),
-                coef.data_ptr(), log_t.data_ptr(), exp_t.data_ptr(),
-                B, k, r, n, stream)
+                tabs.data_ptr(), B, k, r, n, p["tile"], p["threads"],
+                p["smem"], stream)
     _build.check(rc, "gf8_apply")
 
 

@@ -5,12 +5,18 @@ Layout per drive root, identical to ``minio_tpu``'s:
     <root>/.mt.sys/tmp/<uuid>/...            staging for in-flight writes
     <root>/<bucket>/<object>/xl.meta         version journal (xl_meta.py)
     <root>/<bucket>/<object>/<ddir>/part.1   bitrot-framed shard file
+    <root>/.mt.sys/seg/seg.<sid>.dat         packed shards (read only here)
 
 Writes are stage-then-commit: shard files land in tmp and ``rename_data``
 moves the data dir into place and merges the version into xl.meta, or
 ``write_data_commit`` writes a single-batch part straight into its data
 dir and merges xl.meta last.  Every commit fsyncs file contents before
 the rename that makes them visible and fsyncs the parent directory after.
+
+``minio_tpu``'s commit plane packs objects just above the inline
+threshold into per-drive segment files; such a version has no data dir
+and a ``seg`` extent ``{sid, off, len}`` in xl.meta.  The port reads and
+checks those extents (``read_segment``, ``check_parts``) and writes none.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ from .xl_meta import XLMeta
 SYS_DIR = ".mt.sys"
 TMP_DIR = os.path.join(SYS_DIR, "tmp")
 META_FILE = "xl.meta"
+SEG_DIR = "seg"                       # under SYS_DIR (minio_tpu's commit.py)
+
+
+def _seg_name(sid: int) -> str:
+    return f"seg.{sid:08x}.dat"
 
 
 @dataclass
@@ -263,17 +274,53 @@ class XLStorage:
             _fsync_dir(obj_dir)
         self._merge_meta(dst_volume, dst_path, fi.to_dict())
 
+    def _seg_path(self, sid: int) -> str:
+        return os.path.join(self.root, SYS_DIR, SEG_DIR, _seg_name(sid))
+
+    def read_segment(self, sid: int, off: int, length: int) -> bytes:
+        """``length`` bytes of packed segment ``sid`` at ``off``
+        (FileNotFound without the segment, FileCorrupt on a short
+        read)."""
+        try:
+            fd = os.open(self._seg_path(sid), os.O_RDONLY)
+        except FileNotFoundError:
+            raise errors.FileNotFound(f"segment {sid}") from None
+        try:
+            data = os.pread(fd, length, off)
+        finally:
+            os.close(fd)
+        if len(data) < length:
+            raise errors.FileCorrupt(
+                f"segment {sid}: short read {len(data)} < {length} "
+                f"at +{off}")
+        return data
+
+    def _stat_segment(self, seg: dict) -> int:
+        """The extent's length once its segment is known to hold it."""
+        try:
+            size = os.stat(self._seg_path(seg["sid"])).st_size
+        except FileNotFoundError:
+            raise errors.FileNotFound(f"segment {seg['sid']}") from None
+        if size < seg["off"] + seg["len"]:
+            raise errors.FileCorrupt(
+                f"segment {seg['sid']}: {size} < {seg['off'] + seg['len']}")
+        return seg["len"]
+
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
-        """Every part file exists with its framed size (FileCorrupt or
-        FileNotFound otherwise)."""
+        """Every part file, or the packed extent, exists with its framed
+        size (FileCorrupt or FileNotFound otherwise)."""
         ec = fi.erasure
         ss = ec.shard_size()
         for part in fi.parts:
-            pf = os.path.join(path, fi.data_dir, f"part.{part.number}")
-            try:
-                size = os.stat(self._file_path(volume, pf)).st_size
-            except FileNotFoundError:
-                raise errors.FileNotFound(pf) from None
+            if fi.seg is not None:
+                pf = f"seg.{fi.seg['sid']:08x}+{fi.seg['off']}"
+                size = self._stat_segment(fi.seg)
+            else:
+                pf = os.path.join(path, fi.data_dir, f"part.{part.number}")
+                try:
+                    size = os.stat(self._file_path(volume, pf)).st_size
+                except FileNotFoundError:
+                    raise errors.FileNotFound(pf) from None
             want = bitrot_shard_file_size(
                 ec.shard_file_size(part.size), ss,
                 ec.get_checksum_info(part.number).algorithm)

@@ -13,8 +13,9 @@ The same checks run on the port's mesh engine (``ErasureObjects(mesh=
 goes through Kernel C's plain version instead of Kernels A and B.
 
 The reference layer runs with its writer plane off (``_pipe_depth = 0``):
-with it on, objects past the inline threshold go to packed segment files,
-which this slice of the port does not read.
+with it on, objects just past the inline threshold go to packed segment
+files, which the port reads but does not write, so the drives would
+differ (``tests/test_torch_quorum.py`` reads such objects).
 """
 
 import glob

@@ -50,3 +50,20 @@ def test_shard_math(k, m):
         assert np.array_equal(gf8.split(data[:n], k), ref.split(data[:n], k))
     with pytest.raises(ValueError):
         gf8.split(b"", k)
+
+
+def test_nibble_tables_multiply():
+    """The split-nibble tables Kernels A and C read: c * x = lo[x & 15] ^
+    hi[x >> 4] for every coefficient and byte, against minio_tpu's GF(2^8)
+    product table; output rows padded to a multiple of 4 with zeros."""
+    M = np.arange(256, dtype=np.uint8).reshape(1, 256)
+    T = gf8.nibble_tables(M)
+    assert T.shape == (256, 4, 32) and not T[:, 1:].any()
+    x = np.arange(256)
+    got = T[:, 0, x & 15] ^ T[:, 0, 16 + (x >> 4)]            # (256, 256)
+    assert np.array_equal(got, ref.GF_MUL)
+
+
+def test_nibble_tables_keep_their_old_name():
+    from minio_tpu_torch.ops import rs_fused
+    assert rs_fused.nibble_tables is gf8.nibble_tables

@@ -64,6 +64,59 @@ def test_apply_matrix_rejects_bad_input():
                                 out=torch.zeros((1, 3, 8), dtype=torch.uint8))
 
 
+PATH = (6, 12, 4, 873814)     # a 64 MiB PUT batch of a 12 + 4 set
+
+
+def test_plan_at_the_path_shape():
+    """2 KiB of columns per block on 128 threads, at least two blocks per
+    SM, one pass, one block per tile and stripe."""
+    B, k, r, n = PATH
+    p = rs_kernels.plan(B, k, r, n)
+    assert p["tile"] == 16 * p["threads"] == 2048
+    assert p["smem"] == rs_kernels.smem_bytes(k, p["tile"])
+    assert p["smem"] <= rs_kernels.SMEM_BUDGET
+    assert p["blocks_per_sm"] >= 2
+    assert p["grid"] == (-(-n // 2048), B) and p["passes"] == 1
+
+
+@pytest.mark.parametrize("n", [1, 17, 4097, 873814])
+def test_plan_fits_shared_memory_for_every_k_and_r(n):
+    """Every (k, r) that apply_matrix takes gets a plan: tile a multiple of
+    16 x threads (whole warps), the kernel's shared-memory total, two
+    blocks per SM up to k = 169 and one block within the opt-in limit
+    above."""
+    for k in range(1, 257):
+        for r in range(1, 257):
+            p = rs_kernels.plan(3, k, r, n)
+            t = p["threads"]
+            assert 32 <= t <= rs_kernels.THREADS and t % 32 == 0
+            assert p["tile"] % (16 * t) == 0
+            assert p["smem"] == rs_kernels.smem_bytes(k, p["tile"])
+            assert p["smem"] <= (rs_kernels.SMEM_BUDGET if k <= 169
+                                 else rs_kernels.BLOCK_SMEM_MAX)
+            assert p["blocks_per_sm"] >= (2 if k <= 169 else 1)
+            assert p["passes"] == -(-r // 4)
+            assert p["grid"][0] * p["tile"] >= n
+
+
+@pytest.mark.parametrize("n,threads", [(1, 32), (15, 32), (512, 32),
+                                       (513, 64), (2048, 128)])
+def test_plan_for_a_row_narrower_than_a_tile(n, threads):
+    """A narrow row takes one block per stripe, with as few whole warps as
+    cover it."""
+    p = rs_kernels.plan(2, 12, 4, n)
+    assert p["threads"] == threads and p["tile"] >= n
+    assert p["grid"] == (1, 2)
+
+
+@pytest.mark.parametrize("B,k,r,n", [(0, 4, 2, 8), (1, 0, 2, 8),
+                                     (1, 4, 0, 8), (1, 257, 2, 8),
+                                     (1, 4, 257, 8), (1, 4, 2, 0)])
+def test_plan_rejects_what_the_kernel_cannot_take(B, k, r, n):
+    with pytest.raises(ValueError):
+        rs_kernels.plan(B, k, r, n)
+
+
 def _check_reconstruct(k, m, lost, seed):
     data = _shards(1, k, 97, seed)[0]
     full = gf8_ref.encode(data, m)
