@@ -23,17 +23,27 @@
    the chain bound (one row's packet updates in series), which is the
    chain.
 5. The path: a 16-drive erasure set (12 data + 4 parity, 10 MiB blocks)
-   under a temporary directory.  PUT seeded objects (0 B to 256 MiB), GET
-   each whole and as a range, wipe the drives holding four data shards of
-   the 256 MiB object, GET it degraded, heal it, and check the healed part
-   files byte for byte.  Launch counts are reset before the path and read
-   after each of PUT, GET and heal: Kernels A and B must have run in
-   each, and no plain version anywhere in the path.
+   under a temporary directory.  PUT seeded objects (0 B to 256 MiB; the
+   512 KiB one is packed into the drives' segment files), GET each whole
+   and as a range, wipe the drives holding four data shards of the
+   256 MiB object, GET it degraded, heal it, and check the healed part
+   files byte for byte; then wipe the packed object from four drives,
+   heal it into their segments, check each new extent against the one
+   the drive held before, and GET it through the healed drives.  Then a
+   burst: 8 threads each PUT 32 objects of 512 KiB (packed, group
+   commits) and every body reads back; objects/s, GiB/s, group commits
+   and fsyncs per object.  Launch counts are reset before the path and
+   read after each of PUT, GET, heal, packed heal and burst: Kernels A
+   and B must have run in each, and no plain version anywhere in the
+   path.  Last, one 60 MiB batch's stages timed alone: MD5, encode +
+   frame on the card, the copy into a pinned pooled buffer, and the
+   256 MiB PUT's pipeline wall time per batch.
 6. The mesh path: the same set built on a one-device mesh (the mesh data
-   plane), driven the same way with the same bodies.  Its part files must
-   equal the first set's drive by drive; its PUT must launch Kernel C
-   once per full-block batch and once per short last block, and Kernels A
-   and B not at all; its degraded GET and heal launch Kernels A and B; no
+   plane), driven the same way with the same bodies (without the burst).
+   Its shards (part files, packed extents, inline data) must equal the
+   first set's drive by drive; its PUT must launch Kernel C once per
+   full-block batch and once per short last block, and Kernels A and B
+   not at all; its degraded GET and heals launch Kernels A and B; no
    plain version runs.
 7. One JSON line describing each kernel, the card line, and the result
    line.
@@ -356,42 +366,188 @@ def delta(a, b):
     return {k: (b[k][0] - a[k][0], b[k][1] - a[k][1]) for k in a}
 
 
+PACKED = "512KiB"                  # in the packed band (128 KiB, 1 MiB)
+BURST_THREADS, BURST_EACH, BURST_SIZE = 8, 32, 512 * 1024
+
+
 def make_bodies(gen) -> dict:
-    sizes = {"empty": 0, "inline": 100 * 1024, "1MiB": 1 << 20,
-             "block+1": BLOCK + 1, "256MiB": 256 << 20}
+    sizes = {"empty": 0, "inline": 100 * 1024, PACKED: 512 * 1024,
+             "1MiB": 1 << 20, "block+1": BLOCK + 1, "256MiB": 256 << 20}
     return {name: rand_bytes((size,), gen).cpu().numpy().tobytes()
             for name, size in sizes.items()}
 
 
-def part_digests(root: str, name: str) -> dict:
-    """{drive: sha256 of the object's part.1} over the drives that hold
-    one (inline objects have none)."""
+def shard_bytes(disk, name: str) -> bytes:
+    """A drive's framed shard of the object, read through its XLStorage:
+    the packed extent, the part file or the inline data."""
+    fi = disk.read_version("smoke", name)
+    if fi.seg is not None:
+        return disk.read_segment(fi.seg["sid"], fi.seg["off"],
+                                 fi.seg["len"])
+    if fi.inline_data is not None:
+        return fi.inline_data
+    return disk.read_all("smoke", f"{name}/{fi.data_dir}/part.1")
+
+
+def shard_digests(er, name: str) -> dict:
+    """{drive: (layout, sha256 of its shard)}."""
     out = {}
-    for d in range(K + M):
-        obj = f"{root}/d{d}/smoke/{name}"
-        for sub in sorted(os.listdir(obj)):
-            part = f"{obj}/{sub}/part.1"
-            if os.path.isfile(part):
-                with open(part, "rb") as f:
-                    out[d] = hashlib.sha256(f.read()).digest()
+    for d, disk in enumerate(er.disks):
+        fi = disk.read_version("smoke", name)
+        layout = ("packed" if fi.seg is not None else
+                  "inline" if fi.inline_data is not None else "part")
+        out[d] = (layout, hashlib.sha256(shard_bytes(disk, name)).digest())
     return out
 
 
-def drive_set(label: str, bodies: dict, card: str, mesh=None):
-    """PUT, GET, degraded GET, heal and GET through the healed drives on a
-    fresh 16-drive set; returns the launch counts per phase, the part-file
-    digests after PUT and the set (still open, drives removed)."""
-    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+def victims_of(er, name: str) -> list[int]:
+    """The drives holding data shards 1..4 of the object."""
+    fi, _ = er._read_quorum_fileinfo("smoke", name)
+    victims = [d for d, shard in enumerate(fi.erasure.distribution)
+               if shard <= M]
+    check(len(victims) == M, "victims")
+    return victims
+
+
+def wipe(root: str, name: str, drives) -> None:
+    for d in drives:
+        shutil.rmtree(f"{root}/d{d}/smoke/{name}")
+
+
+def packed_heal(er, root: str, body: bytes) -> float:
+    """Wipe the packed object from the drives of four data shards, heal it
+    into their own segments, check each new extent against the one the
+    drive held, GET through the healed drives; returns the heal's
+    seconds."""
     from minio_tpu_torch.ops import rs_kernels
-    from minio_tpu_torch.storage.xl_storage import XLStorage
-    root = tempfile.mkdtemp(prefix="chip-smoke-drives-")
+    victims = victims_of(er, PACKED)
+    saved = {d: shard_bytes(er.disks[d], PACKED) for d in victims}
+    check(all(er.disks[d].read_version("smoke", PACKED).seg is not None
+              for d in range(K + M)), f"{PACKED} is not packed")
+    wipe(root, PACKED, victims)
+    a_before = rs_kernels.COUNTS.launches
+    t0 = time.perf_counter()
+    res = er.heal_object("smoke", PACKED)
+    torch.cuda.synchronize()
+    heal_s = time.perf_counter() - t0
+    check(rs_kernels.COUNTS.launches > a_before,
+          "packed heal launched no Kernel A")
+    check(len(res.healed_disks) == M, f"healed {res.healed_disks}")
+    for d in victims:
+        fi = er.disks[d].read_version("smoke", PACKED)
+        check(fi.seg is not None and shard_bytes(er.disks[d], PACKED)
+              == saved[d], f"healed extent on drive {d} differs")
+    wipe(root, PACKED, [d for d in range(K + M) if d not in victims][:M])
+    _, got = er.get_object("smoke", PACKED)
+    check(got == body, f"GET {PACKED} through healed drives")
+    return heal_s
+
+
+def fsync_ms(root: str, count: int = 50) -> float:
+    """Median milliseconds of one 4 KiB write + fsync to a file under
+    ``root`` (the drives' disk): what one group-commit round waits on."""
+    path = os.path.join(root, "fsync-probe")
+    times = []
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
     try:
-        drives = []
-        for i in range(K + M):
-            os.makedirs(f"{root}/d{i}")
-            drives.append(XLStorage(f"{root}/d{i}"))
-        er = ErasureObjects(drives, parity=M, device="cuda", mesh=mesh)
-        er.make_bucket("smoke")
+        for _ in range(count):
+            os.write(fd, b"x" * 4096)
+            t0 = time.perf_counter()
+            os.fsync(fd)
+            times.append(time.perf_counter() - t0)
+    finally:
+        os.close(fd)
+        os.remove(path)
+    return float(np.median(times)) * 1e3
+
+
+def new_set(root: str, mesh=None):
+    """A fresh 16-drive set (12 data + 4 parity, 10 MiB blocks) on the
+    card, its drives under ``root``, with the bucket ``smoke``."""
+    from minio_tpu_torch.objectlayer.erasure_object import ErasureObjects
+    from minio_tpu_torch.storage.xl_storage import XLStorage
+    drives = []
+    for i in range(K + M):
+        os.makedirs(f"{root}/d{i}")
+        drives.append(XLStorage(f"{root}/d{i}"))
+    er = ErasureObjects(drives, parity=M, device="cuda", mesh=mesh)
+    er.make_bucket("smoke")
+    return er
+
+
+def burst_bodies() -> list:
+    """The burst's BURST_THREADS x BURST_EACH seeded bodies."""
+    n = BURST_THREADS * BURST_EACH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    blob = rand_bytes((n * BURST_SIZE,), gen).cpu().numpy().tobytes()
+    return [blob[i * BURST_SIZE:(i + 1) * BURST_SIZE] for i in range(n)]
+
+
+def put_burst(er, bodies: list) -> float:
+    """PUT ``bodies`` as ``burst/<i>`` from BURST_THREADS threads at once;
+    returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def put_many(t):
+        for i in range(t, len(bodies), BURST_THREADS):
+            er.put_object("smoke", f"burst/{i}", bodies[i])
+
+    with ThreadPoolExecutor(BURST_THREADS) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(put_many, range(BURST_THREADS)))
+        return time.perf_counter() - t0
+
+
+def read_back(er, bodies: list) -> None:
+    for i, body in enumerate(bodies):
+        _, got = er.get_object("smoke", f"burst/{i}")
+        check(got == body, f"burst object {i} reads back")
+
+
+def burst(er, root: str, card: str) -> dict:
+    """BURST_THREADS threads each PUT BURST_EACH packed objects of
+    BURST_SIZE bytes at once; every body must read back."""
+    from minio_tpu_torch.storage import commit
+    bodies = burst_bodies()
+    n = len(bodies)
+    commit.COUNTS.reset()
+    wall = put_burst(er, bodies)
+    c = commit.COUNTS
+    out = {"objects": n, "object_bytes": BURST_SIZE, "threads":
+           BURST_THREADS, "wall_s": wall, "objects_per_s": n / wall,
+           "gib_per_s": n * BURST_SIZE / wall / 2**30,
+           "group_commits": c.batches, "grouped": c.grouped,
+           "largest_group": c.largest, "ops": c.ops,
+           "fsyncs_per_object": c.fsyncs / n,
+           "deferred_fsyncs_per_object": c.deferred / n,
+           "ops_per_group": c.ops / max(1, c.batches),
+           "fsync_4KiB_median_ms": fsync_ms(root)}
+    read_back(er, bodies)
+    print(f"burst on {card}: {n} objects of {BURST_SIZE} B from "
+          f"{BURST_THREADS} threads in {wall:.3f} s: "
+          f"{out['objects_per_s']:.1f} objects/s, {out['gib_per_s']:.4f} "
+          f"GiB/s; {c.batches} group commits ({c.grouped} of more than one "
+          f"op, largest {c.largest}, {out['ops_per_group']:.2f} ops each), "
+          f"{out['fsyncs_per_object']:.2f} fsyncs per object (an eager "
+          f"commit would issue {out['deferred_fsyncs_per_object']:.2f}); "
+          f"every body read back; one 4 KiB write + fsync on the drives' "
+          f"disk takes {out['fsync_4KiB_median_ms']:.3f} ms (median)")
+    return out
+
+
+def drive_set(label: str, bodies: dict, card: str, mesh=None,
+              with_burst: bool = False):
+    """PUT, GET, degraded GET, heal and GET through the healed drives of
+    the 256 MiB object, the packed heal, and (``with_burst``) the packed
+    burst, on a fresh 16-drive set; returns the launch counts per phase,
+    the shard digests after PUT, the readings and the set (still open,
+    drives removed)."""
+    from minio_tpu_torch.ops import rs_kernels
+    root = tempfile.mkdtemp(prefix="chip-smoke-drives-")
+    readings = {}
+    try:
+        er = new_set(root, mesh)
         reset_counts()
         s0 = snapshot()
 
@@ -402,7 +558,8 @@ def drive_set(label: str, bodies: dict, card: str, mesh=None):
         torch.cuda.synchronize()
         put_s = time.perf_counter() - t0
         s_put = snapshot()
-        parts = {name: part_digests(root, name) for name in bodies}
+        readings["pipeline_256MiB"] = dict(er.pipe_stats)
+        shards = {name: shard_digests(er, name) for name in bodies}
 
         big = bodies["256MiB"]
         for name, body in bodies.items():
@@ -414,14 +571,11 @@ def drive_set(label: str, bodies: dict, card: str, mesh=None):
                 _, got = er.get_object("smoke", name, lo, ln)
                 check(got == body[lo:lo + ln], f"range GET {name}")
         fi, _ = er._read_quorum_fileinfo("smoke", "256MiB")
-        victims = [d for d, shard in enumerate(fi.erasure.distribution)
-                   if shard <= M]                       # data shards 1..4
-        check(len(victims) == M, "victims")
+        victims = victims_of(er, "256MiB")
         part = f"256MiB/{fi.data_dir}/part.1"
         saved = {d: open(f"{root}/d{d}/smoke/{part}", "rb").read()
                  for d in victims}
-        for d in victims:
-            shutil.rmtree(f"{root}/d{d}/smoke/256MiB")
+        wipe(root, "256MiB", victims)
         a_before = rs_kernels.COUNTS.launches
         t0 = time.perf_counter()
         _, got = er.get_object("smoke", "256MiB")
@@ -442,95 +596,153 @@ def drive_set(label: str, bodies: dict, card: str, mesh=None):
             check(open(f"{root}/d{d}/smoke/{part}", "rb").read() == saved[d],
                   f"healed part.1 on drive {d} differs")
         # the healed drives must serve: wipe four others and GET again
-        others = [d for d in range(K + M) if d not in victims][:M]
-        for d in others:
-            shutil.rmtree(f"{root}/d{d}/smoke/256MiB")
+        wipe(root, "256MiB",
+             [d for d in range(K + M) if d not in victims][:M])
         _, got = er.get_object("smoke", "256MiB")
         check(got == big, "GET through healed drives")
+        s_heal_get = snapshot()
+
+        packed_heal_s = packed_heal(er, root, bodies[PACKED])
+        s_packed = snapshot()
+        phases = {"put": delta(s0, s_put), "get": delta(s_put, s_get),
+                  "heal": delta(s_get, s_heal),
+                  "packed_heal": delta(s_heal_get, s_packed)}
+        if with_burst:
+            readings["burst"] = burst(er, root, card)
+            phases["burst"] = delta(s_packed, snapshot())
         s_end = snapshot()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    phases = {"put": delta(s0, s_put), "get": delta(s_put, s_get),
-              "heal": delta(s_get, s_heal)}
     total = delta(s0, s_end)
     for kernel, (_, plain) in total.items():
         check(plain == 0, f"{label}: {kernel} plain version ran {plain} "
               "times")
     put_bytes = sum(len(b) for b in bodies.values())
+    readings.update(put_bytes=put_bytes, put_s=put_s, degraded_get_s=get_s,
+                    heal_s=heal_s, packed_heal_s=packed_heal_s)
     print(f"{label} on {card}: PUT {put_bytes / put_s / 2**30:.3f} GiB/s "
           f"({put_bytes} bytes in {put_s:.3f} s), degraded GET of 256 MiB "
           f"{len(big) / get_s / 2**30:.3f} GiB/s ({get_s:.3f} s), heal of 4 "
-          f"shards {heal_s:.3f} s")
+          f"shards {heal_s:.3f} s, heal of 4 packed shards of {PACKED} "
+          f"{packed_heal_s:.3f} s")
     print(f"{label} launches per phase (kernel, plain): "
           + json.dumps(phases))
-    return phases, total, parts, er
+    return phases, total, shards, readings, er
 
 
 def phase_path(bodies: dict, card: str):
-    phases, total, parts, er = drive_set("path", bodies, card)
+    phases, total, shards, readings, er = drive_set("path", bodies, card,
+                                                    with_burst=True)
     for phase, counts in phases.items():
         for kernel in ("gf8_apply", "hh256"):
             check(counts[kernel][0] > 0,
                   f"{kernel} not launched during {phase}")
-    put_breakdown("path", er, bodies["256MiB"])
+    check(all(layout == "packed" for layout, _ in shards[PACKED].values()),
+          f"{PACKED} not packed on every drive")
+    readings["breakdown"] = put_breakdown("path", er, bodies["256MiB"],
+                                          readings, card)
     er.close()
-    return {k: v[0] for k, v in total.items()}, parts
+    return {k: v[0] for k, v in total.items()}, shards, readings
 
 
-def fused_launches(bodies: dict, batch: int) -> int:
-    """Kernel C launches a mesh PUT of ``bodies`` needs: per stream batch,
-    one for its full blocks and one for a short last block."""
+def fused_launches(bodies: dict, batch: int, stream_bytes: int) -> int:
+    """Kernel C launches a mesh PUT of ``bodies`` needs: per encode call
+    (the whole body up to ``stream_bytes``, else each stream batch), one
+    for its full blocks and one for a short last block."""
     count = 0
     for body in bodies.values():
-        for off in range(0, len(body), batch):
-            nfull, tail = divmod(min(batch, len(body) - off), BLOCK)
+        step = len(body) if len(body) <= stream_bytes else batch
+        for off in range(0, len(body), max(1, step)):
+            nfull, tail = divmod(min(step, len(body) - off), BLOCK)
             count += (nfull > 0) + (tail > 0)
     return count
 
 
-def phase_mesh_path(bodies: dict, card: str, ref_parts: dict):
+def phase_mesh_path(bodies: dict, card: str, ref_shards: dict):
+    from minio_tpu_torch.objectlayer import erasure_object
     from minio_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh([torch.device("cuda", 0)])
-    phases, total, parts, er = drive_set("mesh path", bodies, card,
-                                         mesh=mesh)
+    phases, total, shards, readings, er = drive_set("mesh path", bodies,
+                                                    card, mesh=mesh)
     for name in bodies:
-        check(parts[name] == ref_parts[name],
-              f"mesh set part files of {name} differ from the first set's")
-    want = fused_launches(bodies, er._batch_bytes())
+        check(shards[name] == ref_shards[name],
+              f"mesh set shards of {name} differ from the first set's")
+    want = fused_launches(bodies, er._batch_bytes(),
+                          erasure_object.STREAM_BATCH_BYTES)
     check(phases["put"]["rs_fused"][0] == want,
           f"mesh PUT launched Kernel C {phases['put']['rs_fused'][0]} "
           f"times, expected {want}")
     for kernel in ("gf8_apply", "hh256"):
         check(phases["put"][kernel][0] == 0,
               f"{kernel} launched during the mesh PUT")
-        for phase in ("get", "heal"):
+        for phase in ("get", "heal", "packed_heal"):
             check(phases[phase][kernel][0] > 0,
                   f"{kernel} not launched during the mesh {phase}")
-    print(f"mesh path: part files of {len(ref_parts)} objects equal to the "
-          f"first set's on every drive; Kernel C launched {want} times "
-          "during PUT")
-    put_breakdown("mesh path", er, bodies["256MiB"])
+    print(f"mesh path: shards of {len(ref_shards)} objects (part files, "
+          f"packed extents, inline data) equal to the first set's on every "
+          f"drive; Kernel C launched {want} times during PUT")
+    readings["breakdown"] = put_breakdown("mesh path", er, bodies["256MiB"],
+                                          readings, card)
     er.close()
-    return {k: v[0] for k, v in total.items()}
+    return {k: v[0] for k, v in total.items()}, readings
 
 
-def put_breakdown(label: str, er, body: bytes) -> None:
-    """Two stages of PUT timed alone on one 60 MiB stream batch: the host
-    MD5 and encode + frame (host-to-device copy, the kernels,
-    device-to-host copy).  The rest of PUT's wall time is drive I/O and
-    Python."""
+def put_breakdown(label: str, er, body: bytes, readings: dict,
+                  card: str) -> dict:
+    """One 60 MiB stream batch's PUT stages timed alone: the host MD5,
+    encode + frame on the card (host-to-device copy and the kernels), the
+    device-to-host copy into a pinned pooled buffer; and the 256 MiB
+    PUT's pipeline wall time per batch, its MD5 and encode + frame
+    stages overlapped with the drive writes."""
+    from minio_tpu_torch.utils import bufpool
     batch = body[:er._batch_bytes()]
-    er._encode_and_frame(batch)                     # warm
+    for _ in range(2):                               # warm, pool filled
+        _, release = er._encode_framed_pooled(batch)
+        release()
     t0 = time.perf_counter()
     hashlib.md5(batch).hexdigest()
     md5_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    er._encode_and_frame(batch)
-    enc_s = time.perf_counter() - t0
-    print(f"{label} PUT stages for one {len(batch)}-byte batch: MD5 "
-          f"{md5_s * 1e3:.1f} ms, encode + frame incl. copies "
-          f"{enc_s * 1e3:.1f} ms")
+    framed = er._frame(batch)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, release = er._to_host(framed)
+    copy_s = time.perf_counter() - t0
+    release()
+    t0 = time.perf_counter()
+    framed.cpu().numpy()
+    pageable_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, release = er._encode_framed_pooled(batch)
+    pooled_s = time.perf_counter() - t0
+    release()
+    pipe = readings["pipeline_256MiB"]
+    out = {"batch_bytes": len(batch), "md5_ms": md5_s * 1e3,
+           "frame_ms": frame_s * 1e3, "d2h_pinned_ms": copy_s * 1e3,
+           "d2h_pageable_ms": pageable_s * 1e3,
+           "encode_frame_pooled_ms": pooled_s * 1e3,
+           "pipeline_wall_ms_per_batch": pipe["wall_s"] * 1e3
+           / pipe["batches"],
+           "pipeline_md5_ms_per_batch": pipe["md5_s"] * 1e3
+           / pipe["batches"],
+           "pipeline_encode_ms_per_batch": pipe["encode_s"] * 1e3
+           / pipe["batches"], "pipeline_batches": pipe["batches"],
+           "pool_hits": bufpool.GLOBAL.hits}
+    print(f"{label} PUT stages for one {len(batch)}-byte batch on {card}: "
+          f"MD5 {out['md5_ms']:.1f} ms; encode + frame into a pinned pooled "
+          f"buffer {out['encode_frame_pooled_ms']:.1f} ms (on the card incl. "
+          f"the host-to-device copy {out['frame_ms']:.1f} ms, device-to-host "
+          f"into pinned memory {out['d2h_pinned_ms']:.1f} ms, into fresh "
+          f"pageable memory {out['d2h_pageable_ms']:.1f} ms); the 256 MiB "
+          f"PUT's pipeline: {pipe['batches']} batches, "
+          f"{out['pipeline_wall_ms_per_batch']:.1f} ms wall per batch, MD5 "
+          f"{out['pipeline_md5_ms_per_batch']:.1f} ms and encode + frame "
+          f"{out['pipeline_encode_ms_per_batch']:.1f} ms per batch beside "
+          "the drive writes")
+    return out
 
 
 def sm_clock_mhz() -> float:
@@ -563,12 +775,14 @@ def main() -> int:
                phase_kernel_c(gen, clock, card)]
     phase_encode_layout(gen)
     bodies = make_bodies(gen)
-    path, parts = phase_path(bodies, card)
-    mesh_path = phase_mesh_path(bodies, card, parts)
+    path, shards, path_readings = phase_path(bodies, card)
+    mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
     for k in kernels:
         k["launches"] = path[k["name"]] + mesh_path[k["name"]]
         k["launches_by_path"] = {"path": path[k["name"]],
                                  "mesh_path": mesh_path[k["name"]]}
+    print(json.dumps({"card": card, "path": path_readings,
+                      "mesh_path": mesh_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

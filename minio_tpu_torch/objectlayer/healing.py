@@ -1,17 +1,16 @@
 """Object healing (cmd/erasure-healing.go:233 healObject), single-part
-objects, inline or in part files.  For an object that ``minio_tpu``
-packed into segment files, the shards are read from their segments and
-rebuilt; a healed shard belongs in the target drive's own segment, which
-the port cannot write yet (ROADMAP Queue 1 item 4), so heal then raises
-NotImplementedError before it writes anything.
+objects: inline, in part files, or packed into segment files.
 
 Each drive is classified for the quorum version as ok / offline / missing
 / outdated / corrupt.  The missing, outdated and corrupt shards are
 rebuilt from k verified healthy ones through the set's codec (its device
 or mesh): one Kernel A launch for all full stripes (and one for the short
-last stripe), framed on the device with Kernel B, and committed to each
-stale drive with tmp + ``rename_data`` (or into xl.meta for inline
-objects).
+last stripe), framed on the device with Kernel B, and written to each
+stale drive through the set's writer plane in the layout of the healthy
+drives: into xl.meta for an inline object, packed into the target
+drive's own segment file for a packed one (``XLStorage.write_packed``;
+an extent belongs to one drive, so it is never copied), else tmp +
+``rename_data``.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch
 from ..hashing import bitrot
 from ..ops import gf8, rs_kernels
 from ..storage import errors as serrors
+from ..storage.writers import held_release
 from ..storage.xl_storage import SYS_DIR
 from . import metadata as meta
 from .erasure_object import ErasureObjects, _disk_fileinfo, rebuild
@@ -104,7 +104,7 @@ def heal_object(er: ErasureObjects, bucket: str,
     if fi.size == 0 or not fi.parts:
         # nothing to rebuild: copy a healthy drive's version
         src = s_fis[ok_idx[0]]
-        framed = None
+        framed = release = None
     else:
         part = fi.parts[0]
         sfsize = ec.shard_file_size(part.size)
@@ -119,22 +119,17 @@ def heal_object(er: ErasureObjects, bucket: str,
         rebuilt = surv.new_empty((len(healable), sfsize))
         rebuild(er.codec, rows, surv, part.size // ec.block_size,
                 ec.shard_size(), rebuilt)
-        framed = bitrot.frame_batch(rebuilt, ec.shard_size()).cpu().numpy()
+        framed, release = er._to_host(
+            bitrot.frame_batch(rebuilt, ec.shard_size()))
         src = fi
-    if packed:                              # before any write
-        raise NotImplementedError(
-            "healing a packed object needs segment writes (ROADMAP Queue 1 "
-            "item 4)")
     for i in healable:                      # healBucket first
         try:
             shuffled[i].stat_vol(bucket)
         except serrors.VolumeNotFound:
             shuffled[i].make_vol(bucket)
 
-    def heal_one(pos):
-        i = healable[pos]
-        disk = shuffled[i]
-        dfi = _disk_fileinfo(src, i)
+    def heal_one(pos, disk):
+        dfi = _disk_fileinfo(src, healable[pos])
         if framed is None:                  # zero-size: metadata only
             dfi.inline_data = src.inline_data
             disk.write_metadata(bucket, object_name, dfi)
@@ -144,6 +139,10 @@ def heal_object(er: ErasureObjects, bucket: str,
             dfi.data_dir = ""
             disk.write_metadata(bucket, object_name, dfi)
             return
+        if packed:
+            dfi.data_dir = ""
+            disk.write_packed(bucket, object_name, dfi, framed[pos].tobytes())
+            return
         tmp = disk.tmp_dir()
         try:
             disk.create_file(SYS_DIR, f"{tmp}/part.1", framed[pos])
@@ -151,7 +150,12 @@ def heal_object(er: ErasureObjects, bucket: str,
         finally:
             disk.clean_tmp(tmp)
 
-    _, herrs = er._fanout(heal_one, list(range(len(healable))))
+    buf = held_release(release)
+    try:
+        herrs = er._commit_fanout(heal_one, [shuffled[i] for i in healable],
+                                  buf)
+    finally:
+        buf.done_one()
     for pos, e in enumerate(herrs):
         if e is None:
             res.healed_disks.append(shuffled[healable[pos]].endpoint())

@@ -114,8 +114,8 @@ class FileInfo:
     erasure: ErasureInfo = field(default_factory=ErasureInfo)
     # small-object payload kept in xl.meta
     inline_data: Optional[bytes] = None
-    # packed-segment extent {sid, off, len} written by minio_tpu's commit
-    # plane; the port reads it (XLStorage.read_segment) and writes none
+    # this drive's packed-segment extent {sid, off, len}
+    # (XLStorage.write_packed, storage/commit.py)
     seg: Optional[dict] = None
     num_versions: int = 0
 

@@ -45,3 +45,8 @@ class PathNotEmpty(StorageError):
 
 class DiskAccessDenied(StorageError):
     """errDiskAccessDenied."""
+
+
+class FaultyDisk(StorageError):
+    """errFaultyDisk: the drive failed an I/O (an fsync of a group
+    commit)."""

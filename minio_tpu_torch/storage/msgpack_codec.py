@@ -6,7 +6,9 @@ emits for these types (smallest int form, positive ints unsigned, str8
 allowed, floats as float64), so xl.meta written here is byte-identical to
 ``minio_tpu``'s and each package reads the other's drives.  ``unpackb``
 decodes like ``msgpack.unpackb(buf, raw=False, strict_map_key=False)``
-for the same subset and raises ValueError on anything else.
+for the same subset and raises ValueError on anything else;
+``unpack_stream`` decodes a run of records back to back, as
+``msgpack.Unpacker`` does, and gives each record's end offset.
 """
 
 from __future__ import annotations
@@ -123,9 +125,28 @@ def unpackb(buf) -> object:
     return obj
 
 
+def unpack_stream(buf):
+    """(record, end offset) for each whole record of ``buf``, in order.
+    Stops quietly at a truncated last record; a record that cannot be
+    decoded raises ValueError after the good ones before it."""
+    buf = bytes(buf)
+    pos = 0
+    while pos < len(buf):
+        try:
+            obj, end = _unpack(buf, pos)
+        except _Truncated:
+            return
+        yield obj, end
+        pos = end
+
+
+class _Truncated(ValueError):
+    pass
+
+
 def _take(buf: bytes, pos: int, n: int) -> bytes:
     if pos + n > len(buf):
-        raise ValueError("truncated msgpack data")
+        raise _Truncated("truncated msgpack data")
     return buf[pos:pos + n]
 
 

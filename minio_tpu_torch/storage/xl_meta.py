@@ -48,6 +48,15 @@ class XLMeta:
         self.versions.append(vd)
         self.versions.sort(key=lambda v: v.get("mt", 0), reverse=True)
 
+    def delete_version(self, version_id: str) -> str:
+        """Remove a version; returns its data dir ("" if none).  A missing
+        version raises FileVersionNotFound."""
+        for i, v in enumerate(self.versions):
+            if v.get("vid", "") == version_id:
+                self.versions.pop(i)
+                return v.get("ddir", "")
+        raise errors.FileVersionNotFound(version_id)
+
     def find(self, version_id: str) -> dict:
         for v in self.versions:
             if v.get("vid", "") == version_id:

@@ -9,8 +9,11 @@ and reads what ``minio_tpu`` writes in its default configuration.
   stale version was inline, or the healed drives fail the quorum hash.
 * With its writer plane on (its default), ``minio_tpu`` packs objects
   just above the inline threshold into per-drive segment files.  The port
-  reads them, degraded too, and classifies the drives; it cannot write
-  segments yet, so heal of such an object raises before any write.
+  reads them, degraded too, classifies the drives, and heals them into
+  each target drive's own segment: to the same bytes as ``minio_tpu``'s
+  heal of the same drives, and, where a drive lost its open segment file
+  (which ``minio_tpu`` would append to at a wrong offset), into a fresh
+  segment that reads back.
 
 The oracle is the body and the set's quorum, not ``minio_tpu``, which
 shares the first two faults.  Every case runs on the CPU device and on a
@@ -109,7 +112,7 @@ def test_heal_lays_out_part_files_over_stale_inline(tmp_path, engine):
         lay.make_bucket(BUCKET)
         lay.put_object(BUCKET, "o", _body(5000, 1))          # inline
         saved = _offline(lay, [0, 1])
-        body = _body(port_eo.INLINE_THRESHOLD + 1, 2)        # part files
+        body = _body(1 << 20, 2)                             # part files
         lay.put_object(BUCKET, "o", body)
         _online(lay, saved)
         assert _inline(tmp_path, 0, "o") and _inline(tmp_path, 1, "o")
@@ -128,7 +131,30 @@ def test_heal_lays_out_part_files_over_stale_inline(tmp_path, engine):
         lay.close()
 
 
-PACKED_SIZE = 200 * 1024     # in minio_tpu's packed band (128 KiB, 1 MiB]
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_heal_packs_over_stale_inline(tmp_path, engine):
+    n, parity = 8, 3
+    lay = _port(tmp_path, n, parity, engine)
+    try:
+        lay.make_bucket(BUCKET)
+        lay.put_object(BUCKET, "o", _body(5000, 1))          # inline
+        saved = _offline(lay, [0, 1])
+        body = _body(port_eo.INLINE_THRESHOLD + 1, 2)        # packed
+        lay.put_object(BUCKET, "o", body)
+        _online(lay, saved)
+        res = lay.heal_object(BUCKET, "o")
+        assert sorted(res.healed_disks) == sorted(
+            lay.disks[d].endpoint() for d in (0, 1))
+        for d in (0, 1):
+            fi = XLStorage(f"{tmp_path}/d{d}").read_version(BUCKET, "o")
+            assert fi.inline_data is None and fi.seg is not None
+        _offline(lay, [2, 3, 4])
+        assert lay.get_object(BUCKET, "o")[1] == body
+    finally:
+        lay.close()
+
+
+PACKED_SIZE = 200 * 1024     # in minio_tpu's packed band (128 KiB, 1 MiB)
 
 
 def _tree(root) -> dict:
@@ -192,9 +218,76 @@ def test_reads_packed_objects_of_the_default_reference(tmp_path, engine):
                     else healing.CORRUPT if d in victims[2:] else healing.OK)
             assert got[dist[d] - 1] == want, d
 
-        before = _tree(tmp_path)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            lay.heal_object(BUCKET, "o")
-        assert _tree(tmp_path) == before
+        res = lay.heal_object(BUCKET, "o")
+        assert sorted(res.healed_disks) == sorted(
+            lay.disks[d].endpoint() for d in victims)
+        assert states() == [healing.OK] * n
+        for d in victims[2:]:           # their lost segment is sealed
+            fi = lay.disks[d].read_version(BUCKET, "o")
+            assert fi.seg["sid"] == 2 and fi.seg["off"] == 0
+        # the healed drives serve: drop four others and GET
+        for d in [d for d in range(n) if d not in victims][:4]:
+            shutil.rmtree(f"{tmp_path}/d{d}/{BUCKET}/o")
+        assert lay.get_object(BUCKET, "o")[1] == body
     finally:
         lay.close()
+
+
+def _copy_drives(src, dst, n: int) -> None:
+    for i in range(n):
+        shutil.copytree(f"{src}/d{i}", f"{dst}/d{i}")
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_packed_heal_matches_the_reference(tmp_path, engine):
+    """The same damaged drives healed by the port and by ``minio_tpu``
+    end byte-equal: xl.meta, segment files and journals."""
+    n, parity = 16, 4
+    refs = []
+    for i in range(n):
+        os.makedirs(f"{tmp_path}/src/d{i}")
+        refs.append(RefStorage(f"{tmp_path}/src/d{i}"))
+    ref = ref_eo.ErasureObjects(refs, parity=parity, backend="numpy")
+    bodies = {"o": _body(PACKED_SIZE, 1), "p": _body(PACKED_SIZE + 7, 2)}
+    try:
+        ref.make_bucket(BUCKET)
+        for name, body in bodies.items():
+            ref.put_object(BUCKET, name, body)
+    finally:
+        close_write_planes(ref)
+    port0 = _port(f"{tmp_path}/src", n, parity, engine,
+                  block_size=port_eo.DEFAULT_BLOCK_SIZE)
+    victims = _drives_of_shards(port0, "o", {1, 2, 3, 13})
+    port0.close()
+    # two drives lose the object, one its xl.meta's bytes, one the object
+    # and its whole segment store (a replaced drive)
+    for d in victims[:2] + victims[3:]:
+        shutil.rmtree(f"{tmp_path}/src/d{d}/{BUCKET}/o")
+    shutil.rmtree(f"{tmp_path}/src/d{victims[3]}/.mt.sys/seg")
+    with open(f"{tmp_path}/src/d{victims[2]}/{BUCKET}/o/xl.meta", "wb") as f:
+        f.write(b"MTXL2\x00garbage")
+    _copy_drives(f"{tmp_path}/src", f"{tmp_path}/port", n)
+    _copy_drives(f"{tmp_path}/src", f"{tmp_path}/ref", n)
+
+    ref = ref_eo.ErasureObjects(
+        [RefStorage(f"{tmp_path}/ref/d{i}") for i in range(n)],
+        parity=parity, backend="numpy")
+    lay = _port(f"{tmp_path}/port", n, parity, engine,
+                block_size=port_eo.DEFAULT_BLOCK_SIZE)
+    try:
+        want = ref.heal_object(BUCKET, "o")
+        got = lay.heal_object(BUCKET, "o")
+        assert sorted(got.healed_disks) == sorted(
+            lay.disks[d].endpoint() for d in victims)
+        assert len(want.healed_disks) == len(victims)
+        for d in range(n):
+            got_tree = {os.path.relpath(p, f"{tmp_path}/port"): b
+                        for p, b in _tree(f"{tmp_path}/port/d{d}").items()}
+            want_tree = {os.path.relpath(p, f"{tmp_path}/ref"): b
+                         for p, b in _tree(f"{tmp_path}/ref/d{d}").items()}
+            assert got_tree == want_tree, f"drive {d} differs"
+        for name, body in bodies.items():
+            assert lay.get_object(BUCKET, name)[1] == body
+    finally:
+        lay.close()
+        close_write_planes(ref)
