@@ -45,8 +45,22 @@
    full-block batch and once per short last block, and Kernels A and B
    not at all; its degraded GET and heals launch Kernels A and B; no
    plain version runs.
-7. One JSON line describing each kernel, the card line, and the result
-   line.
+7. The S3 front: ``build_server`` (what ``python -m minio_tpu_torch
+   server`` runs) on 16 temporary drives on the card at 127.0.0.1:0, the
+   same 12 + 4 set with 10 MiB blocks, driven over HTTP with the port's
+   ``S3Client``: make a bucket, PUT the six bodies (the 256 MiB one
+   aws-chunked with Content-MD5, so it takes the streaming route; the
+   others header-signed with their SHA-256), each ETag against the body's
+   MD5, GET each whole and one range, HEAD one, ListObjectsV2 with a
+   delimiter, wipe the drives of four data shards of the 256 MiB object
+   and GET it degraded byte for byte, DELETE it, then a burst of 8
+   client threads x 32 PUTs of 512 KiB, all read back.  Launch counts are
+   reset before the phase and read after PUT, GET, degraded GET and the
+   burst: Kernels A and B in each but the healthy GETs, which verify
+   (Kernel B) and rebuild nothing; no plain version.  One line sets the HTTP
+   figures beside phase 5's in-process ones from the same run.
+8. One JSON line of readings, one describing each kernel, the card line,
+   and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
 line; it also exits nonzero when torch sees no card.
@@ -54,6 +68,7 @@ line; it also exits nonzero when torch sees no card.
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import json
 import os
@@ -553,7 +568,9 @@ def drive_set(label: str, bodies: dict, card: str, mesh=None,
 
         t0 = time.perf_counter()
         for name, body in bodies.items():
+            t1 = time.perf_counter()
             info = er.put_object("smoke", name, body)
+            readings[f"put_{name}_s"] = time.perf_counter() - t1
             check(info.etag == hashlib.md5(body).hexdigest(), f"etag {name}")
         torch.cuda.synchronize()
         put_s = time.perf_counter() - t0
@@ -563,7 +580,9 @@ def drive_set(label: str, bodies: dict, card: str, mesh=None,
 
         big = bodies["256MiB"]
         for name, body in bodies.items():
+            t1 = time.perf_counter()
             _, got = er.get_object("smoke", name)
+            readings[f"get_{name}_s"] = time.perf_counter() - t1
             digest = hashlib.sha256(got).digest()
             check(digest == hashlib.sha256(body).digest(), f"GET {name}")
             if len(body) > 2:
@@ -745,6 +764,157 @@ def put_breakdown(label: str, er, body: bytes, readings: dict,
     return out
 
 
+S3_KEY, S3_SECRET = "smoke-key", "smoke-secret"
+
+
+def http_burst(endpoint: str, bodies: list) -> float:
+    """PUT ``bodies`` as ``burst/<i>`` over HTTP from BURST_THREADS
+    client threads at once; returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from minio_tpu_torch.s3.client import S3Client
+
+    def put_many(t):
+        client = S3Client(endpoint, S3_KEY, S3_SECRET)
+        for i in range(t, len(bodies), BURST_THREADS):
+            r = client.put_object("smoke", f"burst/{i}", bodies[i])
+            etag = hashlib.md5(bodies[i]).hexdigest()
+            check(r.headers["ETag"] == f'"{etag}"', f"HTTP burst ETag {i}")
+
+    with ThreadPoolExecutor(BURST_THREADS) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(put_many, range(BURST_THREADS)))
+        return time.perf_counter() - t0
+
+
+def phase_s3(bodies: dict, card: str, inproc: dict):
+    """The S3 front over HTTP on a fresh 16-drive set; returns the launch
+    counts and the readings."""
+    from minio_tpu_torch.s3 import sigv4
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.server_main import build_server
+    root = tempfile.mkdtemp(prefix="chip-smoke-s3-")
+    srv = build_server([f"{root}/d{i}" for i in range(K + M)],
+                       "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                       device="cuda")
+    er = srv.layer
+    check((er.data_blocks, er.parity, er.device.type) == (K, M, "cuda"),
+          f"the server's set is {er.data_blocks} + {er.parity} on "
+          f"{er.device}")
+    srv.start()
+    readings = {}
+    try:
+        client = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        client.make_bucket("smoke")
+        reset_counts()
+        s0 = snapshot()
+        for name, body in bodies.items():
+            url = f"{srv.endpoint}/smoke/{name}"
+            creds = sigv4.Credentials(S3_KEY, S3_SECRET)
+            if name == "256MiB":
+                # aws-chunked with Content-MD5: the streaming route
+                hdrs, wire = sigv4.sign_request_streaming(
+                    creds, "PUT", url, {"Content-MD5": base64.b64encode(
+                        hashlib.md5(body).digest()).decode()}, body)
+            else:
+                hdrs, wire = sigv4.sign_request(creds, "PUT", url, {},
+                                                body), body
+            t0 = time.perf_counter()
+            r = client.send("PUT", url, wire, hdrs)
+            readings[f"put_{name}_s"] = time.perf_counter() - t0
+            check(r.headers["ETag"] == f'"{hashlib.md5(body).hexdigest()}"',
+                  f"HTTP PUT ETag {name}")
+            if name == "256MiB":
+                readings["pipeline_256MiB"] = dict(er.pipe_stats)
+        torch.cuda.synchronize()
+        s_put = snapshot()
+        for name, body in bodies.items():
+            t0 = time.perf_counter()
+            got = client.get_object("smoke", name).body
+            readings[f"get_{name}_s"] = time.perf_counter() - t0
+            check(got == body, f"HTTP GET {name}")
+            if len(body) > 2:
+                lo, ln = len(body) // 3, max(1, len(body) // 5)
+                r = client.get_object("smoke", name, (lo, lo + ln - 1))
+                check(r.status == 206 and r.body == body[lo:lo + ln],
+                      f"HTTP range GET {name}")
+        s_get = snapshot()
+        head = client.head_object("smoke", "block+1")
+        check(int(head.headers["Content-Length"]) == BLOCK + 1, "HTTP HEAD")
+        page = client.list_objects("smoke", delimiter="/")
+        check(sorted(o["key"] for o in page["objects"]) == sorted(bodies)
+              and page["prefixes"] == [], f"ListObjectsV2: {page}")
+        big = bodies["256MiB"]
+        wipe(root, "256MiB", victims_of(er, "256MiB"))
+        t0 = time.perf_counter()
+        got = client.get_object("smoke", "256MiB").body
+        readings["degraded_get_s"] = time.perf_counter() - t0
+        check(got == big, "HTTP degraded GET 256MiB")
+        s_deg = snapshot()
+        client.delete_object("smoke", "256MiB")
+        check(client.list_objects("smoke", prefix="256")["objects"] == [],
+              "HTTP DELETE 256MiB")
+        s_del = snapshot()
+        burst = burst_bodies()
+        wall = http_burst(srv.endpoint, burst)
+        for i, body in enumerate(burst):
+            check(client.get_object("smoke", f"burst/{i}").body == body,
+                  f"HTTP burst object {i} reads back")
+        s_end = snapshot()
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    phases = {"put": delta(s0, s_put), "get": delta(s_put, s_get),
+              "degraded_get": delta(s_get, s_deg),
+              "burst": delta(s_del, s_end)}
+    total = delta(s0, s_end)
+    n = len(burst)
+    readings.update(
+        put_256MiB_gib_s=len(big) / readings["put_256MiB_s"] / 2**30,
+        get_256MiB_gib_s=len(big) / readings["get_256MiB_s"] / 2**30,
+        burst_wall_s=wall, burst_objects_per_s=n / wall)
+    inproc_put = len(big) / inproc["put_256MiB_s"] / 2**30
+    inproc_get = len(big) / inproc["get_256MiB_s"] / 2**30
+    readings["in_process"] = {
+        "put_256MiB_gib_s": inproc_put, "get_256MiB_gib_s": inproc_get,
+        "degraded_get_s": inproc["degraded_get_s"],
+        "burst_objects_per_s": inproc["burst"]["objects_per_s"]}
+    print(f"S3 front on {card}: 256 MiB PUT (aws-chunked, Content-MD5) "
+          f"{readings['put_256MiB_gib_s']:.3f} GiB/s "
+          f"({readings['put_256MiB_s']:.3f} s; in-process "
+          f"{inproc_put:.3f} GiB/s, {inproc['put_256MiB_s']:.3f} s), GET "
+          f"{readings['get_256MiB_gib_s']:.3f} GiB/s "
+          f"({readings['get_256MiB_s']:.3f} s; in-process "
+          f"{inproc_get:.3f} GiB/s, {inproc['get_256MiB_s']:.3f} s), "
+          f"degraded GET {readings['degraded_get_s']:.3f} s (in-process "
+          f"{inproc['degraded_get_s']:.3f} s), burst of {n} x {BURST_SIZE} B "
+          f"from {BURST_THREADS} client threads "
+          f"{readings['burst_objects_per_s']:.1f} objects/s (in-process "
+          f"{inproc['burst']['objects_per_s']:.1f} objects/s)")
+    pipes = {"HTTP": readings["pipeline_256MiB"],
+             "in-process": inproc["pipeline_256MiB"]}
+    print("256 MiB PUT pipeline per batch on " + card + ": " + "; ".join(
+        f"{label} {p['wall_s'] * 1e3 / p['batches']:.1f} ms wall, waiting "
+        f"on the body {p['body_wait_s'] * 1e3 / p['batches']:.1f} ms, MD5 "
+        f"{p['md5_s'] * 1e3 / p['batches']:.1f} ms, encode + frame "
+        f"{p['encode_s'] * 1e3 / p['batches']:.1f} ms"
+        for label, p in pipes.items()))
+    print("S3 path launches per phase (kernel, plain): "
+          + json.dumps(phases))
+    # a healthy GET verifies (Kernel B) and rebuilds nothing: Kernel A
+    # runs in the degraded GET, as in phase 5's GET phase
+    for phase, kernels in (("put", ("gf8_apply", "hh256")),
+                           ("get", ("hh256",)),
+                           ("degraded_get", ("gf8_apply", "hh256")),
+                           ("burst", ("gf8_apply", "hh256"))):
+        for kernel in kernels:
+            check(phases[phase][kernel][0] > 0,
+                  f"{kernel} not launched during the S3 {phase}")
+    for kernel, (_, plain) in total.items():
+        check(plain == 0, f"S3 path: {kernel} plain version ran {plain} "
+              "times")
+    return {k: v[0] for k, v in total.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -777,12 +947,14 @@ def main() -> int:
     bodies = make_bodies(gen)
     path, shards, path_readings = phase_path(bodies, card)
     mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
+    s3_path, s3_readings = phase_s3(bodies, card, path_readings)
     for k in kernels:
-        k["launches"] = path[k["name"]] + mesh_path[k["name"]]
-        k["launches_by_path"] = {"path": path[k["name"]],
-                                 "mesh_path": mesh_path[k["name"]]}
+        by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
+                   "s3_path": s3_path[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
-                      "mesh_path": mesh_readings}))
+                      "mesh_path": mesh_readings, "s3_path": s3_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,10 @@ writes on a per-drive writer plane.
     shards on failure, and rebuild missing data shards in one launch
     (Kernel A).
   * heal: ``healing.heal_object``.
+  * buckets and listing: bucket info, list and delete over every drive's
+    volumes; ``list_objects`` k-way merges the drives' sorted walks and
+    resolves each entry by quorum (the reference's walk without its
+    metacache), then ``metacache.paginate``.
 
 The ETag is the body's MD5 (the reference's strict-compat mode).  No
 caches and no MRF queue.  The drives hold the same bytes as after the
@@ -39,6 +43,8 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import heapq
+import itertools
 import os
 import threading
 import time
@@ -63,9 +69,11 @@ from ..storage.xl_storage import SYS_DIR
 from ..utils import bufpool
 from ..utils.readahead import readahead
 from . import metadata as meta
-from .interface import (BucketExists, BucketNotFound, InvalidRange,
+from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
+                        BucketNotFound, InvalidRange, ListObjectsInfo,
                         ObjectInfo, ObjectNotFound, PutObjectOptions,
                         ReadQuorumError, WriteQuorumError)
+from .metacache import paginate
 
 # blockSizeV1 (cmd/object-api-common.go:32)
 DEFAULT_BLOCK_SIZE = 10 * 1024 * 1024
@@ -205,10 +213,73 @@ class ErasureObjects:
         meta.reduce_errs([None if isinstance(e, serrors.VolumeExists)
                           else e for e in errs], wq, WriteQuorumError)
 
-    def _check_bucket(self, bucket: str) -> None:
+    def get_bucket_info(self, bucket: str) -> BucketInfo:
         res, _ = self._fanout(lambda d: d.stat_vol(bucket), self.disks)
-        if all(r is None for r in res):
-            raise BucketNotFound(bucket)
+        for r in res:
+            if r is not None:
+                return BucketInfo(r.name, r.created)
+        raise BucketNotFound(bucket)
+
+    _check_bucket = get_bucket_info
+
+    def list_buckets(self) -> list[BucketInfo]:
+        """Every volume any drive holds, the system volume hidden."""
+        res, _ = self._fanout(lambda d: d.list_vols(), self.disks)
+        seen: dict[str, BucketInfo] = {}
+        for vols in res:
+            for v in vols or ():
+                seen.setdefault(v.name, BucketInfo(v.name, v.created))
+        return sorted(seen.values(), key=lambda b: b.name)
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        """Remove the bucket from every drive; BucketNotEmpty while it
+        holds an object of any layout (packed ones keep their xl.meta in
+        the bucket), unless ``force``."""
+        self.get_bucket_info(bucket)
+        _, errs = self._fanout(lambda d: d.delete_vol(bucket, force),
+                               self.disks)
+        if not force and any(isinstance(e, serrors.VolumeNotEmpty)
+                             for e in errs):
+            raise BucketNotEmpty(bucket)
+
+    # -- LIST (cmd/metacache-set.go listPath, without the cache) -----------
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000
+                     ) -> ListObjectsInfo:
+        self._check_bucket(bucket)
+        return paginate(self._gather_listing_iter(bucket, prefix), prefix,
+                        marker, delimiter, max_keys)
+
+    def _gather_listing_iter(self, bucket: str, prefix: str):
+        """One lazy walk per drive (flat key order), k-way merged and
+        resolved entry by entry at quorum ``max(1, n // 2)``: memory
+        O(drives), not O(namespace).  A drive that fails to walk is
+        left out; an entry below quorum is skipped."""
+        base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
+
+        def drive_stream(d):
+            try:
+                yield from d.walk_entries(bucket, base_dir)
+            except OSError:
+                return
+
+        merged = heapq.merge(*(drive_stream(d) for d in self.disks
+                               if d is not None), key=lambda e: e[0])
+        quorum = max(1, len(self.disks) // 2)
+        for name, group in itertools.groupby(merged, key=lambda e: e[0]):
+            if prefix:
+                if name < prefix:
+                    continue
+                if not name.startswith(prefix):
+                    break           # sorted: nothing later matches
+            try:
+                fi = meta.find_file_info_in_quorum([f for _, f in group],
+                                                   quorum)
+            except ReadQuorumError:
+                continue
+            if not fi.deleted:
+                yield self._to_object_info(fi)
 
     # -- encode ------------------------------------------------------------
 
@@ -290,6 +361,12 @@ class ErasureObjects:
     @staticmethod
     def _stamp(fi: FileInfo, size: int, etag: str,
                opts: PutObjectOptions) -> None:
+        """Size, ETag and parts into ``fi``, once the body's MD5 is known
+        and before anything commits; BadDigest when the client's
+        Content-MD5 differs (the reference layer's ``_stamp_etag``)."""
+        if opts.content_md5 and etag != opts.content_md5.lower():
+            raise BadDigest(f"{fi.volume}/{fi.name}: Content-MD5 "
+                            f"{opts.content_md5} but the body's is {etag}")
         fi.size = size
         fi.metadata = {ETAG_KEY: etag, **opts.user_defined}
         fi.parts = [ObjectPartInfo(1, size, size, etag, fi.mod_time)]
@@ -306,14 +383,15 @@ class ErasureObjects:
     def _put_object_bytes(self, bucket: str, object_name: str, data,
                           opts: PutObjectOptions) -> ObjectInfo:
         """The whole body in one batch: MD5 on the pool beside the encode
-        (from 1 MiB up), then one commit call per drive under the
-        object's write lock."""
+        (from 1 MiB up; first, when a Content-MD5 must match), then one
+        commit call per drive under the object's write lock."""
         self._check_bucket(bucket)
         fi = self._new_fileinfo(bucket, object_name,
                                 opts.mod_time or now_ns())
         size = len(data)
         etag_future = None
-        if self._pipeline_on() and size >= OVERLAP_MD5_BYTES:
+        if self._pipeline_on() and size >= OVERLAP_MD5_BYTES \
+                and not opts.content_md5:
             etag_future = self._pool.submit(
                 lambda: hashlib.md5(data).hexdigest())
         else:
@@ -444,11 +522,18 @@ class ErasureObjects:
         """Chained MD5 on the pool, encode into a pooled buffer, the
         drives' writer queues: at most ``PIPE_DEPTH`` batches in flight,
         quorum re-checked as completions drain.  Returns (bytes,
-        batches)."""
+        batches).  ``stats["body_wait_s"]``: time spent waiting for the
+        next batch of the body (a reader's socket and digests)."""
         links: collections.deque = collections.deque()
         inflight: collections.deque = collections.deque()
         total = batches = 0
-        for chunk in chunks:
+        chunks = iter(chunks)
+        while True:
+            t0 = time.perf_counter()
+            chunk = next(chunks, None)
+            stats["body_wait_s"] += time.perf_counter() - t0
+            if chunk is None:
+                break
             total += len(chunk)
             batches += 1
             links.append(self._pool.submit(
@@ -482,7 +567,7 @@ class ErasureObjects:
         n = len(shuffled)
         wq = _write_quorum(fi.erasure.data_blocks, fi.erasure.parity_blocks)
         tmps: list[Optional[str]] = [None] * n
-        stats = {"md5_s": 0.0, "encode_s": 0.0}
+        stats = {"md5_s": 0.0, "encode_s": 0.0, "body_wait_s": 0.0}
         md5 = hashlib.md5()
         sw = self._write_plane.stream(shuffled)
         src = None
@@ -622,9 +707,21 @@ class ErasureObjects:
 
     def get_object(self, bucket: str, object_name: str, offset: int = 0,
                    length: int = -1) -> tuple[ObjectInfo, bytes]:
-        """The object's bytes [offset, offset + length): HTTP range rules
-        (negative offset = suffix, length < 0 = to the end, overlong
-        ranges clamp, a start past the end is InvalidRange)."""
+        """The object's bytes [offset, offset + length), joined."""
+        info, chunks = self.get_object_reader(bucket, object_name, offset,
+                                              length, readahead_depth=0)
+        return info, b"".join(chunks)
+
+    def get_object_reader(self, bucket: str, object_name: str,
+                          offset: int = 0, length: int = -1,
+                          readahead_depth: int = PIPE_DEPTH - 1):
+        """(info, chunk iterator) of the bytes [offset, offset + length)
+        under HTTP range rules (negative offset = suffix, length < 0 = to
+        the end, overlong ranges clamp, a start past the end is
+        InvalidRange).  The body streams one batch of blocks at a time,
+        ``readahead_depth`` batches read and decoded ahead in a thread,
+        and is never joined.  The object's read lock is held until the
+        iterator ends, fails or is closed or dropped, advanced or not."""
         self._check_bucket(bucket)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=False)
@@ -639,11 +736,16 @@ class ErasureObjects:
                 raise InvalidRange(f"{offset}+{length} vs {size}")
             length = min(length, size - offset)
             info = self._to_object_info(fi)
-            if size == 0 or length == 0:
-                return info, b""
-            return info, b"".join(self._read_range(fi, fis, offset, length))
-        finally:
+        except BaseException:
             lk.unlock()
+            raise
+        if size == 0 or length == 0:
+            lk.unlock()
+            return info, iter(())
+        chunks = _LockedStream(lk, self._read_range(fi, fis, offset, length))
+        if readahead_depth > 0:
+            return info, readahead(chunks, depth=readahead_depth)
+        return info, chunks
 
     def _read_range(self, fi: FileInfo, fis: list, offset: int, length: int):
         """The range, one batch of blocks at a time.  A shard that fails
@@ -781,6 +883,38 @@ class ErasureObjects:
             data_blocks=fi.erasure.data_blocks,
             num_versions=fi.num_versions,
             parts=[(p.number, p.size) for p in fi.parts])
+
+
+class _LockedStream:
+    """An iterator that holds a lock until its inner generator ends,
+    fails, or is closed or dropped.  A class, not a generator: a
+    generator that was never advanced does not run its ``finally`` when
+    it is closed, so an abandoned one would keep the lock."""
+
+    def __init__(self, lk, inner):
+        self._lk = lk
+        self._inner = inner
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._inner)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        lk, self._lk = self._lk, None
+        if lk is not None:
+            try:
+                self._inner.close()
+            finally:
+                lk.unlock()
+
+    def __del__(self):
+        self.close()
 
 
 def _disk_fileinfo(fi: FileInfo, shard_idx: int) -> FileInfo:

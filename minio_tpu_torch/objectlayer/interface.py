@@ -1,9 +1,11 @@
 """Object-layer types and errors (cmd/object-api-interface.go,
-cmd/object-api-errors.go), the part the port's erasure set uses."""
+cmd/object-api-errors.go), the part the port's erasure set and its S3
+front use."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 class ObjectLayerError(Exception):
@@ -18,12 +20,36 @@ class BucketExists(ObjectLayerError):
     pass
 
 
+class BucketNotEmpty(ObjectLayerError):
+    pass
+
+
+class BucketNameInvalid(ObjectLayerError):
+    pass
+
+
 class ObjectNotFound(ObjectLayerError):
+    pass
+
+
+class ObjectNameInvalid(ObjectLayerError):
+    pass
+
+
+class MethodNotAllowed(ObjectLayerError):
+    pass
+
+
+class PreconditionFailed(ObjectLayerError):
     pass
 
 
 class InvalidRange(ObjectLayerError):
     pass
+
+
+class BadDigest(ObjectLayerError):
+    """The body's MD5 is not the Content-MD5 the client sent."""
 
 
 class ReadQuorumError(ObjectLayerError):
@@ -32,6 +58,12 @@ class ReadQuorumError(ObjectLayerError):
 
 class WriteQuorumError(ObjectLayerError):
     """errErasureWriteQuorum: not enough successful writes."""
+
+
+@dataclass
+class BucketInfo:
+    name: str
+    created: int = 0             # unix ns
 
 
 @dataclass
@@ -57,3 +89,15 @@ class ObjectInfo:
 class PutObjectOptions:
     user_defined: dict[str, str] = field(default_factory=dict)
     mod_time: int = 0            # 0: now
+    # the client's Content-MD5 as hex: the body must hash to it, checked
+    # against the layer's own MD5 before the commit
+    content_md5: Optional[str] = None
+
+
+@dataclass
+class ListObjectsInfo:
+    """One listing page (cmd/object-api-datatypes.go ListObjectsInfo)."""
+    is_truncated: bool = False
+    next_marker: str = ""
+    objects: list[ObjectInfo] = field(default_factory=list)
+    prefixes: list[str] = field(default_factory=list)

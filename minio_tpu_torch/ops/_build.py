@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -36,13 +36,26 @@ _libs: dict[str, ctypes.CDLL] = {}
 @dataclass
 class Counts:
     """Launches of one kernel and calls of its plain version; a run
-    reads them to show which engine its path went through."""
+    reads them to show which engine its path went through.  Request
+    threads of the S3 front launch concurrently, so the counts move
+    under a lock."""
     launches: int = 0
     plain: int = 0
+    _mu: threading.Lock = field(default_factory=threading.Lock,
+                                repr=False, compare=False)
+
+    def add_launch(self) -> None:
+        with self._mu:
+            self.launches += 1
+
+    def add_plain(self) -> None:
+        with self._mu:
+            self.plain += 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain = 0
+        with self._mu:
+            self.launches = 0
+            self.plain = 0
 
 
 def _nvcc() -> str:

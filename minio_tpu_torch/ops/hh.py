@@ -118,7 +118,7 @@ def hh256_batch_ref(blocks: torch.Tensor, key: bytes = MAGIC_KEY,
                  out_bytes: int = 32) -> torch.Tensor:
     """Plain version of Kernel B: the HighwayHash-256 of each row as
     little-endian bytes, or with ``out_bytes=8`` its HighwayHash-64."""
-    COUNTS.plain += 1
+    COUNTS.add_plain()
     return hh_plain(blocks, key, out_bytes)
 
 
@@ -241,7 +241,7 @@ def _launch(blocks: torch.Tensor, key: bytes, out: torch.Tensor) -> None:
     fn = _kernel()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        COUNTS.launches += 1
+        COUNTS.add_launch()
         rc = fn(grouped.data_ptr(), grouped.stride(0), grouped.stride(1), R,
                 G * R, n, *struct.unpack("<4Q", key), out.data_ptr(),
                 out.shape[-1], p["rows_per_warp"], p["warps"], p["tile"],

@@ -75,7 +75,7 @@ def encode_hash_ref(M: np.ndarray, shards: torch.Tensor, *,
     B's plain hash of the first ``n_real`` bytes of the data rows (and
     the parity rows with ``hash_parity``).  Returns (parity (B, ro, n),
     digests (B, R, 32))."""
-    COUNTS.plain += 1
+    COUNTS.add_plain()
     n_real = shards.shape[-1] if n_real is None else n_real
     parity = rs_kernels.gf_apply_plain(M, shards)
     rows = torch.cat([shards, parity], dim=1) if hash_parity else shards
@@ -106,7 +106,7 @@ def _launch(M: np.ndarray, shards: torch.Tensor, parity: torch.Tensor,
     tabs = rs_kernels.device_tables(M, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        COUNTS.launches += 1
+        COUNTS.add_launch()
         rc = fn(shards.data_ptr(), shards.stride(0), shards.stride(1),
                 parity.data_ptr(), parity.stride(0), parity.stride(1),
                 tabs.data_ptr(), digests.data_ptr(), B, k, ro,

@@ -83,7 +83,7 @@ def device_tables(M: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def gf_apply_ref(M: np.ndarray, shards: torch.Tensor) -> torch.Tensor:
     """Plain version of Kernel A: (B, k, n) uint8 -> (B, r, n) uint8."""
-    COUNTS.plain += 1
+    COUNTS.add_plain()
     return gf_apply_plain(M, shards)
 
 
@@ -123,7 +123,7 @@ def _launch(M: np.ndarray, shards: torch.Tensor, out: torch.Tensor) -> None:
     tabs = device_tables(M, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        COUNTS.launches += 1
+        COUNTS.add_launch()
         rc = fn(shards.data_ptr(), shards.stride(0), shards.stride(1),
                 out.data_ptr(), out.stride(0), out.stride(1),
                 tabs.data_ptr(), B, k, r, n, p["tile"], p["threads"],

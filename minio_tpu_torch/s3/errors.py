@@ -1,0 +1,104 @@
+"""S3 API errors and their XML (``minio_tpu/s3/errors.py``,
+cmd/api-errors.go): the codes the port's front can return, and
+``NotImplemented`` for what it does not serve."""
+
+from __future__ import annotations
+
+import xml.etree.ElementTree as ET
+from dataclasses import dataclass
+
+from ..objectlayer import interface as ol
+
+
+@dataclass(frozen=True)
+class APIError:
+    code: str
+    description: str
+    http_status: int
+
+
+_ERRORS = {e.code: e for e in (
+    APIError("AccessDenied", "Access Denied.", 403),
+    APIError("AuthorizationHeaderMalformed",
+             "The authorization header is malformed.", 400),
+    APIError("AuthorizationQueryParametersError",
+             "Error parsing the X-Amz-Credential parameter.", 400),
+    APIError("BadDigest", "The Content-Md5 you specified did not match what "
+             "we received.", 400),
+    APIError("BucketAlreadyOwnedByYou",
+             "Your previous request to create the named bucket succeeded "
+             "and you already own it.", 409),
+    APIError("BucketNotEmpty",
+             "The bucket you tried to delete is not empty.", 409),
+    APIError("EntityTooLarge", "Your proposed upload exceeds the maximum "
+             "allowed object size.", 400),
+    APIError("ExpiredToken", "The provided token has expired.", 400),
+    APIError("IncompleteBody", "You did not provide the number of bytes "
+             "specified by the Content-Length HTTP header.", 400),
+    APIError("InternalError", "We encountered an internal error, please "
+             "try again.", 500),
+    APIError("InvalidAccessKeyId", "The Access Key Id you provided does not "
+             "exist in our records.", 403),
+    APIError("InvalidArgument", "Invalid Argument", 400),
+    APIError("InvalidBucketName", "The specified bucket is not valid.", 400),
+    APIError("InvalidDigest", "The Content-Md5 you specified is not valid.",
+             400),
+    APIError("InvalidRange", "The requested range is not satisfiable", 416),
+    APIError("InvalidRequest", "Invalid Request", 400),
+    APIError("MalformedXML", "The XML you provided was not well-formed or "
+             "did not validate against our published schema.", 400),
+    APIError("MethodNotAllowed", "The specified method is not allowed "
+             "against this resource.", 405),
+    APIError("MissingContentLength", "You must provide the Content-Length "
+             "HTTP header.", 411),
+    APIError("NoSuchBucket", "The specified bucket does not exist", 404),
+    APIError("NoSuchKey", "The specified key does not exist.", 404),
+    APIError("NotImplemented", "A header you provided implies functionality "
+             "that is not implemented", 501),
+    APIError("PreconditionFailed", "At least one of the pre-conditions you "
+             "specified did not hold", 412),
+    APIError("RequestTimeTooSkewed", "The difference between the request "
+             "time and the server's time is too large.", 403),
+    APIError("RequestTimeout", "Your socket connection to the server was not "
+             "read from or written to within the timeout period.", 408),
+    APIError("SignatureDoesNotMatch", "The request signature we calculated "
+             "does not match the signature you provided. Check your key and "
+             "signing method.", 403),
+    APIError("SlowDown", "Resource requested is unreadable, please reduce "
+             "your request rate", 503),
+)}
+
+
+def get(code: str) -> APIError:
+    return _ERRORS.get(code, _ERRORS["InternalError"])
+
+
+_OBJECT_ERRORS = {
+    ol.BadDigest: "BadDigest",
+    ol.BucketNotFound: "NoSuchBucket",
+    ol.BucketExists: "BucketAlreadyOwnedByYou",
+    ol.BucketNotEmpty: "BucketNotEmpty",
+    ol.BucketNameInvalid: "InvalidBucketName",
+    ol.ObjectNotFound: "NoSuchKey",
+    ol.MethodNotAllowed: "MethodNotAllowed",
+    ol.ObjectNameInvalid: "InvalidArgument",
+    ol.InvalidRange: "InvalidRange",
+    ol.ReadQuorumError: "SlowDown",
+    ol.WriteQuorumError: "SlowDown",
+    ol.PreconditionFailed: "PreconditionFailed",
+}
+
+
+def from_object_error(e: Exception) -> APIError:
+    """An object-layer error's S3 code (toAPIErrorCode,
+    cmd/api-errors.go)."""
+    return get(_OBJECT_ERRORS.get(type(e), "InternalError"))
+
+
+def to_xml(err: APIError, resource: str = "", request_id: str = "") -> bytes:
+    root = ET.Element("Error")
+    ET.SubElement(root, "Code").text = err.code
+    ET.SubElement(root, "Message").text = err.description
+    ET.SubElement(root, "Resource").text = resource
+    ET.SubElement(root, "RequestId").text = request_id
+    return b'<?xml version="1.0" encoding="UTF-8"?>' + ET.tostring(root)

@@ -1,0 +1,196 @@
+"""S3 bucket handlers (``minio_tpu/s3/handlers_bucket.py``,
+cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket, GET
+``?location`` and ``?versioning``, ListObjects V1 and V2, and
+DeleteObjects.  ``_make_handler`` (server.py) attaches them to the
+request handler; ``self`` is the handler and ``self.srv`` its server.
+"""
+
+from __future__ import annotations
+
+import urllib.parse
+import xml.etree.ElementTree as ET
+
+from ..objectlayer import interface as ol
+from ..objectlayer import metacache
+from . import errors as s3err
+from .server import S3_NS, S3Error, _iso_date, _xml
+
+# bucket subresources the port does not serve (configs, ACLs, versions,
+# event listening, multipart listings)
+UNSERVED = frozenset((
+    "policy", "lifecycle", "encryption", "replication", "notification",
+    "object-lock", "tagging", "quota", "acl", "cors", "website",
+    "accelerate", "requestPayment", "logging", "versions", "events",
+    "uploads"))
+
+
+def _list_buckets(self):
+    if self.command != "GET":
+        raise S3Error("MethodNotAllowed")
+    self._allow()
+    root = ET.Element("ListAllMyBucketsResult", xmlns=S3_NS)
+    owner = ET.SubElement(root, "Owner")
+    ET.SubElement(owner, "ID").text = "minio-tpu"
+    ET.SubElement(owner, "DisplayName").text = "minio-tpu"
+    buckets = ET.SubElement(root, "Buckets")
+    for b in self.srv.layer.list_buckets():
+        be = ET.SubElement(buckets, "Bucket")
+        ET.SubElement(be, "Name").text = b.name
+        ET.SubElement(be, "CreationDate").text = _iso_date(b.created)
+    self._send(200, _xml(root))
+
+
+def _bucket_api(self, bucket, query, payload):
+    cmd = self.command
+    if "versioning" in query:
+        if cmd == "GET":
+            # never versioned: the unversioned document
+            self._allow()
+            self.srv.layer.get_bucket_info(bucket)
+            return self._send(200, _xml(ET.Element(
+                "VersioningConfiguration", xmlns=S3_NS)))
+        raise S3Error("NotImplemented")
+    if cmd == "GET" and "location" in query:
+        self._allow()
+        root = ET.Element("LocationConstraint", xmlns=S3_NS)
+        # us-east-1 is the empty constraint on the wire
+        root.text = "" if self.srv.region == "us-east-1" \
+            else self.srv.region
+        self.srv.layer.get_bucket_info(bucket)
+        return self._send(200, _xml(root))
+    if cmd == "POST" and "delete" in query:
+        return self._delete_objects(bucket, payload)
+    if UNSERVED & set(query) or cmd == "POST":
+        raise S3Error("NotImplemented")     # configs, POST policy uploads
+    if cmd == "PUT":
+        self._allow()
+        if self.headers.get("x-amz-bucket-object-lock-enabled",
+                            "").lower() == "true":
+            raise S3Error("NotImplemented")
+        self.srv.layer.make_bucket(bucket)
+        return self._send(200, headers={"Location": f"/{bucket}"})
+    if cmd == "HEAD":
+        self._allow()
+        self.srv.layer.get_bucket_info(bucket)
+        return self._send(200)
+    if cmd == "DELETE":
+        self._allow()
+        self.srv.layer.delete_bucket(bucket)
+        return self._send(204)
+    if cmd == "GET":
+        self._allow()
+        return self._list_objects(bucket, query)
+    raise S3Error("MethodNotAllowed")
+
+
+def _encoding_type(self, q1):
+    """``encoding-type``: (escape, enabled).  Keys may hold characters XML
+    1.0 cannot carry; ``url`` (the awscli and boto3 default)
+    percent-encodes them in the response."""
+    enc = q1.get("encoding-type", "")
+    if enc and enc != "url":
+        raise S3Error("InvalidArgument")
+    if enc:
+        return (lambda s: urllib.parse.quote(s or "", safe="/")), True
+    return (lambda s: s), False
+
+
+def _list_objects(self, bucket, query):
+    q1 = {k: v[0] for k, v in query.items()}
+    v2 = q1.get("list-type") == "2"
+    prefix = q1.get("prefix", "")
+    delimiter = q1.get("delimiter", "")
+    max_keys = min(int(q1.get("max-keys", 1000) or 1000), 1000)
+    if v2 and q1.get("continuation-token"):
+        try:
+            marker = metacache.decode_list_token(q1["continuation-token"])
+        except ValueError as e:
+            raise S3Error("InvalidArgument") from e
+    else:
+        marker = q1.get("marker", "") if not v2 else ""
+        marker = marker or q1.get("start-after", "")
+    esc, enc = self._encoding_type(q1)
+    res = self.srv.layer.list_objects(bucket, prefix, marker, delimiter,
+                                      max_keys)
+    root = ET.Element("ListBucketResult", xmlns=S3_NS)
+    ET.SubElement(root, "Name").text = bucket
+    ET.SubElement(root, "Prefix").text = esc(prefix)
+    if delimiter:
+        ET.SubElement(root, "Delimiter").text = esc(delimiter)
+    if enc:
+        ET.SubElement(root, "EncodingType").text = "url"
+    ET.SubElement(root, "MaxKeys").text = str(max_keys)
+    ET.SubElement(root, "IsTruncated").text = \
+        "true" if res.is_truncated else "false"
+    if v2:
+        ET.SubElement(root, "KeyCount").text = \
+            str(len(res.objects) + len(res.prefixes))
+        if q1.get("continuation-token"):
+            # opaque to clients and echoed verbatim, never url-encoded
+            ET.SubElement(root, "ContinuationToken").text = \
+                q1["continuation-token"]
+        if q1.get("start-after"):
+            ET.SubElement(root, "StartAfter").text = esc(q1["start-after"])
+        if res.is_truncated:
+            ET.SubElement(root, "NextContinuationToken").text = \
+                metacache.encode_list_token(res.next_marker)
+    else:
+        ET.SubElement(root, "Marker").text = esc(marker)
+        if res.is_truncated:
+            ET.SubElement(root, "NextMarker").text = esc(res.next_marker)
+    fetch_owner = (not v2) or q1.get("fetch-owner") == "true"
+    for o in res.objects:
+        c = ET.SubElement(root, "Contents")
+        ET.SubElement(c, "Key").text = esc(o.name)
+        ET.SubElement(c, "LastModified").text = _iso_date(o.mod_time)
+        ET.SubElement(c, "ETag").text = f'"{o.etag}"'
+        ET.SubElement(c, "Size").text = str(o.size)
+        ET.SubElement(c, "StorageClass").text = "STANDARD"
+        if fetch_owner:
+            owner = ET.SubElement(c, "Owner")
+            ET.SubElement(owner, "ID").text = "minio-tpu"
+            ET.SubElement(owner, "DisplayName").text = "minio-tpu"
+    for p in res.prefixes:
+        cp = ET.SubElement(root, "CommonPrefixes")
+        ET.SubElement(cp, "Prefix").text = esc(p)
+    self._send(200, _xml(root))
+
+
+def _delete_objects(self, bucket, payload):
+    """Multi-object delete (cmd/bucket-handlers.go:604): one Deleted or
+    Error element per key, 200 whatever each key's fate."""
+    try:
+        root = ET.fromstring(payload)
+    except ET.ParseError as e:
+        raise S3Error("MalformedXML") from e
+    ns = f"{{{S3_NS}}}"
+    quiet = (root.findtext(f"{ns}Quiet") or
+             root.findtext("Quiet") or "") == "true"
+    out = ET.Element("DeleteResult", xmlns=S3_NS)
+    for obj in root.findall(f"{ns}Object") + root.findall("Object"):
+        key = obj.findtext(f"{ns}Key") or obj.findtext("Key")
+        try:
+            self._allow()
+            if obj.findtext(f"{ns}VersionId") or obj.findtext("VersionId"):
+                raise S3Error("NotImplemented")
+            self.srv.layer.delete_object(bucket, key)
+            if not quiet:
+                d = ET.SubElement(out, "Deleted")
+                ET.SubElement(d, "Key").text = key
+        except Exception as e:  # noqa: BLE001 — reported per key
+            if isinstance(e, S3Error):
+                api = e.api
+            elif isinstance(e, ol.ObjectLayerError):
+                api = s3err.from_object_error(e)
+            else:
+                api = s3err.get("InternalError")
+            err = ET.SubElement(out, "Error")
+            ET.SubElement(err, "Key").text = key
+            ET.SubElement(err, "Code").text = api.code
+            ET.SubElement(err, "Message").text = api.description
+    self._send(200, _xml(out))
+
+
+# the methods _make_handler attaches to the request handler
+HANDLERS = ["_list_buckets", "_bucket_api", "_encoding_type",
+            "_list_objects", "_delete_objects"]

@@ -23,6 +23,10 @@ class VolumeExists(StorageError):
     """errVolumeExists."""
 
 
+class VolumeNotEmpty(StorageError):
+    """errVolumeNotEmpty."""
+
+
 class FileNotFound(StorageError):
     """errFileNotFound: object/shard path missing."""
 

@@ -181,6 +181,30 @@ class XLStorage:
             raise errors.VolumeNotFound(volume) from None
         return VolInfo(volume, int(st.st_ctime * 1e9))
 
+    def list_vols(self) -> list[VolInfo]:
+        """Every volume but the system volume, by name."""
+        out = []
+        for name in sorted(os.listdir(self.root)):
+            path = os.path.join(self.root, name)
+            if name == SYS_DIR or not os.path.isdir(path):
+                continue
+            out.append(VolInfo(name, int(os.stat(path).st_ctime * 1e9)))
+        return out
+
+    def delete_vol(self, volume: str, force: bool = False) -> None:
+        """Remove an empty volume (VolumeNotEmpty otherwise), or with
+        ``force`` the volume and everything in it."""
+        p = self._check_vol(volume)
+        try:
+            if force:
+                shutil.rmtree(p)
+            else:
+                os.rmdir(p)
+        except FileNotFoundError:
+            raise errors.VolumeNotFound(volume) from None
+        except OSError as e:
+            raise errors.VolumeNotEmpty(volume) from e
+
     # -- files -------------------------------------------------------------
 
     def read_all(self, volume: str, path: str) -> bytes:
@@ -480,6 +504,47 @@ class XLStorage:
                 ec.get_checksum_info(part.number).algorithm)
             if size != want:
                 raise errors.FileCorrupt(f"{pf}: size {size} != {want}")
+
+    # -- walking -----------------------------------------------------------
+
+    def walk_dir(self, volume: str, base_dir: str = ""):
+        """Object names (directories holding xl.meta) under ``base_dir``
+        in flat key order, the byte order S3 listings promise
+        (cmd/metacache-walk.go WalkDir): a subtree ``x`` holds keys
+        ``x/...``, which sort after a sibling object ``x-1`` ('-' < '/'),
+        so subtrees sort by ``name + "/"`` and objects by ``name``.  Each
+        drive's stream being sorted lets the listing merge them lazily."""
+        vol = self._check_vol(volume)
+        base = self._file_path(volume, base_dir) if base_dir else vol
+
+        def walk(d: str):
+            try:
+                entries = sorted(os.scandir(d), key=lambda e: e.name)
+            except (FileNotFoundError, NotADirectoryError):
+                return
+            if any(e.name == META_FILE for e in entries):
+                yield os.path.relpath(d, vol).replace(os.sep, "/")
+                return
+            keyed = []
+            for e in entries:
+                if e.is_dir():
+                    leaf = os.path.isfile(os.path.join(e.path, META_FILE))
+                    keyed.append((e.name if leaf else e.name + "/", e.path))
+            for _, path in sorted(keyed):
+                yield from walk(path)
+
+        yield from walk(base)
+
+    def walk_entries(self, volume: str, base_dir: str = ""):
+        """``(name, FileInfo of its latest version)`` per object, in
+        ``walk_dir`` order: part-file, inline and packed objects alike.
+        An entry whose xl.meta does not read is skipped (the other drives
+        decide it)."""
+        for name in self.walk_dir(volume, base_dir):
+            try:
+                yield name, self.read_version(volume, name)
+            except errors.StorageError:
+                continue
 
     # -- staging -----------------------------------------------------------
 

@@ -35,12 +35,14 @@ class BufPool:
         self.max_bytes = max_bytes
         self.hits = 0
         self.misses = 0
+        self.checked_out = 0        # acquired and not yet released
 
     def acquire(self, shape: tuple, pinned: bool) -> torch.Tensor:
         """A uint8 host tensor of ``shape``: a recycled one when free,
         else a new one (pinned when asked)."""
         key = (tuple(shape), pinned)
         with self._mu:
+            self.checked_out += 1
             lst = self._free.get(key)
             if lst:
                 buf = lst.pop()
@@ -54,6 +56,7 @@ class BufPool:
         """Return a buffer for reuse; dropped once the pool holds
         ``max_bytes``."""
         with self._mu:
+            self.checked_out -= 1
             if self._held + buf.numel() > self.max_bytes:
                 return
             key = (tuple(buf.shape), buf.is_pinned())

@@ -6,8 +6,9 @@ cmd/xl-storage.go:1544-1546).
 
 Order is kept and a producer's exception is raised at the consumer's
 position.  The queue is bounded, so memory stays O(depth x item).
-``close()`` (or GC) stops the producer and joins it: the caller must not
-read the source again while the thread may still be reading it.
+``close()``, or dropping the object, stops the producer and joins it:
+the caller must not read the source again while the thread may still be
+reading it.
 """
 
 from __future__ import annotations
@@ -23,33 +24,12 @@ class Readahead:
     def __init__(self, it: Iterable, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._closed = threading.Event()
+        # the producer holds the queue and the flag, not this object, so
+        # a consumer that drops it lets ``__del__`` stop the producer
         self._thread = threading.Thread(
-            target=self._produce, args=(iter(it),), daemon=True,
-            name="mt-readahead")
+            target=_produce, args=(iter(it), self._q, self._closed),
+            daemon=True, name="mt-readahead")
         self._thread.start()
-
-    def _produce(self, it: Iterator) -> None:
-        try:
-            for item in it:
-                if not self._put(item):
-                    return
-            self._put((_SENTINEL, None))
-        except BaseException as e:  # noqa: BLE001 — raised consumer-side
-            self._put((_SENTINEL, e))
-        finally:
-            close = getattr(it, "close", None)
-            if close is not None:
-                close()
-
-    def _put(self, item) -> bool:
-        """Queue ``item`` unless closed first; False once closed."""
-        while not self._closed.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
 
     def __iter__(self):
         return self
@@ -80,6 +60,31 @@ class Readahead:
 
     def __del__(self):          # abandoned mid-stream
         self.close()
+
+
+def _produce(it: Iterator, q: queue.Queue, closed: threading.Event) -> None:
+    try:
+        for item in it:
+            if not _put(q, closed, item):
+                return
+        _put(q, closed, (_SENTINEL, None))
+    except BaseException as e:  # noqa: BLE001 — raised consumer-side
+        _put(q, closed, (_SENTINEL, e))
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+
+
+def _put(q: queue.Queue, closed: threading.Event, item) -> bool:
+    """Queue ``item`` unless closed first; False once closed."""
+    while not closed.is_set():
+        try:
+            q.put(item, timeout=0.1)
+            return True
+        except queue.Full:
+            continue
+    return False
 
 
 def readahead(it: Iterable, depth: int = 2) -> Readahead:
