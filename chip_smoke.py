@@ -59,7 +59,25 @@
    burst: Kernels A and B in each but the healthy GETs, which verify
    (Kernel B) and rebuild nothing; no plain version.  One line sets the HTTP
    figures beside phase 5's in-process ones from the same run.
-8. One JSON line of readings, one describing each kernel, the card line,
+8. Multipart uploads and versioning over HTTP, on a fresh set built by
+   ``build_server`` (the same 12 + 4 set, 10 MiB blocks, on the card): a
+   512 MiB seeded object as 32 parts of 16 MiB (minio-go's part size)
+   from 4 client threads (its worker count), aws-chunked with
+   Content-MD5; ListParts, then CompleteMultipartUpload, whose ETag must
+   be md5(part MD5s)-32 as the client computes it; a whole GET (MD5) and
+   a range across a part and a block boundary; wipe the drives of four
+   data shards and GET degraded; heal in the layer, check the healed part
+   files byte for byte and GET through the healed drives; a 3-part upload
+   aborted, no staging dir left on any drive.  Then a versioned bucket:
+   an inline, a part-file and a multipart version of one key and a
+   delete marker; each version by id, 405 with ``x-amz-delete-marker``
+   on the latest, ListObjectVersions in order, the middle version
+   deleted, one drive wiped and ``heal_object(version_id=<oldest>)``.
+   Last, in-process on the one-device mesh set, a 3 x 5 MiB + 1 MiB
+   upload, whose parts launch Kernel C.  Launches are read per step:
+   Kernels A and B in the multipart PUT, degraded GET and heal (B alone
+   in the healthy GET), C in the mesh parts; no plain version.
+9. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -915,6 +933,248 @@ def phase_s3(bodies: dict, card: str, inproc: dict):
     return {k: v[0] for k, v in total.items()}, readings
 
 
+MP_PART, MP_PARTS, MP_WORKERS = 16 << 20, 32, 4    # minio-go's defaults
+
+
+def part_files(root: str, bucket: str, key: str, drives) -> dict:
+    """{(drive, file name): bytes} of the object's part files."""
+    import glob
+    out = {}
+    for d in drives:
+        for path in sorted(glob.glob(f"{root}/d{d}/{bucket}/{key}/*/part.*")):
+            with open(path, "rb") as f:
+                out[(d, os.path.basename(path))] = f.read()
+    return out
+
+
+def phase_multipart(card: str, gen) -> tuple:
+    """Multipart and versioning over HTTP on a fresh set, then the mesh
+    set's multipart upload; returns the launches and the readings."""
+    import glob
+    from minio_tpu_torch.s3 import sigv4
+    from minio_tpu_torch.s3.client import S3Client, multipart_etag
+    from minio_tpu_torch.server_main import build_server
+    root = tempfile.mkdtemp(prefix="chip-smoke-mp-")
+    srv = build_server([f"{root}/d{i}" for i in range(K + M)],
+                       "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                       device="cuda")
+    er = srv.layer
+    srv.start()
+    readings, steps = {}, {}
+    body = rand_bytes((MP_PART * MP_PARTS,), gen).cpu().numpy().tobytes()
+    md5 = hashlib.md5(body).hexdigest()
+    try:
+        client = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        client.make_bucket("smoke")
+        # what the client spends signing one part (aws-chunked), alone
+        t0 = time.perf_counter()
+        sigv4.sign_request_streaming(
+            sigv4.Credentials(S3_KEY, S3_SECRET), "PUT",
+            f"{srv.endpoint}/smoke/mp?partNumber=1&uploadId=x", {},
+            body[:MP_PART])
+        sign_s = time.perf_counter() - t0
+        reset_counts()
+        s0 = snapshot()
+        # 1-2: the upload, ListParts, complete
+        t0 = time.perf_counter()
+        uid, parts, part_s = client.upload_parts("smoke", "mp", body,
+                                                 MP_PART, MP_WORKERS)
+        upload_s = time.perf_counter() - t0
+        stages = {k: float(np.mean([st[k] for st in er.part_stats]))
+                  for k in er.part_stats[0]}
+        want_etags = [hashlib.md5(body[o:o + MP_PART]).hexdigest()
+                      for o in range(0, len(body), MP_PART)]
+        listed = client.list_parts("smoke", "mp", uid)
+        check([(p["part_number"], p["etag"], p["size"]) for p in listed]
+              == [(i + 1, e, MP_PART) for i, e in enumerate(want_etags)],
+              "ListParts")
+        t0 = time.perf_counter()
+        r = client.complete_multipart_upload("smoke", "mp", uid, parts)
+        complete_s = time.perf_counter() - t0
+        etag = r.xml().findtext(
+            "{http://s3.amazonaws.com/doc/2006-03-01/}ETag").strip('"')
+        check(etag == multipart_etag(want_etags) and etag.endswith("-32"),
+              f"multipart ETag {etag}")
+        torch.cuda.synchronize()
+        s_put = snapshot()
+        # 3: GET and a range across a part and a block boundary
+        t0 = time.perf_counter()
+        got = client.get_object("smoke", "mp").body
+        get_s = time.perf_counter() - t0
+        check(hashlib.md5(got).hexdigest() == md5, "multipart GET MD5")
+        # from 3 MiB before part 2 to 1 MiB into its second block
+        lo, hi = MP_PART - 3 * BLOCK // 10, MP_PART + BLOCK + BLOCK // 10
+        r = client.get_object("smoke", "mp", (lo, hi))
+        check(r.status == 206 and r.body == body[lo:hi + 1],
+              "multipart range across a part and a block boundary")
+        s_get = snapshot()
+        # 4: degraded GET
+        victims = victims_of(er, "mp")
+        saved = part_files(root, "smoke", "mp", victims)
+        check(len(saved) == M * MP_PARTS, f"{len(saved)} part files")
+        wipe(root, "mp", victims)
+        t0 = time.perf_counter()
+        got = client.get_object("smoke", "mp").body
+        degraded_s = time.perf_counter() - t0
+        check(hashlib.md5(got).hexdigest() == md5, "multipart degraded GET")
+        s_deg = snapshot()
+        # 5: heal, the healed part files, GET through the healed drives
+        t0 = time.perf_counter()
+        res = er.heal_object("smoke", "mp")
+        torch.cuda.synchronize()
+        heal_s = time.perf_counter() - t0
+        check(len(res.healed_disks) == M, f"healed {res.healed_disks}")
+        check(part_files(root, "smoke", "mp", victims) == saved,
+              "healed part files differ from the removed ones")
+        del saved
+        wipe(root, "mp", [d for d in range(K + M) if d not in victims][:M])
+        got = client.get_object("smoke", "mp").body
+        check(hashlib.md5(got).hexdigest() == md5,
+              "multipart GET through the healed drives")
+        del got
+        s_heal = snapshot()
+        # 6: an aborted upload leaves no staging dir; its parts go one
+        # at a time, the time of a part without concurrent ones
+        uid2, _, serial_s = client.upload_parts(
+            "smoke", "gone", body[:3 * MP_PART], MP_PART, 1)
+        client.abort_multipart_upload("smoke", "gone", uid2)
+        check(client.list_multipart_uploads("smoke") == []
+              and not glob.glob(f"{root}/d*/.mt.sys/multipart/*"),
+              "staging left after abort")
+        s_abort = snapshot()
+        # 7: a versioned bucket
+        readings["versioning"] = versioning_steps(client, er, root, body)
+        s_ver = snapshot()
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    # 8: the mesh set's multipart upload (Kernel C)
+    mesh_parts, mesh_reading = mesh_multipart(body)
+    s_mesh = snapshot()
+    steps = {"put": delta(s0, s_put), "get": delta(s_put, s_get),
+             "degraded_get": delta(s_get, s_deg),
+             "heal": delta(s_deg, s_heal), "abort": delta(s_heal, s_abort),
+             "versioning": delta(s_abort, s_ver),
+             "mesh_put": mesh_parts, "mesh": delta(s_ver, s_mesh)}
+    total = delta(s0, s_mesh)
+    for step, kernels in (("put", ("gf8_apply", "hh256")),
+                          ("get", ("hh256",)),
+                          ("degraded_get", ("gf8_apply", "hh256")),
+                          ("heal", ("gf8_apply", "hh256")),
+                          ("versioning", ("gf8_apply", "hh256")),
+                          ("mesh_put", ("rs_fused",))):
+        for kernel in kernels:
+            check(steps[step][kernel][0] > 0,
+                  f"{kernel} not launched during the multipart {step}")
+    for kernel in ("gf8_apply", "hh256"):
+        check(steps["mesh_put"][kernel][0] == 0,
+              f"{kernel} launched during the mesh set's part PUTs")
+    for kernel, (_, plain) in total.items():
+        check(plain == 0, f"multipart path: {kernel} plain version ran "
+              f"{plain} times")
+    gib = len(body) / 2**30
+    ps = sorted(part_s)
+    readings.update(
+        upload_s=upload_s, upload_gib_s=gib / upload_s,
+        part_p50_s=ps[len(ps) // 2], part_max_s=ps[-1],
+        part_stages_mean_s=stages, serial_part_mean_s=float(
+            np.mean(serial_s)), client_sign_part_s=sign_s,
+        complete_s=complete_s, get_s=get_s, get_gib_s=gib / get_s,
+        degraded_get_s=degraded_s, heal_s=heal_s, mesh=mesh_reading,
+        launches={k: {n: v[0] for n, v in d.items()}
+                  for k, d in steps.items()})
+    print(f"multipart on {card}: {len(body) >> 20} MiB as {MP_PARTS} x "
+          f"{MP_PART >> 20} MiB parts from "
+          f"{MP_WORKERS} client threads (aws-chunked, Content-MD5) in "
+          f"{upload_s:.3f} s ({gib / upload_s:.3f} GiB/s), per part p50 "
+          f"{readings['part_p50_s']:.3f} s, max {ps[-1]:.3f} s; complete "
+          f"{complete_s:.3f} s; GET {get_s:.3f} s ({gib / get_s:.3f} GiB/s), "
+          f"degraded GET {degraded_s:.3f} s, heal of 4 drives x "
+          f"{MP_PARTS} parts {heal_s:.3f} s; ETag {etag}")
+    print(f"a 16 MiB part on {card}: in the server, means over the 32 "
+          f"parts (s): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                    stages.items() if k != "bytes")
+          + f"; one part alone (1 client thread) "
+          f"{readings['serial_part_mean_s']:.3f} s; the client's "
+          f"aws-chunked signing of one part {sign_s:.3f} s")
+    print("multipart launches per step (kernel, plain): "
+          + json.dumps(steps))
+    return {k: v[0] for k, v in total.items()}, readings
+
+
+def versioning_steps(client, er, root: str, body: bytes) -> dict:
+    """Phase 8's versioned bucket; returns its readings."""
+    client.make_bucket("ver")
+    client.set_bucket_versioning("ver", True)
+    check(client.get_bucket_versioning("ver") == "Enabled", "versioning")
+    t0 = time.perf_counter()
+    bodies = [body[:100 * 1024], body[:2 * BLOCK + 5]]
+    vids = [client.put_object("ver", "k", b).headers["x-amz-version-id"]
+            for b in bodies]
+    uid, parts, _ = client.upload_parts("ver", "k", body[:2 * MP_PART],
+                                        MP_PART, 2)
+    r = client.complete_multipart_upload("ver", "k", uid, parts)
+    vids.append(r.headers["x-amz-version-id"])
+    bodies.append(body[:2 * MP_PART])
+    marker = client.delete_object("ver", "k").headers
+    check(marker.get("x-amz-delete-marker") == "true", "delete marker")
+    for vid, b in zip(vids, bodies):
+        check(client.get_object("ver", "k", version_id=vid).body == b,
+              f"version {vid} reads back")
+    r = client.get_object("ver", "k", expect=(405,))
+    check(r.headers.get("x-amz-delete-marker") == "true",
+          "GET of the delete marker")
+    listed = client.list_object_versions("ver")
+    check([(v["version_id"], v["delete_marker"], v["is_latest"])
+           for v in listed] == [(marker["x-amz-version-id"], True, True)]
+          + [(v, False, False) for v in reversed(vids)],
+          f"ListObjectVersions {listed}")
+    client.delete_object("ver", "k", version_id=vids[1])
+    fi, _ = er._read_quorum_fileinfo("ver", "k", vids[0])
+    drive = fi.erasure.distribution.index(1)
+    shutil.rmtree(f"{root}/d{drive}/ver/k")
+    res = er.heal_object("ver", "k", version_id=vids[0])
+    check(len(res.healed_disks) == 1 and er.disks[drive].read_version(
+        "ver", "k", vids[0]).version_id == vids[0],
+        f"heal of the oldest version: {res}")
+    check(client.get_object("ver", "k", version_id=vids[0]).body
+          == bodies[0], "the healed version reads back")
+    return {"versions": len(vids), "seconds": time.perf_counter() - t0}
+
+
+def mesh_multipart(body: bytes) -> tuple:
+    """In process on the one-device mesh set: a 3 x 5 MiB + 1 MiB upload;
+    returns the launches of its part PUTs and the readings."""
+    from minio_tpu_torch.parallel.mesh import make_mesh
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-mp-")
+    try:
+        er = new_set(root, mesh=make_mesh([torch.device("cuda", 0)]))
+        mib = 1 << 20
+        sizes = [5 * mib] * 3 + [mib]
+        uid = er.new_multipart_upload("smoke", "mmp")
+        s0 = snapshot()
+        parts, chunks, off = [], {}, 0
+        for n, size in enumerate(sizes, 1):
+            chunks[n] = body[off:off + size]
+            parts.append((n, er.put_object_part("smoke", "mmp", uid, n,
+                                                chunks[n]).etag))
+            off += len(chunks[n])
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+        # one for a part's full blocks, one for its short last block
+        want = fused_launches(chunks, er._batch_bytes(), er._batch_bytes())
+        check(launches["rs_fused"][0] == want,
+              f"mesh parts launched Kernel C {launches['rs_fused'][0]} "
+              f"times, expected {want}")
+        er.complete_multipart_upload("smoke", "mmp", uid, parts)
+        check(er.get_object("smoke", "mmp")[1] == body[:off],
+              "mesh multipart GET")
+        er.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, {"parts": len(sizes), "bytes": off}
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -948,13 +1208,16 @@ def main() -> int:
     path, shards, path_readings = phase_path(bodies, card)
     mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
     s3_path, s3_readings = phase_s3(bodies, card, path_readings)
+    mp_path, mp_readings = phase_multipart(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
-                   "s3_path": s3_path[k["name"]]}
+                   "s3_path": s3_path[k["name"]],
+                   "multipart_path": mp_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
-                      "mesh_path": mesh_readings, "s3_path": s3_readings}))
+                      "mesh_path": mesh_readings, "s3_path": s3_readings,
+                      "multipart_path": mp_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,12 +20,19 @@ writes on a per-drive writer plane.
     behind shared fsyncs (``storage/commit.py``).  Each object takes its
     own namespace lock (``parallel/dsync.py``): write for PUT, delete and
     heal, read for GET.
-  * GET: per batch of blocks, read the framed ranges of k shards that
-    hold the quorum version (inline, in part files, or in a packed
-    segment), verify them on the device (Kernel B), extend into parity
-    shards on failure, and rebuild missing data shards in one launch
-    (Kernel A).
-  * heal: ``healing.heal_object``.
+  * GET: part by part, per batch of blocks, read the framed ranges of k
+    shards that hold the quorum version (inline, in part files, or in a
+    packed segment), verify them on the device (Kernel B), extend into
+    parity shards on failure, and rebuild missing data shards in one
+    launch (Kernel A).  Every part ends in its own short last block, so
+    a multi-part object launches per part.
+  * Versions: a PUT with ``PutObjectOptions.versioned`` adds a uuid
+    version beside the others (else it replaces the null version); GET,
+    HEAD, DELETE and heal take a version id (``ObjectOptions``); a
+    versioned DELETE without one adds a delete marker, whose GET is
+    MethodNotAllowed.  ``list_object_versions`` pages every version.
+  * Multipart uploads: the ``MultipartOps`` mixin (``multipart.py``).
+  * heal: ``healing.heal_object``, one version, every part.
   * buckets and listing: bucket info, list and delete over every drive's
     volumes; ``list_objects`` k-way merges the drives' sorted walks and
     resolves each entry by quorum (the reference's walk without its
@@ -71,9 +78,12 @@ from ..utils.readahead import readahead
 from . import metadata as meta
 from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
                         BucketNotFound, InvalidRange, ListObjectsInfo,
-                        ObjectInfo, ObjectNotFound, PutObjectOptions,
-                        ReadQuorumError, WriteQuorumError)
-from .metacache import paginate
+                        ListObjectVersionsInfo, MethodNotAllowed,
+                        ObjectInfo, ObjectNotFound, ObjectOptions,
+                        PutObjectOptions, ReadQuorumError, VersionNotFound,
+                        WriteQuorumError)
+from .metacache import paginate, paginate_versions
+from .multipart import MultipartOps
 
 # blockSizeV1 (cmd/object-api-common.go:32)
 DEFAULT_BLOCK_SIZE = 10 * 1024 * 1024
@@ -116,16 +126,18 @@ def _read_full(source, n: int) -> bytes:
     return b"".join(parts)
 
 
-class ErasureObjects:
+class ErasureObjects(MultipartOps):
     """One erasure set over ``len(disks)`` drives (cmd/erasure.go:48)."""
 
     def __init__(self, disks: list, parity: Optional[int] = None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
                  device: str | torch.device = "cuda",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 enforce_min_part_size: bool = True):
         """``mesh``: run the data path on that device mesh (the mesh data
         plane, ``minio_tpu``'s ``backend="mesh"``); ``device`` is then not
-        read."""
+        read.  ``enforce_min_part_size``: complete refuses a part below
+        5 MiB that is not the last."""
         if not disks:
             raise ValueError("no disks")
         self.disks = list(disks)
@@ -135,6 +147,7 @@ class ErasureObjects:
         if self.data_blocks <= 0:
             raise ValueError("parity too large for drive count")
         self.block_size = block_size
+        self.enforce_min_part_size = enforce_min_part_size
         self.codec = Erasure(self.data_blocks, self.parity, block_size,
                              device=device, mesh=mesh)
         self.device = self.codec.device
@@ -143,8 +156,10 @@ class ErasureObjects:
         self._pool = ThreadPoolExecutor(max_workers=min(4 * max(4, n), 64))
         self._serial = SERIAL_FANOUT
         self._write_plane = WriterPlane()
-        # the last streaming PUT's stage times (chip_smoke.py reads them)
+        # the last streaming PUT's stage times, and the last parts'
+        # (chip_smoke.py reads them)
         self.pipe_stats: dict = {}
+        self.part_stats: collections.deque = collections.deque(maxlen=64)
 
     def close(self) -> None:
         """Join the writer threads and the fan-out pool, and close the
@@ -251,31 +266,38 @@ class ErasureObjects:
         return paginate(self._gather_listing_iter(bucket, prefix), prefix,
                         marker, delimiter, max_keys)
 
-    def _gather_listing_iter(self, bucket: str, prefix: str):
-        """One lazy walk per drive (flat key order), k-way merged and
-        resolved entry by entry at quorum ``max(1, n // 2)``: memory
-        O(drives), not O(namespace).  A drive that fails to walk is
-        left out; an entry below quorum is skipped."""
+    def _walk_merged(self, bucket: str, prefix: str, versions: bool):
+        """(name, [each drive's entry]) under ``prefix``: one lazy walk
+        per drive (flat key order), k-way merged: memory O(drives), not
+        O(namespace).  An entry is the latest FileInfo, or with
+        ``versions`` the list of every version.  A drive that fails to
+        walk is left out."""
         base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
 
         def drive_stream(d):
             try:
-                yield from d.walk_entries(bucket, base_dir)
+                yield from d.walk_entries(bucket, base_dir, versions)
             except OSError:
                 return
 
         merged = heapq.merge(*(drive_stream(d) for d in self.disks
                                if d is not None), key=lambda e: e[0])
-        quorum = max(1, len(self.disks) // 2)
         for name, group in itertools.groupby(merged, key=lambda e: e[0]):
             if prefix:
                 if name < prefix:
                     continue
                 if not name.startswith(prefix):
                     break           # sorted: nothing later matches
+            yield name, [e for _, e in group]
+
+    def _gather_listing_iter(self, bucket: str, prefix: str):
+        """The latest version of every entry, resolved entry by entry at
+        quorum ``max(1, n // 2)``; an entry below quorum, or whose latest
+        version is a delete marker, is skipped."""
+        quorum = max(1, len(self.disks) // 2)
+        for _, fis in self._walk_merged(bucket, prefix, versions=False):
             try:
-                fi = meta.find_file_info_in_quorum([f for _, f in group],
-                                                   quorum)
+                fi = meta.find_file_info_in_quorum(fis, quorum)
             except ReadQuorumError:
                 continue
             if not fi.deleted:
@@ -348,11 +370,16 @@ class ErasureObjects:
         return self._put_object_bytes(bucket, object_name, mv, opts)
 
     def _new_fileinfo(self, bucket: str, object_name: str,
-                      mod_time: int) -> FileInfo:
+                      opts: PutObjectOptions) -> FileInfo:
+        """A new version's FileInfo: a uuid version id when the PUT is
+        versioned (drawn before the data dir, as the reference does),
+        else the null version."""
         n, k, m = len(self.disks), self.data_blocks, self.parity
+        version_id = opts.version_id or (
+            str(uuid.uuid4()) if opts.versioned else "")
         return FileInfo(
-            volume=bucket, name=object_name, data_dir=str(uuid.uuid4()),
-            mod_time=mod_time,
+            volume=bucket, name=object_name, version_id=version_id,
+            data_dir=str(uuid.uuid4()), mod_time=opts.mod_time or now_ns(),
             erasure=ErasureInfo(
                 data_blocks=k, parity_blocks=m, block_size=self.block_size,
                 distribution=meta.hash_order(f"{bucket}/{object_name}", n),
@@ -386,8 +413,7 @@ class ErasureObjects:
         (from 1 MiB up; first, when a Content-MD5 must match), then one
         commit call per drive under the object's write lock."""
         self._check_bucket(bucket)
-        fi = self._new_fileinfo(bucket, object_name,
-                                opts.mod_time or now_ns())
+        fi = self._new_fileinfo(bucket, object_name, opts)
         size = len(data)
         etag_future = None
         if self._pipeline_on() and size >= OVERLAP_MD5_BYTES \
@@ -491,8 +517,7 @@ class ErasureObjects:
         ``rename_data`` per drive (cmd/erasure-encode.go:80-107,
         cmd/erasure-object.go:772-779)."""
         self._check_bucket(bucket)
-        fi = self._new_fileinfo(bucket, object_name,
-                                opts.mod_time or now_ns())
+        fi = self._new_fileinfo(bucket, object_name, opts)
         shuffled = meta.shuffle_disks(self.disks, fi.erasure.distribution)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=True)
@@ -682,51 +707,73 @@ class ErasureObjects:
 
     # -- GET (cmd/erasure-object.go:242 getObjectWithFileInfo) -------------
 
-    def _read_quorum_fileinfo(self, bucket: str, object_name: str
+    def _read_quorum_fileinfo(self, bucket: str, object_name: str,
+                              version_id: Optional[str] = None
                               ) -> tuple[FileInfo, list]:
+        """The quorum FileInfo of the latest version, or of
+        ``version_id``, and every drive's; a delete marker is returned
+        like any version."""
         fis, errs = self._fanout(
-            lambda d: d.read_version(bucket, object_name), self.disks)
+            lambda d: d.read_version(bucket, object_name, version_id),
+            self.disks)
         nf = sum(isinstance(e, (serrors.FileNotFound,
                                 serrors.FileVersionNotFound)) for e in errs)
         if nf > len(self.disks) // 2:
+            if version_id is not None and any(
+                    isinstance(e, serrors.FileVersionNotFound)
+                    for e in errs):
+                raise VersionNotFound(f"{bucket}/{object_name}@{version_id}")
             raise ObjectNotFound(f"{bucket}/{object_name}")
         fi = meta.find_file_info_in_quorum(fis, max(1, len(self.disks) // 2))
-        if fi.deleted:
-            raise ObjectNotFound(f"{bucket}/{object_name} is a delete marker")
         return fi, fis
 
-    def get_object_info(self, bucket: str, object_name: str) -> ObjectInfo:
+    def get_object_info(self, bucket: str, object_name: str,
+                        opts: Optional[ObjectOptions] = None) -> ObjectInfo:
+        """HEAD: the version's info; a delete marker's says so
+        (``delete_marker``)."""
+        opts = opts or ObjectOptions()
         self._check_bucket(bucket)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=False)
         try:
-            fi, _ = self._read_quorum_fileinfo(bucket, object_name)
+            fi, _ = self._read_quorum_fileinfo(bucket, object_name,
+                                               opts.version_id)
             return self._to_object_info(fi)
         finally:
             lk.unlock()
 
     def get_object(self, bucket: str, object_name: str, offset: int = 0,
-                   length: int = -1) -> tuple[ObjectInfo, bytes]:
+                   length: int = -1, opts: Optional[ObjectOptions] = None
+                   ) -> tuple[ObjectInfo, bytes]:
         """The object's bytes [offset, offset + length), joined."""
         info, chunks = self.get_object_reader(bucket, object_name, offset,
-                                              length, readahead_depth=0)
+                                              length, opts,
+                                              readahead_depth=0)
         return info, b"".join(chunks)
 
     def get_object_reader(self, bucket: str, object_name: str,
                           offset: int = 0, length: int = -1,
+                          opts: Optional[ObjectOptions] = None,
                           readahead_depth: int = PIPE_DEPTH - 1):
         """(info, chunk iterator) of the bytes [offset, offset + length)
-        under HTTP range rules (negative offset = suffix, length < 0 = to
-        the end, overlong ranges clamp, a start past the end is
-        InvalidRange).  The body streams one batch of blocks at a time,
-        ``readahead_depth`` batches read and decoded ahead in a thread,
-        and is never joined.  The object's read lock is held until the
-        iterator ends, fails or is closed or dropped, advanced or not."""
+        of the latest version or of ``opts.version_id``, under HTTP range
+        rules (negative offset = suffix, length < 0 = to the end,
+        overlong ranges clamp, a start past the end is InvalidRange); a
+        delete marker is MethodNotAllowed.  The body streams one batch of
+        blocks at a time, part by part, ``readahead_depth`` batches read
+        and decoded ahead in a thread, and is never joined.  The object's
+        read lock is held until the iterator ends, fails or is closed or
+        dropped, advanced or not."""
+        opts = opts or ObjectOptions()
         self._check_bucket(bucket)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=False)
         try:
-            fi, fis = self._read_quorum_fileinfo(bucket, object_name)
+            fi, fis = self._read_quorum_fileinfo(bucket, object_name,
+                                                 opts.version_id)
+            if fi.deleted:
+                raise MethodNotAllowed(f"{bucket}/{object_name} is a "
+                                       "delete marker")
             size = fi.size
             if offset < 0:
                 offset = max(0, size + offset)
@@ -748,16 +795,14 @@ class ErasureObjects:
         return info, chunks
 
     def _read_range(self, fi: FileInfo, fis: list, offset: int, length: int):
-        """The range, one batch of blocks at a time.  A shard that fails
-        stays dead for the rest of the read (parallelReader,
+        """The range, part by part and one batch of blocks at a time
+        within a part (the reference's ``_stream_range``).  A shard that
+        fails stays dead for the rest of the read (parallelReader,
         cmd/erasure-decode.go:120-188)."""
         ec = fi.erasure
         k, m, bs, ss = ec.data_blocks, ec.parity_blocks, ec.block_size, \
             ec.shard_size()
         hlen = bitrot.digest_size()
-        if len(fi.parts) != 1:
-            raise ReadQuorumError("multipart objects are not in this slice")
-        part = fi.parts[0]
         shuffled = meta.shuffle_disks(self.disks, ec.distribution)
         sfis = meta.shuffle_parts_metadata(fis, ec.distribution)
         # only drives holding the quorum version are read: a drive that
@@ -766,20 +811,31 @@ class ErasureObjects:
         dead = {j for j in range(k + m)
                 if shuffled[j] is None or not meta.same_version(sfis[j], fi)}
         batch_blocks = max(1, self._batch_bytes() // bs)
-        sfsize = ec.shard_file_size(part.size)
         end = offset + length
-        for bb0 in range(offset // bs, -(-end // bs), batch_blocks):
-            bb1 = min(bb0 + batch_blocks, -(-end // bs))
-            seg_off = bb0 * ss
-            seg_len = min(bb1 * ss, sfsize) - seg_off
-            covered = min(bb1 * bs, part.size) - bb0 * bs
-            got = self._read_verified(
-                fi, part.number, shuffled, sfis, dead,
-                seg_off + bb0 * hlen, seg_len + (bb1 - bb0) * hlen, seg_len)
-            body = _assemble(self.codec, got, fi, covered)
-            lo = max(offset - bb0 * bs, 0)
-            hi = min(end - bb0 * bs, covered)
-            yield body[lo:hi].tobytes()
+        part_start = 0
+        for part in fi.parts:
+            if part_start + part.size <= offset:
+                part_start += part.size
+                continue
+            if part_start >= end:
+                break
+            p0 = max(0, offset - part_start)
+            p1 = min(part.size, end - part_start)
+            sfsize = ec.shard_file_size(part.size)
+            for bb0 in range(p0 // bs, -(-p1 // bs), batch_blocks):
+                bb1 = min(bb0 + batch_blocks, -(-p1 // bs))
+                seg_off = bb0 * ss
+                seg_len = min(bb1 * ss, sfsize) - seg_off
+                covered = min(bb1 * bs, part.size) - bb0 * bs
+                got = self._read_verified(
+                    fi, part.number, shuffled, sfis, dead,
+                    seg_off + bb0 * hlen, seg_len + (bb1 - bb0) * hlen,
+                    seg_len)
+                body = _assemble(self.codec, got, fi, covered)
+                lo = max(p0 - bb0 * bs, 0)
+                hi = min(p1 - bb0 * bs, covered)
+                yield body[lo:hi].tobytes()
+            part_start += part.size
 
     def _read_verified(self, fi: FileInfo, part_number: int, shuffled: list,
                        sfis: list, dead: set, framed_off: int,
@@ -835,15 +891,36 @@ class ErasureObjects:
 
     # -- DELETE ------------------------------------------------------------
 
-    def delete_object(self, bucket: str, object_name: str) -> ObjectInfo:
-        """Remove the object's version from every drive (its data dir, or
-        its packed extent, goes with it); absent objects delete quietly
+    def delete_object(self, bucket: str, object_name: str,
+                      opts: Optional[ObjectOptions] = None) -> ObjectInfo:
+        """DELETE (cmd/erasure-object.go:803).  Versioned and without a
+        version id: a delete marker becomes the latest version.  Else the
+        version ``opts.version_id`` (the null version by default) goes
+        from every drive, with its data dir unless another version
+        shares it, or its packed extent; absent objects delete quietly
         (S3 DELETE is idempotent)."""
+        opts = opts or ObjectOptions()
         self._check_bucket(bucket)
+        mod_time = opts.mod_time or now_ns()
+        wq = _write_quorum(self.data_blocks, self.parity)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=True)
         try:
-            fi = FileInfo(volume=bucket, name=object_name)
+            if opts.versioned and opts.version_id is None:
+                dm = FileInfo(volume=bucket, name=object_name,
+                              version_id=str(uuid.uuid4()), deleted=True,
+                              mod_time=mod_time)
+                _, errs = self._fanout(
+                    lambda d: d.delete_version(bucket, object_name, dm,
+                                               force_del_marker=True),
+                    self.disks)
+                self._reduce_quorum(errs, wq)
+                return ObjectInfo(bucket=bucket, name=object_name,
+                                  version_id=dm.version_id,
+                                  delete_marker=True, mod_time=mod_time)
+            vid = opts.version_id or ""
+            fi = FileInfo(volume=bucket, name=object_name, version_id=vid,
+                          mod_time=mod_time)
             _, errs = self._fanout(
                 lambda d: d.delete_version(bucket, object_name, fi),
                 self.disks)
@@ -852,20 +929,57 @@ class ErasureObjects:
                     <= len(self.disks) // 2:
                 meta.reduce_errs(
                     [None if isinstance(e, missing) else e for e in errs],
-                    _write_quorum(self.data_blocks, self.parity),
-                    WriteQuorumError)
-            return ObjectInfo(bucket=bucket, name=object_name)
+                    wq, WriteQuorumError)
+            return ObjectInfo(bucket=bucket, name=object_name,
+                              version_id=vid)
         finally:
             lk.unlock()
 
+    def list_object_versions(self, bucket: str, prefix: str = "",
+                             key_marker: str = "",
+                             version_id_marker: str = "",
+                             max_keys: int = -1) -> ListObjectVersionsInfo:
+        """Every version of every object under ``prefix``, by key and
+        newest first within a key, from the drive that holds the quorum
+        latest version (ListObjectVersions); paged after ``key_marker``
+        (and its ``version_id_marker``), ``max_keys`` versions a page
+        (all when negative)."""
+        self._check_bucket(bucket)
+        return paginate_versions(self._versions_iter(bucket, prefix),
+                                 key_marker, version_id_marker, max_keys)
+
+    def _versions_iter(self, bucket: str, prefix: str):
+        """ObjectInfo per version: each entry's version list taken from a
+        drive whose latest version is the quorum's."""
+        quorum = max(1, len(self.disks) // 2)
+        for _, lists in self._walk_merged(bucket, prefix, versions=True):
+            per_drive = [fis for fis in lists if fis]
+            try:
+                fi = meta.find_file_info_in_quorum(
+                    [fis[0] for fis in per_drive], quorum)
+            except ReadQuorumError:
+                continue
+            for fis in per_drive:
+                if fis[0].mod_time == fi.mod_time \
+                        and fis[0].version_id == fi.version_id:
+                    for v in fis:
+                        yield self._to_object_info(v)
+                    break
+
     # -- heal --------------------------------------------------------------
 
-    def heal_object(self, bucket: str, object_name: str):
+    def heal_object(self, bucket: str, object_name: str,
+                    version_id: Optional[str] = None, deep: bool = False,
+                    dry_run: bool = False, remove_dangling: bool = False):
+        """Heal one version (the latest by default) on every drive that
+        lacks it or holds a stale or corrupt copy (``healing.py``)."""
         from . import healing
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=True)
         try:
-            return healing.heal_object(self, bucket, object_name)
+            return healing.heal_object(self, bucket, object_name,
+                                       version_id, deep, dry_run,
+                                       remove_dangling)
         finally:
             lk.unlock()
 

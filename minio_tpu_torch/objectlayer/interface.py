@@ -1,6 +1,8 @@
 """Object-layer types and errors (cmd/object-api-interface.go,
 cmd/object-api-errors.go), the part the port's erasure set and its S3
-front use."""
+front use: buckets, objects and their versions, and multipart uploads
+(``PartInfo`` and ``MultipartInfo`` as ``minio_tpu/objectlayer/
+multipart.py`` defines them)."""
 
 from __future__ import annotations
 
@@ -36,7 +38,23 @@ class ObjectNameInvalid(ObjectLayerError):
     pass
 
 
+class VersionNotFound(ObjectLayerError):
+    pass
+
+
 class MethodNotAllowed(ObjectLayerError):
+    """e.g. GET of a delete marker."""
+
+
+class InvalidUploadID(ObjectLayerError):
+    pass
+
+
+class InvalidPart(ObjectLayerError):
+    pass
+
+
+class InvalidPartOrder(ObjectLayerError):
     pass
 
 
@@ -88,10 +106,40 @@ class ObjectInfo:
 @dataclass
 class PutObjectOptions:
     user_defined: dict[str, str] = field(default_factory=dict)
+    # a new uuid version (the bucket is versioned); ``version_id`` names
+    # it instead
+    versioned: bool = False
+    version_id: str = ""
     mod_time: int = 0            # 0: now
     # the client's Content-MD5 as hex: the body must hash to it, checked
     # against the layer's own MD5 before the commit
     content_md5: Optional[str] = None
+
+
+@dataclass
+class ObjectOptions:
+    """GET, HEAD and DELETE options: ``version_id`` None is the latest
+    version, "" the null version."""
+    version_id: Optional[str] = None
+    versioned: bool = False
+    mod_time: int = 0            # a delete marker's; 0: now
+
+
+@dataclass
+class PartInfo:
+    part_number: int
+    etag: str
+    size: int
+    actual_size: int
+    mod_time: int = 0
+
+
+@dataclass
+class MultipartInfo:
+    bucket: str
+    object_name: str
+    upload_id: str
+    user_defined: dict[str, str] = field(default_factory=dict)
 
 
 @dataclass
@@ -101,3 +149,13 @@ class ListObjectsInfo:
     next_marker: str = ""
     objects: list[ObjectInfo] = field(default_factory=list)
     prefixes: list[str] = field(default_factory=list)
+
+
+@dataclass
+class ListObjectVersionsInfo:
+    """One page of versions, newest first within a key
+    (ListObjectVersions)."""
+    is_truncated: bool = False
+    next_key_marker: str = ""
+    next_version_id_marker: str = ""
+    objects: list[ObjectInfo] = field(default_factory=list)

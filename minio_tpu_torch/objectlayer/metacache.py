@@ -1,8 +1,8 @@
 """Listing pagination (``minio_tpu/objectlayer/metacache.py``), without
 its metacache.
 
-Only ``paginate`` and the V2 continuation tokens are ported: every
-listing walks the drives afresh (``ErasureObjects.list_objects``, the
+Only ``paginate``, ``paginate_versions`` and the V2 continuation tokens
+are ported: every listing walks the drives afresh (``ErasureObjects.list_objects``, the
 reference's own no-cache path).  The persisted block cache that serves
 continuation pages from a snapshot of the walk is not, and stands in
 ROADMAP.
@@ -14,7 +14,7 @@ import base64
 import json
 from typing import Iterable
 
-from .interface import ListObjectsInfo, ObjectInfo
+from .interface import ListObjectsInfo, ListObjectVersionsInfo, ObjectInfo
 
 _TOKEN_PREFIX = "mt1-"
 
@@ -52,6 +52,36 @@ def paginate(entries: Iterable[ObjectInfo], prefix: str, marker: str,
             out.next_marker = name
             break
     out.prefixes = sorted(prefixes)
+    return out
+
+
+def paginate_versions(versions: Iterable[ObjectInfo], key_marker: str,
+                      version_id_marker: str,
+                      max_keys: int) -> ListObjectVersionsInfo:
+    """Key and version-id marker pagination over versions sorted by key,
+    newest first within a key (ListObjectVersions): the page starts after
+    ``key_marker``, or with ``version_id_marker`` after that version of
+    ``key_marker`` ("null" names the null version).  At most ``max_keys``
+    versions (all when negative); a full page names the last version as
+    the next markers."""
+    out = ListObjectVersionsInfo()
+    passed = False                  # past the version-id marker
+    for oi in versions:
+        if key_marker:
+            if oi.name < key_marker:
+                continue
+            if oi.name == key_marker and not passed:
+                passed = bool(version_id_marker) and \
+                    (oi.version_id or "null") == version_id_marker
+                continue
+        if 0 <= max_keys <= len(out.objects):
+            if out.objects:
+                last = out.objects[-1]
+                out.is_truncated = True
+                out.next_key_marker = last.name
+                out.next_version_id_marker = last.version_id or "null"
+            break
+        out.objects.append(oi)
     return out
 
 

@@ -1,7 +1,9 @@
 """A small S3 client with SigV4 signing (``minio_tpu/s3/client.py``),
 trimmed to what drives the port without boto3: make and list buckets,
-PUT (header-signed or aws-chunked), GET, HEAD, DELETE and listing;
-``send`` takes any request signed by ``sigv4``.
+PUT (header-signed or aws-chunked), GET, HEAD, DELETE and listing, by
+version id too; bucket versioning and ListObjectVersions; multipart
+uploads, with ``upload_parts`` sending the parts from worker threads as
+minio-go does.  ``send`` takes any request signed by ``sigv4``.
 """
 
 from __future__ import annotations
@@ -9,8 +11,10 @@ from __future__ import annotations
 import base64
 import hashlib
 import http.client
+import time
 import urllib.parse
 import xml.etree.ElementTree as ET
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from .sigv4 import Credentials, sign_request, sign_request_streaming
@@ -120,17 +124,125 @@ class S3Client:
         return self.send("PUT", url, body, hdrs)
 
     def get_object(self, bucket: str, key: str,
-                   byte_range: tuple[int, int] | None = None) -> S3Response:
+                   byte_range: tuple[int, int] | None = None,
+                   version_id: str | None = None,
+                   expect=(200, 206)) -> S3Response:
         hdrs = {}
         if byte_range:
             hdrs["Range"] = f"bytes={byte_range[0]}-{byte_range[1]}"
-        return self.request("GET", f"/{bucket}/{key}", headers=hdrs)
+        return self.request("GET", f"/{bucket}/{key}", _vid(version_id),
+                            headers=hdrs, expect=expect)
 
-    def head_object(self, bucket: str, key: str) -> S3Response:
-        return self.request("HEAD", f"/{bucket}/{key}")
+    def head_object(self, bucket: str, key: str,
+                    version_id: str | None = None,
+                    expect=(200,)) -> S3Response:
+        return self.request("HEAD", f"/{bucket}/{key}", _vid(version_id),
+                            expect=expect)
 
-    def delete_object(self, bucket: str, key: str) -> S3Response:
-        return self.request("DELETE", f"/{bucket}/{key}")
+    def delete_object(self, bucket: str, key: str,
+                      version_id: str | None = None) -> S3Response:
+        return self.request("DELETE", f"/{bucket}/{key}", _vid(version_id))
+
+    # -- versioning --------------------------------------------------------
+
+    def set_bucket_versioning(self, bucket: str, enabled: bool) -> None:
+        status = "Enabled" if enabled else "Suspended"
+        self.request("PUT", f"/{bucket}", "versioning", (
+            f'<VersioningConfiguration xmlns="{S3_NS[1:-1]}"><Status>'
+            f"{status}</Status></VersioningConfiguration>").encode())
+
+    def get_bucket_versioning(self, bucket: str) -> str:
+        """"Enabled", "Suspended", or "" for a bucket never versioned."""
+        root = self.request("GET", f"/{bucket}", "versioning").xml()
+        return root.findtext(f"{S3_NS}Status") or ""
+
+    def list_object_versions(self, bucket: str, prefix: str = "") -> list:
+        """Every version and delete marker, in the order listed."""
+        q = "versions" + (f"&prefix={urllib.parse.quote(prefix)}"
+                          if prefix else "")
+        root = self.request("GET", f"/{bucket}", q).xml()
+        out = []
+        for v in root:
+            tag = v.tag[len(S3_NS):]
+            if tag not in ("Version", "DeleteMarker"):
+                continue
+            out.append({"key": v.findtext(f"{S3_NS}Key"),
+                        "version_id": v.findtext(f"{S3_NS}VersionId"),
+                        "is_latest": v.findtext(f"{S3_NS}IsLatest") == "true",
+                        "delete_marker": tag == "DeleteMarker",
+                        "size": int(v.findtext(f"{S3_NS}Size") or 0)})
+        return out
+
+    # -- multipart ---------------------------------------------------------
+
+    def create_multipart_upload(self, bucket: str, key: str) -> str:
+        r = self.request("POST", f"/{bucket}/{key}", "uploads")
+        return r.xml().findtext(f"{S3_NS}UploadId")
+
+    def upload_part(self, bucket: str, key: str, upload_id: str,
+                    part_number: int, data: bytes, chunked: bool = True,
+                    chunk_size: int = 64 * 1024) -> str:
+        """One part, aws-chunked with Content-MD5 (or header-signed);
+        returns its ETag."""
+        query = f"partNumber={part_number}&uploadId={upload_id}"
+        if not chunked:
+            r = self.request("PUT", f"/{bucket}/{key}", query, data)
+        else:
+            url = self._url(f"/{bucket}/{key}", query)
+            hdrs, body = sign_request_streaming(
+                self._creds, "PUT", url, {"Content-MD5": base64.b64encode(
+                    hashlib.md5(data).digest()).decode()},
+                data, chunk_size, self.region)
+            r = self.send("PUT", url, body, hdrs)
+        return r.headers["ETag"].strip('"')
+
+    def list_parts(self, bucket: str, key: str, upload_id: str) -> list:
+        root = self.request("GET", f"/{bucket}/{key}",
+                            f"uploadId={upload_id}").xml()
+        return [{"part_number": int(p.findtext(f"{S3_NS}PartNumber")),
+                 "etag": p.findtext(f"{S3_NS}ETag").strip('"'),
+                 "size": int(p.findtext(f"{S3_NS}Size"))}
+                for p in root.iter(f"{S3_NS}Part")]
+
+    def complete_multipart_upload(self, bucket: str, key: str,
+                                  upload_id: str,
+                                  parts: list[tuple[int, str]]
+                                  ) -> S3Response:
+        doc = "<CompleteMultipartUpload>" + "".join(
+            f'<Part><PartNumber>{n}</PartNumber><ETag>"{e}"</ETag></Part>'
+            for n, e in parts) + "</CompleteMultipartUpload>"
+        return self.request("POST", f"/{bucket}/{key}",
+                            f"uploadId={upload_id}", doc.encode())
+
+    def abort_multipart_upload(self, bucket: str, key: str,
+                               upload_id: str) -> None:
+        self.request("DELETE", f"/{bucket}/{key}", f"uploadId={upload_id}")
+
+    def list_multipart_uploads(self, bucket: str) -> list:
+        root = self.request("GET", f"/{bucket}", "uploads").xml()
+        return [(u.findtext(f"{S3_NS}Key"), u.findtext(f"{S3_NS}UploadId"))
+                for u in root.iter(f"{S3_NS}Upload")]
+
+    def upload_parts(self, bucket: str, key: str, data: bytes,
+                     part_size: int = 16 * 1024 * 1024,
+                     workers: int = 4) -> tuple[str, list, list]:
+        """A new upload of ``data`` in parts of ``part_size`` bytes, sent
+        aws-chunked from ``workers`` threads (minio-go's defaults: 16 MiB,
+        4); returns (upload id, [(part number, ETag)], [seconds per
+        part]).  ``complete_multipart_upload`` finishes it."""
+        upload_id = self.create_multipart_upload(bucket, key)
+        offsets = list(range(0, max(1, len(data)), part_size))
+
+        def one(i: int) -> tuple[str, float]:
+            t0 = time.perf_counter()
+            etag = self.upload_part(bucket, key, upload_id, i + 1,
+                                    data[offsets[i]:offsets[i] + part_size])
+            return etag, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(workers) as pool:
+            done = list(pool.map(one, range(len(offsets))))
+        return (upload_id, [(i + 1, e) for i, (e, _) in enumerate(done)],
+                [t for _, t in done])
 
     def list_objects(self, bucket: str, prefix: str = "",
                      delimiter: str = "") -> dict:
@@ -153,3 +265,14 @@ class S3Client:
             "is_truncated": root.findtext(f"{S3_NS}IsTruncated") == "true",
             "next_token": root.findtext(f"{S3_NS}NextContinuationToken")
             or ""}
+
+
+def _vid(version_id: str | None) -> str:
+    return "" if version_id is None else \
+        f"versionId={urllib.parse.quote(version_id or 'null')}"
+
+
+def multipart_etag(part_etags: list[str]) -> str:
+    """The ETag a complete answers: md5 of the parts' MD5s, then -N."""
+    md5s = b"".join(bytes.fromhex(e) for e in part_etags)
+    return f"{hashlib.md5(md5s).hexdigest()}-{len(part_etags)}"

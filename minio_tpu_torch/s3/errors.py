@@ -1,6 +1,8 @@
 """S3 API errors and their XML (``minio_tpu/s3/errors.py``,
 cmd/api-errors.go): the codes the port's front can return, and
-``NotImplemented`` for what it does not serve."""
+``NotImplemented`` for what it does not serve.  A part below the minimum
+size answers InvalidPart, as the reference does; EntityTooSmall is in
+the table for clients that look it up."""
 
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ _ERRORS = {e.code: e for e in (
              "The bucket you tried to delete is not empty.", 409),
     APIError("EntityTooLarge", "Your proposed upload exceeds the maximum "
              "allowed object size.", 400),
+    APIError("EntityTooSmall", "Your proposed upload is smaller than the "
+             "minimum allowed object size.", 400),
     APIError("ExpiredToken", "The provided token has expired.", 400),
     APIError("IncompleteBody", "You did not provide the number of bytes "
              "specified by the Content-Length HTTP header.", 400),
@@ -43,6 +47,10 @@ _ERRORS = {e.code: e for e in (
     APIError("InvalidBucketName", "The specified bucket is not valid.", 400),
     APIError("InvalidDigest", "The Content-Md5 you specified is not valid.",
              400),
+    APIError("InvalidPart", "One or more of the specified parts could not be "
+             "found.", 400),
+    APIError("InvalidPartOrder", "The list of parts was not in ascending "
+             "order.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
     APIError("InvalidRequest", "Invalid Request", 400),
     APIError("MalformedXML", "The XML you provided was not well-formed or "
@@ -53,6 +61,10 @@ _ERRORS = {e.code: e for e in (
              "HTTP header.", 411),
     APIError("NoSuchBucket", "The specified bucket does not exist", 404),
     APIError("NoSuchKey", "The specified key does not exist.", 404),
+    APIError("NoSuchUpload", "The specified multipart upload does not exist. "
+             "The upload ID may be invalid, or the upload may have been "
+             "aborted or completed.", 404),
+    APIError("NoSuchVersion", "The specified version does not exist.", 404),
     APIError("NotImplemented", "A header you provided implies functionality "
              "that is not implemented", 501),
     APIError("PreconditionFailed", "At least one of the pre-conditions you "
@@ -80,11 +92,15 @@ _OBJECT_ERRORS = {
     ol.BucketNotEmpty: "BucketNotEmpty",
     ol.BucketNameInvalid: "InvalidBucketName",
     ol.ObjectNotFound: "NoSuchKey",
+    ol.VersionNotFound: "NoSuchVersion",
     ol.MethodNotAllowed: "MethodNotAllowed",
     ol.ObjectNameInvalid: "InvalidArgument",
     ol.InvalidRange: "InvalidRange",
     ol.ReadQuorumError: "SlowDown",
     ol.WriteQuorumError: "SlowDown",
+    ol.InvalidUploadID: "NoSuchUpload",
+    ol.InvalidPart: "InvalidPart",
+    ol.InvalidPartOrder: "InvalidPartOrder",
     ol.PreconditionFailed: "PreconditionFailed",
 }
 

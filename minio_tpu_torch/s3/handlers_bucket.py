@@ -1,7 +1,8 @@
 """S3 bucket handlers (``minio_tpu/s3/handlers_bucket.py``,
 cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket, GET
-``?location`` and ``?versioning``, ListObjects V1 and V2, and
-DeleteObjects.  ``_make_handler`` (server.py) attaches them to the
+``?location``, PUT and GET ``?versioning``, ListObjects V1 and V2,
+ListObjectVersions (``?versions``), ListMultipartUploads (``?uploads``)
+and DeleteObjects, with version ids.  ``_make_handler`` (server.py) attaches them to the
 request handler; ``self`` is the handler and ``self.srv`` its server.
 """
 
@@ -15,13 +16,12 @@ from ..objectlayer import metacache
 from . import errors as s3err
 from .server import S3_NS, S3Error, _iso_date, _xml
 
-# bucket subresources the port does not serve (configs, ACLs, versions,
-# event listening, multipart listings)
+# bucket subresources the port does not serve (configs, ACLs, event
+# listening)
 UNSERVED = frozenset((
     "policy", "lifecycle", "encryption", "replication", "notification",
     "object-lock", "tagging", "quota", "acl", "cors", "website",
-    "accelerate", "requestPayment", "logging", "versions", "events",
-    "uploads"))
+    "accelerate", "requestPayment", "logging", "events"))
 
 
 def _list_buckets(self):
@@ -43,12 +43,12 @@ def _list_buckets(self):
 def _bucket_api(self, bucket, query, payload):
     cmd = self.command
     if "versioning" in query:
-        if cmd == "GET":
-            # never versioned: the unversioned document
+        if cmd == "PUT":
             self._allow()
-            self.srv.layer.get_bucket_info(bucket)
-            return self._send(200, _xml(ET.Element(
-                "VersioningConfiguration", xmlns=S3_NS)))
+            return self._put_versioning(bucket, payload)
+        if cmd == "GET":
+            self._allow()
+            return self._get_versioning(bucket)
         raise S3Error("NotImplemented")
     if cmd == "GET" and "location" in query:
         self._allow()
@@ -58,8 +58,14 @@ def _bucket_api(self, bucket, query, payload):
             else self.srv.region
         self.srv.layer.get_bucket_info(bucket)
         return self._send(200, _xml(root))
+    if cmd == "GET" and "versions" in query:
+        self._allow()
+        return self._list_object_versions(bucket, query)
     if cmd == "POST" and "delete" in query:
         return self._delete_objects(bucket, payload)
+    if cmd == "GET" and "uploads" in query:
+        self._allow()
+        return self._list_uploads(bucket, query)
     if UNSERVED & set(query) or cmd == "POST":
         raise S3Error("NotImplemented")     # configs, POST policy uploads
     if cmd == "PUT":
@@ -76,11 +82,99 @@ def _bucket_api(self, bucket, query, payload):
     if cmd == "DELETE":
         self._allow()
         self.srv.layer.delete_bucket(bucket)
+        self.srv.bucket_meta.drop(bucket)
         return self._send(204)
     if cmd == "GET":
         self._allow()
         return self._list_objects(bucket, query)
     raise S3Error("MethodNotAllowed")
+
+
+def _put_versioning(self, bucket, payload):
+    """PutBucketVersioning: Enabled, or Suspended (any other status)."""
+    self.srv.layer.get_bucket_info(bucket)
+    try:
+        root = ET.fromstring(payload)
+        status = root.findtext(f"{{{S3_NS}}}Status") or \
+            root.findtext("Status") or ""
+    except ET.ParseError as e:
+        raise S3Error("MalformedXML") from e
+    self.srv.bucket_meta.set_versioning(bucket, status == "Enabled")
+    self._send(200)
+
+
+def _get_versioning(self, bucket):
+    """GetBucketVersioning: the stored status, none when never set."""
+    self.srv.layer.get_bucket_info(bucket)
+    root = ET.Element("VersioningConfiguration", xmlns=S3_NS)
+    doc = self.srv.bucket_meta.get(bucket).get("versioning")
+    if doc:
+        ET.SubElement(root, "Status").text = doc["status"]
+    self._send(200, _xml(root))
+
+
+def _list_object_versions(self, bucket, query):
+    """ListObjectVersions: every version, newest first within a key.
+    ``key-marker``, ``version-id-marker`` and ``max-keys`` page it; the
+    markers appear in the answer only when the client sent them or the
+    page is truncated."""
+    q1 = {k: v[0] for k, v in query.items()}
+    prefix = q1.get("prefix", "")
+    esc, enc = self._encoding_type(q1)
+    try:
+        max_keys = min(int(q1.get("max-keys", 1000) or 1000), 1000)
+    except ValueError as e:
+        raise S3Error("InvalidArgument") from e
+    key_marker = q1.get("key-marker", "")
+    vid_marker = q1.get("version-id-marker", "")
+    res = self.srv.layer.list_object_versions(bucket, prefix, key_marker,
+                                              vid_marker, max_keys)
+    root = ET.Element("ListVersionsResult", xmlns=S3_NS)
+    ET.SubElement(root, "Name").text = bucket
+    ET.SubElement(root, "Prefix").text = esc(prefix)
+    if key_marker:
+        ET.SubElement(root, "KeyMarker").text = esc(key_marker)
+    if vid_marker:
+        ET.SubElement(root, "VersionIdMarker").text = vid_marker
+    if enc:
+        ET.SubElement(root, "EncodingType").text = "url"
+    ET.SubElement(root, "IsTruncated").text = \
+        "true" if res.is_truncated else "false"
+    if res.is_truncated:
+        ET.SubElement(root, "NextKeyMarker").text = esc(res.next_key_marker)
+        ET.SubElement(root, "NextVersionIdMarker").text = \
+            res.next_version_id_marker
+    for o in res.objects:
+        v = ET.SubElement(root, "DeleteMarker" if o.delete_marker
+                          else "Version")
+        ET.SubElement(v, "Key").text = esc(o.name)
+        ET.SubElement(v, "VersionId").text = o.version_id or "null"
+        ET.SubElement(v, "IsLatest").text = \
+            "true" if o.is_latest else "false"
+        ET.SubElement(v, "LastModified").text = _iso_date(o.mod_time)
+        if not o.delete_marker:
+            ET.SubElement(v, "ETag").text = f'"{o.etag}"'
+            ET.SubElement(v, "Size").text = str(o.size)
+            ET.SubElement(v, "StorageClass").text = "STANDARD"
+    self._send(200, _xml(root))
+
+
+def _list_uploads(self, bucket, query):
+    """ListMultipartUploads: every upload in progress, by key."""
+    q1 = {k: v[0] for k, v in query.items()}
+    esc, enc = self._encoding_type(q1)
+    uploads = self.srv.layer.list_multipart_uploads(bucket,
+                                                    q1.get("prefix", ""))
+    root = ET.Element("ListMultipartUploadsResult", xmlns=S3_NS)
+    ET.SubElement(root, "Bucket").text = bucket
+    if enc:
+        ET.SubElement(root, "EncodingType").text = "url"
+    ET.SubElement(root, "IsTruncated").text = "false"
+    for u in uploads:
+        ue = ET.SubElement(root, "Upload")
+        ET.SubElement(ue, "Key").text = esc(u.object_name)
+        ET.SubElement(ue, "UploadId").text = u.upload_id
+    self._send(200, _xml(root))
 
 
 def _encoding_type(self, q1):
@@ -158,7 +252,9 @@ def _list_objects(self, bucket, query):
 
 def _delete_objects(self, bucket, payload):
     """Multi-object delete (cmd/bucket-handlers.go:604): one Deleted or
-    Error element per key, 200 whatever each key's fate."""
+    Error element per key, 200 whatever each key's fate.  An entry with
+    a VersionId deletes that version; one without, in a versioned
+    bucket, adds a delete marker."""
     try:
         root = ET.fromstring(payload)
     except ET.ParseError as e:
@@ -167,16 +263,22 @@ def _delete_objects(self, bucket, payload):
     quiet = (root.findtext(f"{ns}Quiet") or
              root.findtext("Quiet") or "") == "true"
     out = ET.Element("DeleteResult", xmlns=S3_NS)
+    versioned = self.srv.bucket_meta.versioning_enabled(bucket)
     for obj in root.findall(f"{ns}Object") + root.findall("Object"):
         key = obj.findtext(f"{ns}Key") or obj.findtext("Key")
+        vid = obj.findtext(f"{ns}VersionId") or obj.findtext("VersionId")
         try:
             self._allow()
-            if obj.findtext(f"{ns}VersionId") or obj.findtext("VersionId"):
-                raise S3Error("NotImplemented")
-            self.srv.layer.delete_object(bucket, key)
+            res = self.srv.layer.delete_object(
+                bucket, key, ol.ObjectOptions(version_id=vid,
+                                              versioned=versioned))
             if not quiet:
                 d = ET.SubElement(out, "Deleted")
                 ET.SubElement(d, "Key").text = key
+                if res.delete_marker:
+                    ET.SubElement(d, "DeleteMarker").text = "true"
+                    ET.SubElement(d, "DeleteMarkerVersionId").text = \
+                        res.version_id
         except Exception as e:  # noqa: BLE001 — reported per key
             if isinstance(e, S3Error):
                 api = e.api
@@ -192,5 +294,6 @@ def _delete_objects(self, bucket, payload):
 
 
 # the methods _make_handler attaches to the request handler
-HANDLERS = ["_list_buckets", "_bucket_api", "_encoding_type",
-            "_list_objects", "_delete_objects"]
+HANDLERS = ["_list_buckets", "_bucket_api", "_put_versioning",
+            "_get_versioning", "_list_object_versions", "_list_uploads",
+            "_encoding_type", "_list_objects", "_delete_objects"]

@@ -8,9 +8,11 @@ authorizes, maps the route to one call of the object layer and renders
 S3 XML; the erasure coding and bitrot hashing of the body run on the
 layer's device.  One root credential and no subsystems: the root key may
 do everything, an unknown key gets InvalidAccessKeyId and an anonymous
-request AccessDenied.  What the port does not serve (bucket configs,
-tagging, object lock, copy, multipart, select, SigV2, STS, admin, the
-web UI, SSE) answers the S3 ``NotImplemented`` error document.
+request AccessDenied.  Multipart uploads and versioned buckets are
+served (a bucket's versioning state in ``bucket_meta``).  What the port
+does not serve (bucket configs, tagging, object lock, copy, select,
+SigV2, STS, admin, the web UI, SSE) answers the S3 ``NotImplemented``
+error document.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..objectlayer import interface as ol
+from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..parallel.dsync import LockTimeout
 from . import errors as s3err
 from . import sigv4
@@ -139,6 +142,7 @@ class S3Server:
                  host: str = "127.0.0.1", port: int = 0,
                  max_body_size: int = 1024 ** 3):
         self.layer = layer
+        self.bucket_meta = BucketMetadataSys(layer)
         self.access_key = access_key
         self._secret_key = secret_key
         self.region = region

@@ -3,7 +3,9 @@
 Same byte format as ``minio_tpu.storage.xl_meta``: the ``MTXL2\\0`` magic
 followed by a MessagePack map ``{"v": FORMAT_VERSION, "versions": [...]}``
 of FileInfo dicts, newest first, encoded with the port's own MessagePack
-subset (``msgpack_codec``).
+subset (``msgpack_codec``).  A journal holds object versions and delete
+markers, the null version (id "") beside uuid versions; the first entry
+is the latest (xlMetaV2.AddVersion / DeleteVersion / ToFileInfo).
 """
 
 from __future__ import annotations
@@ -74,6 +76,17 @@ class XLMeta:
         fi.is_latest = v is self.versions[0]
         fi.num_versions = len(self.versions)
         return fi
+
+    def list_versions(self, volume: str, name: str) -> list[FileInfo]:
+        """Every version, newest first, the first one latest."""
+        out = []
+        for i, v in enumerate(self.versions):
+            fi = FileInfo.from_dict(v)
+            fi.volume, fi.name = volume, name
+            fi.is_latest = i == 0
+            fi.num_versions = len(self.versions)
+            out.append(fi)
+        return out
 
     def shared_data_dir_count(self, version_id: str, data_dir: str) -> int:
         """How many other versions reference ``data_dir``."""

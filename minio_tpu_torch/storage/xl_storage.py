@@ -7,6 +7,9 @@ Layout per drive root, identical to ``minio_tpu``'s:
     <root>/<bucket>/<object>/<ddir>/part.1   bitrot-framed shard file
     <root>/.mt.sys/seg/journal               packed-segment journal
     <root>/.mt.sys/seg/seg.<sid>.dat         packed shards (commit.py)
+    <root>/.mt.sys/multipart/<h>/<upload>/   a multipart upload's staged
+                                             parts (objectlayer/multipart.py)
+    <root>/.mt.sys/buckets/<b>/bucket-meta.json  a bucket's versioning
 
 Writes are stage-then-commit: shard files land in tmp and ``rename_data``
 moves the data dir into place and merges the version into xl.meta;
@@ -231,6 +234,40 @@ class XLStorage:
         self._check_vol(volume)
         _write_fsync(full, data, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
 
+    def list_dir(self, volume: str, dir_path: str) -> list[str]:
+        """The entries of a directory, sorted, subdirectories with a
+        trailing slash."""
+        base = self._file_path(volume, dir_path)
+        self._check_vol(volume)
+        try:
+            with os.scandir(base) as it:
+                return sorted(e.name + "/" if e.is_dir() else e.name
+                              for e in it)
+        except (FileNotFoundError, NotADirectoryError):
+            raise errors.FileNotFound(dir_path) from None
+
+    def write_all(self, volume: str, path: str, data: bytes) -> None:
+        """A whole small file, atomically (tmp, fsync, replace), its
+        parent directories created; a missing volume is not."""
+        full = self._file_path(volume, path)
+        self._check_vol(volume)
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        _write_atomic(full, data)
+        _fsync_dir(os.path.dirname(full))
+
+    def rename_file(self, src_volume: str, src_path: str,
+                    dst_volume: str, dst_path: str) -> None:
+        src = self._file_path(src_volume, src_path)
+        dst = self._file_path(dst_volume, dst_path)
+        self._check_vol(src_volume)
+        self._check_vol(dst_volume)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        try:
+            os.replace(src, dst)
+        except FileNotFoundError:
+            raise errors.FileNotFound(src_path) from None
+        _fsync_dir(os.path.dirname(dst))
+
     def read_file_stream(self, volume: str, path: str, offset: int,
                          length: int) -> bytes:
         full = self._file_path(volume, path)
@@ -350,8 +387,13 @@ class XLStorage:
 
     def read_version(self, volume: str, path: str,
                      version_id: str | None = None) -> FileInfo:
+        """The latest version, or ``version_id`` ("" the null version;
+        FileVersionNotFound when the journal lacks it)."""
         return self._read_meta(volume, path).to_fileinfo(volume, path,
                                                          version_id)
+
+    def list_versions(self, volume: str, path: str) -> list[FileInfo]:
+        return self._read_meta(volume, path).list_versions(volume, path)
 
     def write_data_commit(self, volume: str, path: str, fi: FileInfo,
                           data, shard_index: int | None = None,
@@ -463,12 +505,26 @@ class XLStorage:
 
     # -- delete ------------------------------------------------------------
 
-    def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
-        """Remove version ``fi.version_id``: its unshared data dir goes,
-        xl.meta is rewritten (or removed with the object path when no
-        version is left), then a packed extent is freed."""
+    def delete_version(self, volume: str, path: str, fi: FileInfo,
+                       force_del_marker: bool = False) -> None:
+        """Remove version ``fi.version_id``: its data dir goes unless
+        another version shares it, xl.meta is rewritten (or removed with
+        the object path when no version is left), then a packed extent is
+        freed.  A delete marker (``fi.deleted``) is added as a version
+        instead, and with ``force_del_marker`` also where the object has
+        no xl.meta (cmd/xl-storage.go DeleteVersion)."""
         self._check_vol(volume)
-        meta = self._read_meta(volume, path)
+        try:
+            meta = self._read_meta(volume, path)
+        except errors.FileNotFound:
+            if fi.deleted and force_del_marker:
+                self.write_metadata(volume, path, fi)
+                return
+            raise
+        if fi.deleted:
+            meta.add_version(fi)
+            self._write_meta(volume, path, meta)
+            return
         old_seg = meta.find(fi.version_id).get("seg")
         ddir = meta.delete_version(fi.version_id)
         obj_dir = self._file_path(volume, path)
@@ -535,14 +591,17 @@ class XLStorage:
 
         yield from walk(base)
 
-    def walk_entries(self, volume: str, base_dir: str = ""):
+    def walk_entries(self, volume: str, base_dir: str = "",
+                     versions: bool = False):
         """``(name, FileInfo of its latest version)`` per object, in
-        ``walk_dir`` order: part-file, inline and packed objects alike.
-        An entry whose xl.meta does not read is skipped (the other drives
-        decide it)."""
+        ``walk_dir`` order: part-file, inline and packed objects alike;
+        with ``versions``, ``(name, [FileInfo of every version, newest
+        first])``.  An entry whose xl.meta does not read is skipped (the
+        other drives decide it)."""
         for name in self.walk_dir(volume, base_dir):
             try:
-                yield name, self.read_version(volume, name)
+                yield name, (self.list_versions(volume, name) if versions
+                             else self.read_version(volume, name))
             except errors.StorageError:
                 continue
 

@@ -8,16 +8,19 @@ reference's hot-read cache is off (the port has none; it adds a header).
 Every request below goes to both, signed the same way with the same
 timestamp, and the two answers must carry the same status, body and
 headers, in order, with only ``Date``, ``Server``, ``x-amz-request-id``,
-``RequestId`` and ``CreationDate`` masked.  After the whole sequence
+``RequestId``, ``CreationDate`` and ``Location`` (it names the server's
+port) masked.  After the whole sequence
 the drives must hold the same bytes (bucket volumes, segment files and
 journal; data-dir uuids masked) and no staging dir.
 
 The streamed route is reached by lowering ``STREAM_PUT_THRESHOLD`` on
 both sides, at the name each handler reads.  A streamed PUT whose
 Content-MD5 or last chunk signature fails must leave no object, no
-staging dir and no pooled buffer checked out on the port.  Port-only
-tests cover what the reference serves and the port does not
-(``NotImplemented``) and a GET that loses quorum after its status line.
+staging dir and no pooled buffer checked out on the port.  Multipart uploads and versioned buckets go to both with both packages'
+clocks and uuid draws pinned to counters (``_torch_versions.pin``), so
+upload ids, version ids and mod times agree.  Port-only tests cover what
+the reference serves and the port does not (``NotImplemented``) and a
+GET that loses quorum after its status line.
 """
 
 import base64
@@ -51,6 +54,8 @@ from minio_tpu_torch.s3.server import S3Server
 from minio_tpu_torch.storage.xl_storage import XLStorage
 from minio_tpu_torch.utils import bufpool
 
+from ._torch_versions import pin
+
 N, PARITY, BS = 4, 2, 4096
 BATCH = 260 * BS                    # a 1 MiB body fits one stream batch
 THRESHOLD = 1_500_000               # larger HTTP bodies take the stream route
@@ -61,7 +66,7 @@ NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 UUID = re.compile(rb"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-"
                   rb"[0-9a-f]{12}")
 VOLATILE_HEADERS = ("date", "server", "x-amz-request-id")
-VOLATILE_XML = re.compile(rb"<(RequestId|CreationDate)>[^<]*</\1>")
+VOLATILE_XML = re.compile(rb"<(RequestId|CreationDate|Location)>[^<]*</\1>")
 # inline in xl.meta, packed into segment files, one part file committed
 # beside the MD5, a part file streamed in two batches, and the HTTP
 # stream route (four batches)
@@ -462,6 +467,160 @@ def test_failed_streamed_put_leaves_nothing(pair, fault):
     pair.same("PUT", key, body=b"after", status=200)
 
 
+def _complete_doc(parts) -> bytes:
+    return ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber><ETag>\"{e}\"</ETag></Part>"
+        for n, e in parts) + "</CompleteMultipartUpload>").encode()
+
+
+def _upload_id(resp) -> str:
+    return ET.fromstring(resp.body).findtext(f"{NS}UploadId")
+
+
+def test_multipart_upload(pair, monkeypatch):
+    """CreateMultipartUpload, UploadPart buffered and streamed
+    (aws-chunked, Content-MD5), ListParts, ListMultipartUploads,
+    CompleteMultipartUpload and its errors, GET and ranges across parts,
+    AbortMultipartUpload."""
+    pin(monkeypatch, batch=BATCH)
+    for srv in (pair.ref, pair.port):
+        monkeypatch.setattr(srv.layer, "enforce_min_part_size", False)
+    key = f"/{B}/mp/obj"
+    uid = _upload_id(pair.same(
+        "POST", key, "uploads", status=200,
+        headers={"Content-Type": "text/x-mp", "x-amz-meta-a": "1"}))
+    bodies = {1: _body(3 * BS + 5, 31), 2: _body(2 * 1024 * 1024, 32),
+              3: _body(5000, 33), 4: b""}
+    etags = {}
+    for num, data in bodies.items():
+        kw = {"auth": "chunked", "headers": {"Content-MD5": _md5_b64(data)}} \
+            if num == 2 else {}
+        r = pair.same("PUT", key, f"partNumber={num}&uploadId={uid}",
+                      body=data, status=200, **kw)
+        etags[num] = hashlib.md5(data).hexdigest()
+        assert r.header("ETag") == f'"{etags[num]}"'
+    pair.error("PUT", key, "BadDigest", 400, auth="chunked",
+               query=f"partNumber=5&uploadId={uid}", body=bodies[2],
+               headers={"Content-MD5": _md5_b64(b"x")})
+    pair.error("PUT", key, "NoSuchUpload", 404,
+               query="partNumber=1&uploadId=nope", body=b"x")
+    pair.error("PUT", key, "InvalidArgument", 400,
+               query=f"partNumber=x&uploadId={uid}", body=b"x")
+    pair.error("PUT", key, "InvalidPart", 400,
+               query=f"partNumber=0&uploadId={uid}", body=b"x")
+    pair.same("GET", key, f"uploadId={uid}", status=200)
+    other = _upload_id(pair.same("POST", f"/{B}/mp/other", "uploads",
+                                 status=200))
+    pair.same("GET", f"/{B}", "uploads", status=200)
+    pair.same("GET", f"/{B}", "uploads&prefix=mp/o", status=200)
+    parts = sorted(etags.items())
+    pair.error("POST", key, "InvalidPartOrder", 400, query=f"uploadId={uid}",
+               body=_complete_doc(parts[::-1]))
+    pair.error("POST", key, "InvalidPart", 400, query=f"uploadId={uid}",
+               body=_complete_doc([(1, etags[2])] + parts[1:]))
+    pair.error("POST", key, "MalformedXML", 400, query=f"uploadId={uid}",
+               body=b"<CompleteMultipartUpload><Part>")
+    pair.error("POST", key, "NoSuchUpload", 404, query="uploadId=nope",
+               body=_complete_doc(parts))
+    r = pair.same("POST", key, f"uploadId={uid}", body=_complete_doc(parts),
+                  status=200)
+    md5s = b"".join(bytes.fromhex(e) for _, e in parts)
+    assert f"{hashlib.md5(md5s).hexdigest()}-4".encode() in r.body
+    want = b"".join(bodies.values())
+    assert pair.same("GET", key, status=200).body == want
+    pair.same("HEAD", key, status=200)
+    b1 = len(bodies[1])
+    for spec in (f"bytes={b1 - 10}-{b1 + 9}", f"bytes={b1 - 1}-{b1 + 4 * BS}",
+                 "bytes=-7", f"bytes={len(want) - 3}-"):
+        r = pair.same("GET", key, headers={"Range": spec}, status=206)
+        first, _, rest = r.header("Content-Range")[6:].partition("-")
+        assert r.body == want[int(first):int(rest.split("/")[0]) + 1]
+    pair.error("GET", key, "NoSuchUpload", 404, query=f"uploadId={uid}")
+    pair.same("DELETE", f"/{B}/mp/other", f"uploadId={other}", status=204)
+    pair.error("DELETE", f"/{B}/mp/other", "NoSuchUpload", 404,
+               query=f"uploadId={other}")
+    pair.same("GET", f"/{B}", "uploads", status=200)
+    assert not list(pair.port_root.glob("d*/.mt.sys/multipart"))
+    assert not list(pair.ref_root.glob("d*/.mt.sys/multipart"))
+
+
+def test_versioned_bucket(pair, monkeypatch):
+    """PUT and GET ?versioning, versioned PUTs (inline, part file,
+    streamed, multipart), a delete marker (405 on GET and HEAD), GET and
+    HEAD by versionId, ListObjectVersions, DeleteObjects and DELETE with
+    version ids, then versioning suspended."""
+    pin(monkeypatch, batch=BATCH)
+    for srv in (pair.ref, pair.port):
+        monkeypatch.setattr(srv.layer, "enforce_min_part_size", False)
+    enabled = (b'<VersioningConfiguration xmlns="http://s3.amazonaws.com/'
+               b'doc/2006-03-01/"><Status>Enabled</Status>'
+               b'</VersioningConfiguration>')
+    pair.error("PUT", "/nover", "NoSuchBucket", 404, query="versioning",
+               body=enabled)
+    pair.same("PUT", "/verb", status=200)
+    pair.same("GET", "/verb", "versioning", status=200)
+    pair.same("PUT", "/verb", "versioning", body=enabled, status=200)
+    assert b"<Status>Enabled</Status>" in pair.same(
+        "GET", "/verb", "versioning", status=200).body
+    vids, bodies = [], []
+    for i, (size, auth) in enumerate(((5000, "v4"), (SIZES["part"], "v4"),
+                                      (SIZES["streamed"], "chunked"))):
+        data = _body(size, 40 + i)
+        r = pair.same("PUT", "/verb/k", body=data, auth=auth, status=200)
+        vids.append(r.header("x-amz-version-id"))
+        bodies.append(data)
+    uid = _upload_id(pair.same("POST", "/verb/k", "uploads", status=200))
+    parts = []
+    for num, size in ((1, 3 * BS), (2, 777)):
+        data = _body(size, 50 + num)
+        pair.same("PUT", "/verb/k", f"partNumber={num}&uploadId={uid}",
+                  body=data, status=200)
+        parts.append((num, hashlib.md5(data).hexdigest()))
+    r = pair.same("POST", "/verb/k", f"uploadId={uid}",
+                  body=_complete_doc(parts), status=200)
+    vids.append(r.header("x-amz-version-id"))
+    bodies.append(_body(3 * BS, 51) + _body(777, 52))
+    assert all(vids) and len(set(vids)) == 4
+    r = pair.same("DELETE", "/verb/k", status=204)
+    assert r.header("x-amz-delete-marker") == "true"
+    marker = r.header("x-amz-version-id")
+    for method in ("GET", "HEAD"):
+        pair.same(method, "/verb/k", status=405)
+        pair.same(method, "/verb/k", f"versionId={marker}", status=405)
+        pair.same(method, "/verb/k", headers={"Range": "bytes=0-9"},
+                  status=405)
+        pair.same(method, "/verb/k", headers={"If-Match": "*"}, status=405)
+    for vid, data in zip(vids, bodies):
+        assert pair.same("GET", "/verb/k", f"versionId={vid}",
+                         status=200).body == data
+        pair.same("HEAD", "/verb/k", f"versionId={vid}", status=200)
+        pair.same("GET", "/verb/k", f"versionId={vid}",
+                  headers={"Range": "bytes=100-4200"}, status=206)
+    pair.error("GET", "/verb/k", "NoSuchVersion", 404, query="versionId=nope")
+    pair.error("GET", "/verb/k", "NoSuchVersion", 404, query="versionId=null")
+    pair.same("PUT", "/verb/other", body=b"o" * 300, status=200)
+    for query in ("versions", "versions&prefix=k", "versions&prefix=zz"):
+        pair.same("GET", "/verb", query, status=200)
+    doc = ("<Delete>" + f"<Object><Key>k</Key><VersionId>{vids[0]}"
+           "</VersionId></Object><Object><Key>other</Key></Object>"
+           "</Delete>").encode()
+    pair.same("POST", "/verb", "delete", body=doc, status=200)
+    r = pair.same("DELETE", "/verb/k", f"versionId={vids[1]}", status=204)
+    assert r.header("x-amz-version-id") == vids[1]
+    pair.same("DELETE", "/verb/k", f"versionId={marker}", status=204)
+    assert pair.same("GET", "/verb/k", status=200).body == bodies[3]
+    pair.same("GET", "/verb", "versions", status=200)
+    pair.same("PUT", "/verb", "versioning", status=200, body=(
+        b"<VersioningConfiguration><Status>Suspended</Status>"
+        b"</VersioningConfiguration>"))
+    pair.same("GET", "/verb", "versioning", status=200)
+    r = pair.same("PUT", "/verb/k", body=b"null version", status=200)
+    assert r.header("x-amz-version-id") is None
+    assert pair.same("GET", "/verb/k", "versionId=null",
+                     status=200).body == b"null version"
+    pair.same("GET", "/verb", "versions", status=200)
+
+
 def test_drives_match_reference(pair):
     """Last in the sequence: every bucket volume and the segment store
     hold the same bytes on every drive; no staging dir is left."""
@@ -496,11 +655,12 @@ def _tree(root) -> dict:
 @pytest.mark.parametrize("method,path,query,headers", [
     ("GET", f"/{B}", "tagging", {}),
     ("PUT", f"/{B}", "policy", {}),
-    ("GET", f"/{B}", "versions", {}),
-    ("GET", f"/{B}", "uploads", {}),
-    ("PUT", f"/{B}", "versioning", {}),
-    ("POST", f"/{B}/k", "uploads", {}),
-    ("PUT", f"/{B}/k", "partNumber=1&uploadId=x", {}),
+    ("GET", f"/{B}", "lifecycle", {}),
+    ("GET", f"/{B}", "object-lock", {}),
+    ("GET", f"/{B}/rt/packed", "retention", {}),
+    ("POST", f"/{B}/k", "restore", {}),
+    ("PUT", f"/{B}/k", "partNumber=1&uploadId=x",
+     {"x-amz-copy-source": f"/{B}/rt/packed"}),
     ("GET", f"/{B}/rt/packed", "tagging", {}),
     ("GET", f"/{B}/rt/packed", "acl", {}),
     ("PUT", f"/{B}/k", "", {"x-amz-copy-source": f"/{B}/rt/packed"}),
