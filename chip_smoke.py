@@ -77,7 +77,32 @@
    upload, whose parts launch Kernel C.  Launches are read per step:
    Kernels A and B in the multipart PUT, degraded GET and heal (B alone
    in the healthy GET), C in the mesh parts; no plain version.
-9. One JSON line of readings, one describing each kernel, the card line,
+9. The sets path: ``build_server`` on 32 temporary drives, which it
+   lays out as MinIO does, 2 sets x 16 (12 + 4 each, 10 MiB blocks, on
+   the card), every drive holding format.json (one deployment id, a
+   2 x 16 grid) and behind a health proxy.  Over HTTP: ``/minio/health/
+   cluster``; 64 objects of 16 MiB from 8 client threads, 12 more to set 0
+   alone from 4 threads, then 12 to each set at once from 4 threads each
+   (deleted again), the 256 MiB body aws-chunked, a 3-part upload and the
+   8 x 32 burst of 512 KiB (packed); every object's xl.meta on the drives
+   of the set its name hashes to, each set a quarter of the 16 MiB objects
+   at least; every object read back from 8 threads and ListObjectsV2 in
+   pages of 25.  Then in each set a drive holding a data shard of the
+   set's first 16 MiB object is removed, and a degraded GET of that object
+   marks it offline (two launches of Kernel A each, the full and the short
+   stripe), four more of set 0 taken away (11 of 16 online:
+   503, and 412 under maintenance) and back (200); the two removed drives
+   return empty, are formatted with their own identity by
+   ``DriveMonitor.poll_once`` and their sets healed: every shard equal to
+   its digest from before, each sweep on its own set, no other drive
+   written.  Last, a drive of another deployment in place of one of set
+   1 stays offline and unwritten.  Launches per step: A and B in PUT,
+   burst, degraded GET and heal, B in the GET; no plain version.  It
+   reads set 0's D2H wait per batch alone and with set 1 as busy beside
+   it (the same threads and PUTs per set; one CUDA stream for every set),
+   the peak thread count, and the pooled buffers checked out after the
+   phase (0).
+10. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -814,7 +839,7 @@ def phase_s3(bodies: dict, card: str, inproc: dict):
     srv = build_server([f"{root}/d{i}" for i in range(K + M)],
                        "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
                        device="cuda")
-    er = srv.layer
+    er, = srv.layer.sets
     check((er.data_blocks, er.parity, er.device.type) == (K, M, "cuda"),
           f"the server's set is {er.data_blocks} + {er.parity} on "
           f"{er.device}")
@@ -958,7 +983,7 @@ def phase_multipart(card: str, gen) -> tuple:
     srv = build_server([f"{root}/d{i}" for i in range(K + M)],
                        "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
                        device="cuda")
-    er = srv.layer
+    er, = srv.layer.sets
     srv.start()
     readings, steps = {}, {}
     body = rand_bytes((MP_PART * MP_PARTS,), gen).cpu().numpy().tobytes()
@@ -1175,6 +1200,459 @@ def mesh_multipart(body: bytes) -> tuple:
     return launches, {"parts": len(sizes), "bytes": off}
 
 
+SETS_BUCKET, SETS_OBJ, SETS_OBJS, SETS_THREADS = "sets", 16 << 20, 64, 8
+SETS_D2H = 12         # 16 MiB PUTs per set in each D2H wait reading
+
+
+class ThreadPeak:
+    """The most threads alive at once, sampled every 20 ms."""
+
+    def __init__(self):
+        import threading
+        self.peak = threading.active_count()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True,
+                                   name="smoke-thread-peak")
+        self._t.start()
+
+    def _run(self):
+        import threading
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, threading.active_count())
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._t.join()
+        return self.peak
+
+
+def wait_heal_kicks() -> None:
+    """Join the heal sweeps that returning drives started."""
+    import threading
+    for t in threading.enumerate():
+        if t.name == "mt-drive-heal-kick":
+            t.join(300)
+
+
+def drive_shards(disk, bucket: str, keys) -> dict:
+    """{key: sha256 of the drive's framed shard}: inline data, the packed
+    extent, or every part file."""
+    out = {}
+    for key in keys:
+        fi = disk.read_version(bucket, key)
+        if fi.inline_data is not None:
+            data = fi.inline_data
+        elif fi.seg is not None:
+            data = disk.read_segment(fi.seg["sid"], fi.seg["off"],
+                                     fi.seg["len"])
+        else:
+            data = b"".join(disk.read_all(
+                bucket, f"{key}/{fi.data_dir}/part.{p.number}")
+                for p in fi.parts)
+        out[key] = hashlib.sha256(data).digest()
+    return out
+
+
+def tree_stat(root: str) -> dict:
+    """{path: (size, mtime_ns)} of every file under a drive."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(dirpath, n)
+            st = os.stat(p)
+            out[os.path.relpath(p, root)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def put_lanes(endpoint: str, bucket: str, lanes: list) -> float:
+    """PUT each lane's (key, body) items in order over HTTP, one client
+    thread per lane; returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from minio_tpu_torch.s3.client import S3Client
+
+    def worker(items):
+        client = S3Client(endpoint, S3_KEY, S3_SECRET)
+        for key, body in items:
+            r = client.put_object(bucket, key, body)
+            check(r.headers["ETag"] == f'"{hashlib.md5(body).hexdigest()}"',
+                  f"sets PUT ETag {key}")
+
+    with ThreadPoolExecutor(len(lanes)) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(worker, lanes))
+        return time.perf_counter() - t0
+
+
+def put_many(endpoint: str, bucket: str, items: list, threads: int) -> float:
+    """PUT (key, body) items over HTTP from ``threads`` client threads."""
+    return put_lanes(endpoint, bucket,
+                     [items[t::threads] for t in range(threads)])
+
+
+def keys_in_set(layer, prefix: str, s: int, count: int) -> list:
+    """The first ``count`` names ``prefix``NNN that hash to set ``s``."""
+    return [k for k in (f"{prefix}{i:03d}" for i in range(1000))
+            if layer.get_hashed_set_index(k) == s][:count]
+
+
+def get_many(endpoint: str, bucket: str, items: list, threads: int) -> float:
+    from concurrent.futures import ThreadPoolExecutor
+    from minio_tpu_torch.s3.client import S3Client
+
+    def worker(t):
+        client = S3Client(endpoint, S3_KEY, S3_SECRET)
+        for key, body in items[t::threads]:
+            check(client.get_object(bucket, key).body == body,
+                  f"sets GET {key}")
+
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(worker, range(threads)))
+        return time.perf_counter() - t0
+
+
+def d2h_ms(er) -> float:
+    waits = list(er.d2h_waits)
+    return float(np.mean(waits)) * 1e3 if waits else float("nan")
+
+
+def phase_sets(bodies: dict, card: str, gen, single: dict):
+    """Two sets of 16 drives behind ``build_server`` over HTTP: placement,
+    reads, listing, drive health and heal-on-return; returns the launches
+    and the readings."""
+    from minio_tpu_torch.s3 import sigv4
+    from minio_tpu_torch.s3.client import S3Client, multipart_etag
+    from minio_tpu_torch.server_main import build_server
+    from minio_tpu_torch.storage.format import FormatErasure
+    from minio_tpu_torch.utils import bufpool
+    n = 2 * (K + M)
+    root = tempfile.mkdtemp(prefix="chip-smoke-sets-")
+    phase_t0 = time.perf_counter()
+    laps: dict = {}
+
+    def lap(step: str) -> None:
+        laps[step] = time.perf_counter() - phase_t0 - sum(laps.values())
+
+    peak = ThreadPeak()
+    srv = build_server([f"{root}/d{i}" for i in range(n)], "127.0.0.1:0",
+                       S3_KEY, S3_SECRET, BLOCK, device="cuda")
+    layer = srv.layer
+    readings, steps = {}, {}
+    big = bodies["256MiB"]
+    blob = rand_bytes((SETS_OBJS * SETS_OBJ,), gen).cpu().numpy().tobytes()
+    objs = [(f"obj/{i:02d}", blob[i * SETS_OBJ:(i + 1) * SETS_OBJ])
+            for i in range(SETS_OBJS)]
+    try:
+        check((layer.set_count, layer.set_drive_count) == (2, K + M),
+              f"{layer.set_count} sets of {layer.set_drive_count}")
+        for s in layer.sets:
+            check((s.data_blocks, s.parity, s.device.type) == (K, M, "cuda"),
+                  f"a set is {s.data_blocks} + {s.parity} on {s.device}")
+        fmts = [FormatErasure.from_json(open(
+            f"{root}/d{i}/.mt.sys/format.json", "rb").read())
+            for i in range(n)]
+        grid = fmts[0].sets
+        check(len({f.id for f in fmts}) == 1 and fmts[0].id ==
+              layer.deployment_id, "one deployment id on every drive")
+        check(len(grid) == 2 and all(len(r) == K + M for r in grid)
+              and [f.this for f in fmts] == [u for r in grid for u in r],
+              "a 2 x 16 grid, each drive its own place")
+        srv.start()
+        client = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        r = client.request("GET", "/minio/health/cluster", sign=False)
+        check(r.status == 200 and r.headers["X-Minio-Write-Quorum"] == str(K),
+              f"health at start: {r.status} {r.headers}")
+        client.make_bucket(SETS_BUCKET)
+        lap("setup")
+        reset_counts()
+        s0 = snapshot()
+        # writes: 16 MiB objects over both sets, then over set 0 alone
+        for s in layer.sets:
+            s.d2h_waits.clear()
+        put_s = put_many(srv.endpoint, SETS_BUCKET, objs, SETS_THREADS)
+        # set 0's D2H wait alone, then with set 1 as busy beside it: 12
+        # PUTs of 16 MiB per set from 4 client threads per set
+        lanes = SETS_THREADS // 2
+
+        def d2h_items(prefix, s):
+            return [(k, objs[i][1]) for i, k in
+                    enumerate(keys_in_set(layer, prefix, s, SETS_D2H))]
+        alone = d2h_items("alone/", 0)
+        beside = d2h_items("beside/", 0) + d2h_items("beside/", 1)
+        for s in layer.sets:
+            s.d2h_waits.clear()
+        alone_s = put_many(srv.endpoint, SETS_BUCKET, alone, lanes)
+        check(len(layer.sets[1].d2h_waits) == 0, "set 1 busy while alone")
+        alone_ms = d2h_ms(layer.sets[0])
+        alone_n = len(layer.sets[0].d2h_waits)
+        for s in layer.sets:
+            s.d2h_waits.clear()
+        put_lanes(srv.endpoint, SETS_BUCKET,
+                  [beside[:SETS_D2H][t::lanes] for t in range(lanes)]
+                  + [beside[SETS_D2H:][t::lanes] for t in range(lanes)])
+        both = [d2h_ms(s) for s in layer.sets]
+        both_n = [len(s.d2h_waits) for s in layer.sets]
+        for key, _ in beside:
+            client.delete_object(SETS_BUCKET, key)
+        url = f"{srv.endpoint}/{SETS_BUCKET}/big"
+        hdrs, wire = sigv4.sign_request_streaming(
+            sigv4.Credentials(S3_KEY, S3_SECRET), "PUT", url,
+            {"Content-MD5": base64.b64encode(
+                hashlib.md5(big).digest()).decode()}, big)
+        t0 = time.perf_counter()
+        client.send("PUT", url, wire, hdrs)
+        big_put_s = time.perf_counter() - t0
+        del wire
+        mp_body = blob[:2 * MP_PART + 1234567]
+        uid, parts, _ = client.upload_parts(SETS_BUCKET, "mp", mp_body,
+                                            MP_PART, 3)
+        r = client.complete_multipart_upload(SETS_BUCKET, "mp", uid, parts)
+        etag = r.xml().findtext(
+            "{http://s3.amazonaws.com/doc/2006-03-01/}ETag").strip('"')
+        check(etag == multipart_etag([e for _, e in parts]), "sets mp ETag")
+        torch.cuda.synchronize()
+        s_put = snapshot()
+        lap("put")
+        burst = [(f"burst/{i:03d}", b) for i, b in enumerate(burst_bodies())]
+        burst_s = put_many(srv.endpoint, SETS_BUCKET, burst, BURST_THREADS)
+        s_burst = snapshot()
+        lap("burst")
+        everything = objs + alone + [("big", big), ("mp", mp_body)] + burst
+        names = sorted(k for k, _ in everything)
+        readings["objects_per_set"] = [
+            sum(layer.get_hashed_set_index(k) == i for k, _ in objs)
+            for i in range(2)]
+        check(min(readings["objects_per_set"]) >= SETS_OBJS // 4,
+              f"16 MiB objects per set {readings['objects_per_set']}")
+        for key in names:
+            s = layer.get_hashed_set_index(key)
+            where = [d // (K + M) for d in range(n) if os.path.exists(
+                f"{root}/d{d}/{SETS_BUCKET}/{key}/xl.meta")]
+            check(where == [s] * (K + M), f"{key} on the drives of set "
+                  f"{sorted(set(where))}, placed in set {s}")
+        lap("placement")
+        # reads: every object, then ListObjectsV2 in pages of 25
+        get_s = get_many(srv.endpoint, SETS_BUCKET, everything,
+                         SETS_THREADS)
+        t0 = time.perf_counter()
+        check(client.get_object(SETS_BUCKET, "big").body == big, "GET big")
+        big_get_s = time.perf_counter() - t0
+        lap("get")
+        listed, token, pages = [], "", 0
+        while True:
+            page = client.list_objects(SETS_BUCKET, max_keys=25,
+                                       continuation_token=token)
+            listed += [o["key"] for o in page["objects"]]
+            pages += 1
+            if not page["is_truncated"]:
+                break
+            token = page["next_token"]
+        check(listed == names, "ListObjectsV2 in pages of 25")
+        lap("list")
+        s_get = snapshot()
+        del everything
+        # health: in each set a drive goes that holds a data shard of the
+        # set's first 16 MiB object (a GET reads the k data shards, so only
+        # such a drive makes it rebuild); a degraded GET of that object
+        # marks the drive offline.  Not one of the drives taken away below.
+        away, foreign = [4, 5, 6, 7], K + M + 5
+        deg_keys, victims = [], []
+        for s in range(2):
+            key = next(k for k, _ in objs
+                       if layer.get_hashed_set_index(k) == s)
+            fi, _ = layer.sets[s]._read_quorum_fileinfo(SETS_BUCKET, key)
+            v = next(s * (K + M) + d for d, shard in
+                     enumerate(fi.erasure.distribution) if shard <= K
+                     and s * (K + M) + d not in away + [foreign])
+            deg_keys.append(key)
+            victims.append(v)
+        hds = [layer.sets[v // (K + M)].disks[v % (K + M)] for v in victims]
+        per_set_keys = [[k for k in names
+                         if layer.get_hashed_set_index(k) == s]
+                        for s in range(2)]
+        before = [drive_shards(hd, SETS_BUCKET, per_set_keys[s])
+                  for s, hd in enumerate(hds)]
+        lap("digests")
+        for v in victims:
+            shutil.rmtree(f"{root}/d{v}")
+        t0 = time.perf_counter()
+        for key in deg_keys:
+            check(client.get_object(SETS_BUCKET, key).body ==
+                  dict(objs)[key], f"degraded GET {key}")
+        degraded_s = (time.perf_counter() - t0) / 2
+        check(all(hd.offline for hd in hds), "wiped drives not offline")
+        s_deg = snapshot()
+        lap("degraded_get")
+        healed = {0: [], 1: []}         # objects each set's sweeps healed
+        for i, s in enumerate(layer.sets):
+            def counted(b, key, *a, _heal=s.heal_object, _i=i, **kw):
+                healed[_i].append(key)
+                return _heal(b, key, *a, **kw)
+            s.heal_object = counted
+        # four more drives of set 0 away: 11 of 16 online, below the
+        # write quorum of 12
+        for d in away:
+            os.rename(f"{root}/d{d}", f"{root}/away{d}")
+            hd = layer.sets[0].disks[d]
+            try:
+                hd.stat_vol(SETS_BUCKET)
+            except OSError:
+                pass
+            check(hd.offline, f"drive {d} not offline")
+        r = client.request("GET", "/minio/health/cluster", sign=False,
+                           expect=(503,))
+        check(r.headers["X-Minio-Write-Quorum"] == str(K),
+              "503 below quorum")
+        client.request("GET", "/minio/health/cluster", "maintenance=true",
+                       sign=False, expect=(412,))
+        for d in away:
+            os.rename(f"{root}/away{d}", f"{root}/d{d}")
+        layer.monitor.poll_once()
+        wait_heal_kicks()
+        check(not any(layer.sets[0].disks[d].offline for d in away),
+              "returned drives still offline")
+        r = client.request("GET", "/minio/health/cluster", sign=False)
+        check(r.status == 200, "health after the drives returned")
+        # the four returning drives share set 0's sweep: one, or one more
+        # for drives that came back while it ran
+        sweeps = len(healed[0]) / len(per_set_keys[0])
+        check(sweeps in (1, 2) and not healed[1],
+              f"{sweeps} sweeps of set 0, {len(healed[1])} objects of set "
+              "1 swept, for four returning drives of set 0")
+        readings["quorum_sweeps_set0"] = sweeps
+        lap("quorum")
+        # the two wiped drives return empty: formatted, their sets healed
+        for keys in healed.values():
+            keys.clear()
+        others = {d: tree_stat(f"{root}/d{d}") for d in range(n)
+                  if d not in victims}
+        s_heal0 = snapshot()
+        lap("before_heal")
+        for v in victims:
+            os.makedirs(f"{root}/d{v}")
+        t0 = time.perf_counter()
+        layer.monitor.poll_once()
+        wait_heal_kicks()
+        torch.cuda.synchronize()
+        heal_s = time.perf_counter() - t0
+        s_heal = snapshot()
+        for s in layer.sets:
+            del s.heal_object
+        rebuilt = 0
+        for s, (v, hd) in enumerate(zip(victims, hds)):
+            fmt = FormatErasure.from_json(open(
+                f"{root}/d{v}/.mt.sys/format.json", "rb").read())
+            check(fmt.this == grid[s][v % (K + M)] == hd.get_disk_id()
+                  and not hd.offline, f"drive {v} formatted as itself")
+            check(sorted(healed[s]) == per_set_keys[s],
+                  f"set {s} swept {len(healed[s])} objects")
+            after = drive_shards(hd, SETS_BUCKET, per_set_keys[s])
+            check(after == before[s], f"drive {v}: healed shards differ")
+            rebuilt += sum(sz for sz, _ in tree_stat(f"{root}/d{v}").values())
+        check(all(tree_stat(f"{root}/d{d}") == t for d, t in others.items()),
+              "a drive that stayed was written by the heal")
+        lap("heal")
+        # a drive of another deployment in place of one of set 1
+        hd = layer.sets[1].disks[foreign - (K + M)]
+        shutil.rmtree(f"{root}/d{foreign}")
+        try:
+            hd.stat_vol(SETS_BUCKET)
+        except OSError:
+            pass
+        check(hd.offline, "removed drive of set 1 not offline")
+        os.makedirs(f"{root}/foreign/{SETS_BUCKET}/x")
+        with open(f"{root}/foreign/{SETS_BUCKET}/x/data", "wb") as f:
+            f.write(b"theirs")
+        os.makedirs(f"{root}/foreign/.mt.sys")
+        with open(f"{root}/foreign/.mt.sys/format.json", "w") as f:
+            f.write(FormatErasure(id="0ther-dep1oyment", this="their-drive",
+                                  sets=[["their-drive"]]).to_json())
+        os.rename(f"{root}/foreign", f"{root}/d{foreign}")
+        theirs = tree_stat(f"{root}/d{foreign}")
+        layer.monitor.poll_once()
+        wait_heal_kicks()
+        key = next(k for k, _ in objs if layer.get_hashed_set_index(k) == 1)
+        check(client.get_object(SETS_BUCKET, key).body == dict(objs)[key],
+              "GET beside the foreign drive")
+        check(hd.offline and tree_stat(f"{root}/d{foreign}") == theirs,
+              "the foreign drive was admitted or written")
+        out_after = bufpool.GLOBAL.checked_out
+        lap("foreign")
+    finally:
+        srv.stop()
+        threads = peak.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    lap("stop")
+    phase_s = time.perf_counter() - phase_t0
+    check(out_after == 0, f"{out_after} pooled buffers checked out")
+    steps = {"put": delta(s0, s_put), "burst": delta(s_put, s_burst),
+             "get": delta(s_burst, s_get),
+             "degraded_get": delta(s_get, s_deg),
+             "heal": delta(s_heal0, s_heal)}
+    total = delta(s0, s_heal)
+    for step, kernels in (("put", ("gf8_apply", "hh256")),
+                          ("burst", ("gf8_apply", "hh256")),
+                          ("get", ("hh256",)),
+                          ("degraded_get", ("gf8_apply", "hh256")),
+                          ("heal", ("gf8_apply", "hh256"))):
+        for kernel in kernels:
+            check(steps[step][kernel][0] > 0,
+                  f"{kernel} not launched during the sets {step}")
+    # each degraded GET rebuilds a lost data shard: one launch for the
+    # full stripe, one for the short one
+    check(steps["degraded_get"]["gf8_apply"][0] == 2 * len(deg_keys),
+          f"Kernel A launched {steps['degraded_get']['gf8_apply'][0]} times "
+          f"in {len(deg_keys)} degraded GETs")
+    for kernel, (_, plain) in total.items():
+        check(plain == 0, f"sets path: {kernel} plain version ran {plain} "
+              "times")
+    gib = SETS_OBJS * SETS_OBJ / 2**30
+    read_gib = (sum(len(b) for _, b in objs) + len(alone) * SETS_OBJ
+                + len(big) + len(mp_body) + len(burst) * BURST_SIZE) / 2**30
+    readings.update(
+        put_16MiB_s=put_s, put_16MiB_gib_s=gib / put_s,
+        put_256MiB_s=big_put_s,
+        put_256MiB_gib_s=len(big) / big_put_s / 2**30,
+        get_s=get_s, get_gib_s=read_gib / get_s,
+        get_256MiB_s=big_get_s, get_256MiB_gib_s=len(big) / big_get_s / 2**30,
+        degraded_get_s=degraded_s,
+        heal_sweep_s=heal_s, heal_rebuilt_bytes=rebuilt,
+        heal_gib_s=rebuilt / heal_s / 2**30,
+        burst_s=burst_s, burst_objects_per_s=len(burst) / burst_s,
+        d2h_wait_ms_set0_alone=alone_ms, d2h_batches_set0_alone=alone_n,
+        d2h_wait_ms_both_sets=both, d2h_batches_both_sets=both_n,
+        put_set0_alone_s=alone_s, peak_threads=threads,
+        bufpool_checked_out_after=out_after, list_pages=pages,
+        phase_s=phase_s, step_s=laps,
+        launches={k: {name: v[0] for name, v in d.items()}
+                  for k, d in steps.items()})
+    print(f"sets path on {card}: {phase_s:.1f} s; 2 sets x 16 drives; "
+          f"{SETS_OBJS} x 16 MiB "
+          f"from {SETS_THREADS} client threads {gib / put_s:.3f} GiB/s "
+          f"({put_s:.3f} s, per set {readings['objects_per_set']}); 256 MiB "
+          f"PUT {readings['put_256MiB_gib_s']:.3f} GiB/s (one set alone, "
+          f"phase 7: {single['put_256MiB_gib_s']:.3f}); GET of all "
+          f"{read_gib:.3f} GiB from {SETS_THREADS} threads "
+          f"{read_gib / get_s:.3f} GiB/s, 256 MiB alone "
+          f"{readings['get_256MiB_gib_s']:.3f} GiB/s (phase 7: "
+          f"{single['get_256MiB_gib_s']:.3f}); degraded GET "
+          f"of 16 MiB {degraded_s:.3f} s (phase 7, 256 MiB: "
+          f"{single['degraded_get_s']:.3f} s); 4 drives of set 0 back: "
+          f"{readings['quorum_sweeps_set0']:.0f} sweep(s) of it; heal "
+          f"sweep of 2 returned "
+          f"drives {heal_s:.3f} s, {rebuilt} B rebuilt "
+          f"({readings['heal_gib_s']:.3f} GiB/s); burst "
+          f"{readings['burst_objects_per_s']:.1f} objects/s (phase 7: "
+          f"{single['burst_objects_per_s']:.1f}); set 0's D2H wait per "
+          f"batch alone {alone_ms:.3f} ms ({alone_n} batches), with "
+          f"set 1 as busy {both[0]:.3f} ms (set 1 {both[1]:.3f} ms; "
+          f"{both_n} batches); peak {threads} threads; {out_after} pooled "
+          "buffers out after")
+    print("sets path seconds per step: " + json.dumps(laps))
+    print("sets launches per step (kernel, plain): " + json.dumps(steps))
+    return {k: v[0] for k, v in total.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -1209,15 +1687,18 @@ def main() -> int:
     mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
     s3_path, s3_readings = phase_s3(bodies, card, path_readings)
     mp_path, mp_readings = phase_multipart(card, gen)
+    sets_path, sets_readings = phase_sets(bodies, card, gen, s3_readings)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
-                   "multipart_path": mp_path[k["name"]]}
+                   "multipart_path": mp_path[k["name"]],
+                   "sets_path": sets_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
                       "mesh_path": mesh_readings, "s3_path": s3_readings,
-                      "multipart_path": mp_readings}))
+                      "multipart_path": mp_readings,
+                      "sets_path": sets_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """minio_tpu_torch: the PyTorch/CUDA port of minio_tpu's erasure data path.
 
-One erasure set (``objectlayer.erasure_object.ErasureObjects``) doing PUT,
-ranged and degraded GET, delete and heal over local drives, its drive
+Erasure sets (``objectlayer.erasure_object.ErasureObjects``) doing PUT,
+ranged and degraded GET, delete and heal over local drives, their drive
 writes on a per-drive writer plane with group commit
-(``storage/writers.py``, ``storage/commit.py``), with the device kernels
-of that path written by hand for Hopper (``csrc/``):
+(``storage/writers.py``, ``storage/commit.py``); several of them sharing
+one card as one namespace (``objectlayer.sets.ErasureSets``: format.json,
+SipHash placement, drive health and heal-on-return, the heal sweep);
+with the device kernels of that path written by hand for Hopper
+(``csrc/``):
 
   * ``gf8_apply.cu``: GF(2^8) matrix apply (encode, decode, heal);
   * ``hh256.cu``: keyed HighwayHash-256 bitrot digests (PUT framing, GET

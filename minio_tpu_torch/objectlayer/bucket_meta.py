@@ -6,8 +6,10 @@ The document is the reference's: JSON in every drive's system volume at
 ``{"versioning": {"status": "Enabled" | "Suspended"}, "_rev": n}``.  A
 read takes the copy with the highest ``_rev``, so a drive that missed the
 last write cannot roll the state back.  Either package serving the drives
-sees the same state.  The other configs the reference keeps in the same
-document (policy, lifecycle, ...) are not read or written here.
+sees the same state.  Over several sets the document lives on set 0's
+drives, as the reference's ``ErasureSets._fanout`` keeps it.  The other
+configs the reference keeps in the same document (policy, lifecycle, ...)
+are not read or written here.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from ..storage.xl_storage import SYS_DIR
 
 
 class BucketMetadataSys:
-    def __init__(self, er):
-        self._er = er                   # the ErasureObjects it reads
+    def __init__(self, layer):
+        # the ErasureObjects it reads and writes
+        self._er = layer.meta_set
         self._cache: dict[str, dict] = {}
         self._mu = threading.Lock()
 

@@ -39,7 +39,8 @@ writes on a per-drive writer plane.
     metacache), then ``metacache.paginate``.
 
 The ETag is the body's MD5 (the reference's strict-compat mode).  No
-caches and no MRF queue.  The drives hold the same bytes as after the
+caches and no MRF queue.  Several sets on one card form a namespace in
+``sets.py``; each launches on the card's default stream.  The drives hold the same bytes as after the
 same calls to ``minio_tpu``'s default layer with the same geometry and
 block size (xl.meta, part files, segment files and journal).  On a host
 with one core the drive fan-out runs in line and nothing is pipelined or
@@ -79,9 +80,9 @@ from . import metadata as meta
 from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
                         BucketNotFound, InvalidRange, ListObjectsInfo,
                         ListObjectVersionsInfo, MethodNotAllowed,
-                        ObjectInfo, ObjectNotFound, ObjectOptions,
-                        PutObjectOptions, ReadQuorumError, VersionNotFound,
-                        WriteQuorumError)
+                        ObjectInfo, ObjectNotFound,
+                        ObjectOptions, PutObjectOptions, ReadQuorumError,
+                        VersionNotFound, WriteQuorumError)
 from .metacache import paginate, paginate_versions
 from .multipart import MultipartOps
 
@@ -160,6 +161,9 @@ class ErasureObjects(MultipartOps):
         # (chip_smoke.py reads them)
         self.pipe_stats: dict = {}
         self.part_stats: collections.deque = collections.deque(maxlen=64)
+        # seconds each device-to-host copy of a framed batch waited on its
+        # event (the stream is shared with every other set on the card)
+        self.d2h_waits: collections.deque = collections.deque(maxlen=4096)
 
     def close(self) -> None:
         """Join the writer threads and the fan-out pool, and close the
@@ -199,7 +203,12 @@ class ErasureObjects(MultipartOps):
         group's size so one object's fan-out enqueues without waiting on
         itself.  ``buf`` (``writers.held_release``) counts every queued
         op, so the buffer they read is recycled only once the last one
-        settled, also when a failed commit stops waiting for them."""
+        settled, also when a failed commit stops waiting for them.  A
+        drive its health proxy holds offline is skipped: ``write_packed``
+        passes the proxy unguarded, and a swapped drive must never be
+        written."""
+        shuffled = [None if getattr(d, "offline", False) else d
+                    for d in shuffled]
         if not self._pipeline_on():
             _, errs = self._fanout(lambda p: write_one(*p),
                                    [None if d is None else (i, d)
@@ -246,6 +255,52 @@ class ErasureObjects(MultipartOps):
                 seen.setdefault(v.name, BucketInfo(v.name, v.created))
         return sorted(seen.values(), key=lambda b: b.name)
 
+    def heal_bucket(self, bucket: str) -> int:
+        """Make the bucket on every drive that lacks it (healBucket,
+        cmd/erasure-healing.go:56); returns the drives made."""
+        healed = 0
+        for disk in self.disks:
+            if disk is None:
+                continue
+            try:
+                disk.stat_vol(bucket)
+            except serrors.StorageError:
+                try:
+                    disk.make_vol(bucket)
+                    healed += 1
+                except serrors.StorageError:
+                    pass
+        return healed
+
+    @property
+    def meta_set(self) -> "ErasureObjects":
+        """The set whose drives keep the bucket metadata: this one."""
+        return self
+
+    def health(self, maintenance: bool = False) -> dict:
+        """Healthy while the online drives keep write quorum
+        (cmd/erasure-server-pool.go:1462); with ``maintenance`` the local
+        drives do not count (may this node be taken down?), and no drive
+        may be healing.  ``healing_drives`` counts drives mid-heal."""
+        wq = self._set_write_quorum()
+        up = healing = 0
+        for d in self.disks:
+            if d is None:
+                continue
+            try:
+                if not d.is_online():
+                    continue
+            except Exception:  # noqa: BLE001 — a dead drive is offline
+                continue
+            if getattr(d, "healing", False):
+                healing += 1
+            if maintenance and d.is_local():
+                continue
+            up += 1
+        return {"healthy": up >= wq and (not maintenance or healing == 0),
+                "write_quorum": wq, "healing_drives": healing,
+                "online_drives": up}
+
     def delete_bucket(self, bucket: str, force: bool = False) -> None:
         """Remove the bucket from every drive; BucketNotEmpty while it
         holds an object of any layout (packed ones keep their xl.meta in
@@ -263,20 +318,22 @@ class ErasureObjects(MultipartOps):
                      delimiter: str = "", max_keys: int = 1000
                      ) -> ListObjectsInfo:
         self._check_bucket(bucket)
-        return paginate(self._gather_listing_iter(bucket, prefix), prefix,
-                        marker, delimiter, max_keys)
+        return paginate(self._gather_listing_iter(bucket, prefix, marker),
+                        prefix, marker, delimiter, max_keys)
 
-    def _walk_merged(self, bucket: str, prefix: str, versions: bool):
-        """(name, [each drive's entry]) under ``prefix``: one lazy walk
-        per drive (flat key order), k-way merged: memory O(drives), not
-        O(namespace).  An entry is the latest FileInfo, or with
-        ``versions`` the list of every version.  A drive that fails to
-        walk is left out."""
+    def _walk_merged(self, bucket: str, prefix: str, versions: bool,
+                     after: str = ""):
+        """(name, [each drive's entry]) under ``prefix`` from ``after`` on:
+        one lazy walk per drive (flat key order), k-way merged: memory
+        O(drives), not O(namespace).  An entry is the latest FileInfo, or
+        with ``versions`` the list of every version.  A drive that fails
+        to walk is left out."""
         base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
 
         def drive_stream(d):
             try:
-                yield from d.walk_entries(bucket, base_dir, versions)
+                yield from d.walk_entries(bucket, base_dir, versions,
+                                          after=after)
             except OSError:
                 return
 
@@ -290,12 +347,14 @@ class ErasureObjects(MultipartOps):
                     break           # sorted: nothing later matches
             yield name, [e for _, e in group]
 
-    def _gather_listing_iter(self, bucket: str, prefix: str):
-        """The latest version of every entry, resolved entry by entry at
+    def _gather_listing_iter(self, bucket: str, prefix: str,
+                             after: str = ""):
+        """The latest version of every entry from ``after`` on (a page's
+        marker: nothing before it is read), resolved entry by entry at
         quorum ``max(1, n // 2)``; an entry below quorum, or whose latest
         version is a delete marker, is skipped."""
         quorum = max(1, len(self.disks) // 2)
-        for _, fis in self._walk_merged(bucket, prefix, versions=False):
+        for _, fis in self._walk_merged(bucket, prefix, False, after):
             try:
                 fi = meta.find_file_info_in_quorum(fis, quorum)
             except ReadQuorumError:
@@ -329,7 +388,9 @@ class ErasureObjects(MultipartOps):
         if pinned:
             done = torch.cuda.Event()
             done.record()
+            t0 = time.perf_counter()
             done.synchronize()
+            self.d2h_waits.append(time.perf_counter() - t0)
         return buf.numpy(), lambda: bufpool.GLOBAL.release(buf)
 
     def _encode_framed_pooled(self, chunk):
@@ -945,14 +1006,16 @@ class ErasureObjects(MultipartOps):
         (and its ``version_id_marker``), ``max_keys`` versions a page
         (all when negative)."""
         self._check_bucket(bucket)
-        return paginate_versions(self._versions_iter(bucket, prefix),
-                                 key_marker, version_id_marker, max_keys)
+        return paginate_versions(
+            self._versions_iter(bucket, prefix, key_marker), key_marker,
+            version_id_marker, max_keys)
 
-    def _versions_iter(self, bucket: str, prefix: str):
-        """ObjectInfo per version: each entry's version list taken from a
-        drive whose latest version is the quorum's."""
+    def _versions_iter(self, bucket: str, prefix: str, after: str = ""):
+        """ObjectInfo per version from key ``after`` on: each entry's
+        version list taken from a drive whose latest version is the
+        quorum's."""
         quorum = max(1, len(self.disks) // 2)
-        for _, lists in self._walk_merged(bucket, prefix, versions=True):
+        for _, lists in self._walk_merged(bucket, prefix, True, after):
             per_drive = [fis for fis in lists if fis]
             try:
                 fi = meta.find_file_info_in_quorum(

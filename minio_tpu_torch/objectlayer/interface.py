@@ -1,5 +1,5 @@
 """Object-layer types and errors (cmd/object-api-interface.go,
-cmd/object-api-errors.go), the part the port's erasure set and its S3
+cmd/object-api-errors.go), the part the port's erasure sets and its S3
 front use: buckets, objects and their versions, and multipart uploads
 (``PartInfo`` and ``MultipartInfo`` as ``minio_tpu/objectlayer/
 multipart.py`` defines them)."""

@@ -245,14 +245,22 @@ class S3Client:
                 [t for _, t in done])
 
     def list_objects(self, bucket: str, prefix: str = "",
-                     delimiter: str = "") -> dict:
-        """The first ListObjectsV2 page: its objects, common prefixes,
-        whether it is truncated and the token of the next."""
+                     delimiter: str = "", max_keys: int = 0,
+                     continuation_token: str = "") -> dict:
+        """One ListObjectsV2 page (the first, or the one after
+        ``continuation_token``; ``max_keys`` 0 is the server's default):
+        its objects, common prefixes, whether it is truncated and the
+        token of the next."""
         q = ["list-type=2"]
         if prefix:
             q.append(f"prefix={urllib.parse.quote(prefix)}")
         if delimiter:
             q.append(f"delimiter={urllib.parse.quote(delimiter)}")
+        if max_keys:
+            q.append(f"max-keys={max_keys}")
+        if continuation_token:
+            q.append("continuation-token="
+                     + urllib.parse.quote(continuation_token, safe=""))
         root = self.request("GET", f"/{bucket}", "&".join(q)).xml()
         return {
             "objects": [{

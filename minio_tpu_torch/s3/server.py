@@ -1,4 +1,4 @@
-"""S3 API HTTP server over the port's erasure set (``minio_tpu/s3/server.py``,
+"""S3 API HTTP server over the port's erasure sets (``minio_tpu/s3/server.py``,
 cmd/api-router.go:82 with cmd/object-handlers.go and
 cmd/bucket-handlers.go).
 
@@ -12,7 +12,10 @@ request AccessDenied.  Multipart uploads and versioned buckets are
 served (a bucket's versioning state in ``bucket_meta``).  What the port
 does not serve (bucket configs, tagging, object lock, copy, select,
 SigV2, STS, admin, the web UI, SSE) answers the S3 ``NotImplemented``
-error document.
+error document.  The health probes are served: ``/minio/health/live``
+and ``ready`` while the process serves, ``/minio/health/cluster`` from the
+layer's write quorum.  Background loops attached to the server (the heal
+sweep) start and stop with it.
 """
 
 from __future__ import annotations
@@ -154,19 +157,28 @@ class S3Server:
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        # the background heal sweep (initBackgroundHealing,
+        # cmd/server-main.go): its life follows the server's
+        self.healer = None
 
     def lookup_secret(self, access_key: str) -> str | None:
         return self._secret_key if access_key == self.access_key else None
 
     def start(self) -> None:
+        """Serve on a thread, and start the heal sweep."""
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True, name="mt-s3-server")
         self._thread.start()
+        if self.healer is not None:
+            self.healer.start()
 
     def stop(self) -> None:
-        """Stop listening, cut the open connections, and close the layer
-        (its writer threads join; cmd/server-main.go's shutdown)."""
+        """Stop the heal sweep and listening, cut the open connections,
+        and close the layer (its drive monitor stops, its writer threads
+        join; cmd/server-main.go's shutdown)."""
         self._stopping = True
+        if self.healer is not None:
+            self.healer.stop()
         if self._thread is not None:
             self.httpd.shutdown()
             self._thread.join()
@@ -362,7 +374,7 @@ def _make_handler(srv: S3Server):
                                     "/minio/health/")):
                     # unauthenticated probes (cmd/healthcheck-router.go)
                     self._body()
-                    return self._health_api(path)
+                    return self._health_api(path, query)
                 if path.startswith("/minio-tpu/") or \
                         any(h in self.headers for h in SSE_HEADERS):
                     # admin, metrics, web UI; server-side encryption
@@ -392,18 +404,30 @@ def _make_handler(srv: S3Server):
         do_GET = do_PUT = do_HEAD = do_DELETE = do_POST = do_PATCH = \
             do_OPTIONS = lambda self: self._dispatch()
 
-        def _health_api(self, path):
+        def _health_api(self, path, query):
             if self.command not in ("GET", "HEAD"):
                 raise S3Error("MethodNotAllowed")
             leaf = path.split("/health/", 1)[1]
+            status, headers = 200, {}
             if leaf == "cluster":
-                raise S3Error("NotImplemented")
-            if leaf not in ("live", "ready"):
+                # ready for traffic; with maintenance, may this node be
+                # taken down (cmd/healthcheck-handler.go:28-66)
+                maint = query.get("maintenance", [""])[0] == "true"
+                h = srv.layer.health(maintenance=maint)
+                if h["write_quorum"]:
+                    headers["X-Minio-Write-Quorum"] = str(h["write_quorum"])
+                if not h["healthy"]:
+                    if h["healing_drives"]:
+                        headers["X-Minio-Healing-Drives"] = \
+                            str(h["healing_drives"])
+                    status = 412 if maint else 503
+            elif leaf in ("live", "ready"):
+                # 200 while the process serves (cmd/healthcheck-handler.go:69)
+                if srv._stopping:
+                    headers["X-Minio-Server-Status"] = "offline"
+            else:
                 raise S3Error("NoSuchKey")
-            # 200 while the process serves (cmd/healthcheck-handler.go:69)
-            headers = {"X-Minio-Server-Status": "offline"} \
-                if srv._stopping else {}
-            self._send(200, b"", headers=headers)
+            self._send(status, b"", headers=headers)
 
     from . import handlers_bucket, handlers_object
     Handler.srv = srv

@@ -15,6 +15,15 @@ class DiskNotFound(StorageError):
     """errDiskNotFound: drive offline / not reachable."""
 
 
+class UnformattedDisk(StorageError):
+    """errUnformattedDisk: fresh drive without format.json."""
+
+
+class CorruptedFormat(StorageError):
+    """errCorruptedFormat: unreadable format.json, or one of another
+    deployment."""
+
+
 class VolumeNotFound(StorageError):
     """errVolumeNotFound: bucket does not exist on this drive."""
 

@@ -10,6 +10,8 @@ Layout per drive root, identical to ``minio_tpu``'s:
     <root>/.mt.sys/multipart/<h>/<upload>/   a multipart upload's staged
                                              parts (objectlayer/multipart.py)
     <root>/.mt.sys/buckets/<b>/bucket-meta.json  a bucket's versioning
+    <root>/.mt.sys/format.json               the drive's identity
+                                             (storage/format.py)
 
 Writes are stage-then-commit: shard files land in tmp and ``rename_data``
 moves the data dir into place and merges the version into xl.meta;
@@ -133,6 +135,7 @@ class XLStorage:
 
     def __init__(self, root: str):
         self.root = os.path.abspath(root)
+        self._disk_id = ""
         if not os.path.isdir(self.root):
             raise errors.DiskNotFound(self.root)
         os.makedirs(os.path.join(self.root, TMP_DIR), exist_ok=True)
@@ -140,10 +143,33 @@ class XLStorage:
         self.segments = _commit.SegmentStore(
             os.path.join(self.root, SYS_DIR, _commit.SEG_DIR))
 
+    # -- identity / health -------------------------------------------------
+
+    def is_online(self) -> bool:
+        return os.path.isdir(self.root)
+
     def endpoint(self) -> str:
         return self.root
 
+    def is_local(self) -> bool:
+        return True
+
+    def get_disk_id(self) -> str:
+        return self._disk_id
+
+    def set_disk_id(self, disk_id: str) -> None:
+        self._disk_id = disk_id
+
     def close(self) -> None:
+        self.segments.close()
+
+    def reopen(self) -> None:
+        """Take back a drive that returned empty and was just formatted
+        (``health.HealthDisk.probe``): recreate the staging root and
+        forget the segment files that went with the old tree, so staged
+        heals land and the next packed write opens a fresh segment
+        instead of appending to an unlinked one."""
+        os.makedirs(os.path.join(self.root, TMP_DIR), exist_ok=True)
         self.segments.close()
 
     # -- paths -------------------------------------------------------------
@@ -563,13 +589,15 @@ class XLStorage:
 
     # -- walking -----------------------------------------------------------
 
-    def walk_dir(self, volume: str, base_dir: str = ""):
+    def walk_dir(self, volume: str, base_dir: str = "", after: str = ""):
         """Object names (directories holding xl.meta) under ``base_dir``
         in flat key order, the byte order S3 listings promise
         (cmd/metacache-walk.go WalkDir): a subtree ``x`` holds keys
         ``x/...``, which sort after a sibling object ``x-1`` ('-' < '/'),
         so subtrees sort by ``name + "/"`` and objects by ``name``.  Each
-        drive's stream being sorted lets the listing merge them lazily."""
+        drive's stream being sorted lets the listing merge them lazily.
+        A subtree whose every name sorts before ``after`` is not entered,
+        so a page that resumes late in the namespace walks little."""
         vol = self._check_vol(volume)
         base = self._file_path(volume, base_dir) if base_dir else vol
 
@@ -578,27 +606,36 @@ class XLStorage:
                 entries = sorted(os.scandir(d), key=lambda e: e.name)
             except (FileNotFoundError, NotADirectoryError):
                 return
+            rel = os.path.relpath(d, vol).replace(os.sep, "/")
             if any(e.name == META_FILE for e in entries):
-                yield os.path.relpath(d, vol).replace(os.sep, "/")
+                yield rel
                 return
+            under = "" if rel == "." else rel + "/"
             keyed = []
             for e in entries:
-                if e.is_dir():
-                    leaf = os.path.isfile(os.path.join(e.path, META_FILE))
-                    keyed.append((e.name if leaf else e.name + "/", e.path))
+                if not e.is_dir():
+                    continue
+                sub = under + e.name + "/"
+                if sub < after and not after.startswith(sub):
+                    continue        # ``name`` and ``name/...`` < after
+                leaf = os.path.isfile(os.path.join(e.path, META_FILE))
+                keyed.append((e.name if leaf else e.name + "/", e.path))
             for _, path in sorted(keyed):
                 yield from walk(path)
 
         yield from walk(base)
 
     def walk_entries(self, volume: str, base_dir: str = "",
-                     versions: bool = False):
+                     versions: bool = False, after: str = ""):
         """``(name, FileInfo of its latest version)`` per object, in
         ``walk_dir`` order: part-file, inline and packed objects alike;
         with ``versions``, ``(name, [FileInfo of every version, newest
-        first])``.  An entry whose xl.meta does not read is skipped (the
-        other drives decide it)."""
-        for name in self.walk_dir(volume, base_dir):
+        first])``.  Names before ``after`` are passed over unread (a
+        listing page resumes there).  An entry whose xl.meta does not
+        read is skipped (the other drives decide it)."""
+        for name in self.walk_dir(volume, base_dir, after):
+            if name < after:
+                continue
             try:
                 yield name, (self.list_versions(volume, name) if versions
                              else self.read_version(volume, name))

@@ -56,7 +56,7 @@ def _send_parts(endpoint: str, path: str, upload_id: str, part: int,
 
 
 def run_once(mode: str, srv, client, body: bytes, path: str, pool) -> dict:
-    er = srv.layer
+    er = srv.layer.get_hashed_set("mp")
     er.part_stats.clear()
     t0 = time.perf_counter()
     if mode == "procs":

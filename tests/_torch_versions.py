@@ -14,6 +14,7 @@ import torch
 
 import minio_tpu.objectlayer.erasure_object as ref_eo
 import minio_tpu.objectlayer.multipart as ref_mp
+import minio_tpu.storage.format as ref_fmt
 from minio_tpu.objectlayer import interface as ref_ol
 from minio_tpu.storage.writers import close_write_planes
 from minio_tpu.storage.xl_storage import XLStorage as RefStorage
@@ -21,6 +22,7 @@ from minio_tpu_torch.objectlayer import erasure_object as port_eo
 from minio_tpu_torch.objectlayer import interface as port_ol
 from minio_tpu_torch.objectlayer import multipart as port_mp
 from minio_tpu_torch.parallel.mesh import make_mesh
+from minio_tpu_torch.storage import format as port_fmt
 from minio_tpu_torch.storage.xl_storage import XLStorage
 
 N, M, BS = 6, 2, 4096
@@ -45,13 +47,16 @@ class Pins:
 def pin(monkeypatch, shared: bool = False, batch: int = BATCH) -> None:
     """One counter pair per package, or with ``shared`` one for both (a
     sequence that hops between packages); stream batches of ``batch``
-    bytes."""
+    bytes.  The format modules draw the deployment and drive ids from
+    the same uuid counter."""
     ref = Pins()
     port = ref if shared else Pins()
-    for pins, mods in ((ref, (ref_eo, ref_mp)), (port, (port_eo, port_mp))):
+    for pins, mods, fmt in ((ref, (ref_eo, ref_mp), ref_fmt),
+                            (port, (port_eo, port_mp), port_fmt)):
         for mod in mods:
             monkeypatch.setattr(mod, "now_ns", pins.now_ns)
             monkeypatch.setattr(mod, "uuid", pins.uuid)
+        monkeypatch.setattr(fmt, "uuid", pins.uuid)
     for mod in (ref_eo, port_eo):
         monkeypatch.setattr(mod, "STREAM_BATCH_BYTES", batch)
 

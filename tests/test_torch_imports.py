@@ -66,3 +66,19 @@ def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
         ErasureObjects(disks)
     with pytest.raises(RuntimeError, match="is_available"):
         Erasure(2, 2, 4096)
+
+
+def test_sets_and_server_default_device_raises_without_a_card(tmp_path,
+                                                              monkeypatch):
+    from minio_tpu_torch.objectlayer.sets import ErasureSets
+    from minio_tpu_torch.server_main import build_server
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dirs = [str(tmp_path / f"d{i}") for i in range(8)]
+    for d in dirs:
+        os.makedirs(d)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ErasureSets.from_dirs(dirs, 2, 4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_server([str(tmp_path / f"s{i}") for i in range(18)],
+                     "127.0.0.1:0")
+    assert not (tmp_path / "s0").exists()    # refused before formatting

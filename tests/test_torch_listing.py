@@ -11,6 +11,7 @@ system volume, and refuse to delete a bucket that holds an object of any
 layout.
 """
 
+import os
 import shutil
 
 import numpy as np
@@ -167,3 +168,38 @@ def test_delete_bucket_sees_every_layout(tmp_path, size):
     finally:
         port.close()
         close_write_planes(ref)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_walk_resumes_after_a_marker(tmp_path, seed):
+    """A page's walk from its marker skips the subtrees that sort before
+    it unread, and yields what the whole walk yields from there on."""
+    rng = np.random.default_rng(seed)
+    disk = XLStorage(str(tmp_path))
+    disk.make_vol(BUCKET)
+    names: set[str] = set()
+    while len(names) < 200:
+        parts = ["".join(rng.choice(list("ab-"), int(rng.integers(1, 4))))
+                 for _ in range(int(rng.integers(1, 4)))]
+        name = "/".join(parts)
+        if name in names or any(m.startswith(name + "/") or
+                                name.startswith(m + "/") for m in names):
+            continue
+        names.add(name)
+        (tmp_path / BUCKET / name).mkdir(parents=True, exist_ok=True)
+        (tmp_path / BUCKET / name / "xl.meta").write_bytes(b"")
+    full = list(disk.walk_dir(BUCKET))
+    assert full == sorted(names)
+    for after in full[::7] + ["", "a", "a/", "b-", "zz", "-"]:
+        assert [n for n in disk.walk_dir(BUCKET, "", after) if n >= after] \
+            == [n for n in full if n >= after], after
+    visited = []
+    scandir = os.scandir
+
+    def counting(path):
+        visited.append(path)
+        return scandir(path)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(os, "scandir", counting)
+        list(disk.walk_dir(BUCKET, "", full[-1]))
+    assert len(visited) < len(names) // 4

@@ -20,7 +20,10 @@ staging dir and no pooled buffer checked out on the port.  Multipart uploads and
 clocks and uuid draws pinned to counters (``_torch_versions.pin``), so
 upload ids, version ids and mod times agree.  Port-only tests cover what
 the reference serves and the port does not (``NotImplemented``) and a
-GET that loses quorum after its status line.
+GET that loses quorum after its status line.  Last, both servers over
+two sets of four drives each (``ErasureSets``), pinned so that formats
+and placement agree: the same answers, the same drive bytes (format.json
+included), and ``/minio/health/cluster`` with a set below quorum.
 """
 
 import base64
@@ -224,6 +227,22 @@ def test_health_probes(pair):
         pair.same("HEAD", path, auth="anon", status=200)
     pair.error("POST", "/minio/health/live", "MethodNotAllowed", 405,
                auth="anon")
+
+
+def test_health_cluster(pair):
+    """One set of four local drives: ready for traffic, and not safe to
+    take down for maintenance (412), as the reference answers."""
+    for method in ("GET", "HEAD"):
+        r = pair.same(method, "/minio/health/cluster", auth="anon",
+                      status=200)
+        assert r.header("X-Minio-Write-Quorum") == "3"
+        pair.same(method, "/minio/health/cluster", "maintenance=true",
+                  auth="anon", status=412)
+    pair.same("GET", "/minio/health/cluster", "maintenance=false",
+              auth="anon", status=200)
+    pair.error("PUT", "/minio/health/cluster", "MethodNotAllowed", 405,
+               auth="anon")
+    pair.error("GET", "/minio/health/nope", "NoSuchKey", 404, auth="anon")
 
 
 def test_bucket_lifecycle(pair):
@@ -670,7 +689,7 @@ def _tree(root) -> dict:
     ("PUT", "/locked", "", {"x-amz-bucket-object-lock-enabled": "true"}),
     ("POST", "/", "", {}),
     ("GET", "/minio-tpu/admin/v3/info", "", {}),
-    ("GET", "/minio/health/cluster", "", {}),
+    ("GET", f"/{B}", "notification", {}),
 ])
 def test_unserved_answers_not_implemented(pair, method, path, query,
                                           headers):
@@ -809,3 +828,138 @@ def test_get_that_loses_quorum_mid_body_ends_short(tmp_path):
         srv.stop()
         mp.undo()
         shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+# -- two sets each -----------------------------------------------------------
+
+SET_DRIVES = 4
+
+
+@pytest.fixture(scope="module")
+def sets_pair(tmp_path_factory):
+    """Both servers over two sets of four drives (``ErasureSets.from_dirs``
+    with health proxies), both packages' clocks and uuid draws pinned, so
+    formats, placement, version ids and data dirs agree."""
+    from minio_tpu.objectlayer.sets import ErasureSets as RefSets
+    from minio_tpu_torch.objectlayer.sets import ErasureSets
+    mp = pytest.MonkeyPatch()
+    saved = dict(ref_hotread.CONFIG.__dict__)
+    mp.setenv("MT_CACHE_ENABLE", "off")
+    pin(mp, batch=BATCH)
+    for mod in (ref_ho, port_ho):
+        mp.setattr(mod, "STREAM_PUT_THRESHOLD", THRESHOLD)
+    root = tmp_path_factory.mktemp("s3sets")
+    layers = []
+    for cls, tag, kw in ((RefSets, "ref", {"backend": "numpy"}),
+                         (ErasureSets, "port", {"device": "cpu"})):
+        dirs = [str(root / tag / f"d{i}") for i in range(2 * SET_DRIVES)]
+        for d in dirs:
+            os.makedirs(d)
+        layers.append(cls.from_dirs(dirs, 2, SET_DRIVES, parity=PARITY,
+                                    block_size=BS,
+                                    enforce_min_part_size=False, **kw))
+    ref = RefServer(layers[0], access_key=AK, secret_key=SK)
+    port = S3Server(layers[1], access_key=AK, secret_key=SK)
+    ref.start()
+    port.start()
+    try:
+        yield Pair(ref, port, root / "ref", root / "port")
+    finally:
+        port.stop()
+        ref.stop()
+        mp.undo()
+        ref_hotread.CONFIG.__dict__.update(saved)
+
+
+def test_sets_answer_as_the_reference(sets_pair):
+    p = sets_pair
+    assert p.port.layer.deployment_id == p.ref.layer.deployment_id
+    p.same("PUT", "/sets", status=200)
+    p.same("PUT", "/sets", "versioning", status=200,
+           body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                b"</VersioningConfiguration>")
+    keys = []
+    for name, size in SIZES.items():
+        for i in range(2):
+            key = f"{name}/{i}"
+            keys.append(key)
+            p.same("PUT", f"/sets/{key}", body=_body(size, i), status=200)
+    assert {p.port.layer.get_hashed_set_index(k) for k in keys} == {0, 1}
+    for key in keys:
+        got = p.same("GET", f"/sets/{key}", status=200)
+        assert got.body == _body(SIZES[key.split("/")[0]], int(key[-1]))
+    p.same("DELETE", "/sets/inline/0", status=204)
+    token, pages = "", 0
+    while True:
+        query = "list-type=2&max-keys=3" + \
+            (f"&continuation-token={urllib.parse.quote(token)}"
+             if token else "")
+        doc = ET.fromstring(p.same("GET", "/sets", query, status=200).body)
+        pages += 1
+        if doc.findtext(f"{NS}IsTruncated") != "true":
+            break
+        token = doc.findtext(f"{NS}NextContinuationToken")
+    assert pages >= 4
+    p.same("GET", "/sets", "versions", status=200)
+    r = p.same("POST", "/sets/mp/obj", "uploads", status=200)
+    uid = _upload_id(r)
+    parts = []
+    for n, size in ((1, 70_000), (2, 30_000)):
+        r = p.same("PUT", "/sets/mp/obj", f"partNumber={n}&uploadId={uid}",
+                   body=_body(size, n), status=200)
+        parts.append((n, r.header("ETag").strip('"')))
+    p.same("GET", "/sets", "uploads", status=200)
+    p.same("POST", "/sets/mp/obj", f"uploadId={uid}",
+           body=_complete_doc(parts), status=200)
+    p.same("GET", "/sets/mp/obj", status=200)
+    p.same("GET", "/minio/health/cluster", auth="anon", status=200)
+
+
+def test_sets_drives_match_reference(sets_pair):
+    """After the sequence every drive holds the same bytes, format.json,
+    the bucket metadata on set 0 and the segment store included."""
+    for i in range(2 * SET_DRIVES):
+        got = _sets_tree(f"{sets_pair.port_root}/d{i}")
+        want = _sets_tree(f"{sets_pair.ref_root}/d{i}")
+        assert sorted(got) == sorted(want), f"drive {i} files differ"
+        for path in want:
+            assert got[path] == want[path], f"drive {i}: {path} differs"
+        assert ".mt.sys/format.json" in got
+        assert (".mt.sys/buckets/sets/bucket-meta.json" in got) == \
+            (i < SET_DRIVES)
+
+
+def _sets_tree(root) -> dict:
+    """{path: bytes} of a drive but its staging dir, the reference's
+    listing caches and its config (a KMS key the port has no use for)."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        rel = os.path.relpath(dirpath, root)
+        if rel.startswith((".mt.sys/tmp", ".mt.sys/metacache",
+                           ".mt.sys/buckets/.metacache", ".mt.sys/config")):
+            continue
+        for f in files:
+            with open(os.path.join(dirpath, f), "rb") as fh:
+                out[os.path.join(rel, f)] = fh.read()
+    return out
+
+
+def test_sets_health_below_quorum(sets_pair):
+    """Last: two drives of set 0 gone leave it two of four online, below
+    its write quorum of three: 503, and 412 under maintenance."""
+    p = sets_pair
+    key = next(k for k in (f"{n}/{i}" for n in SIZES for i in range(2))
+               if p.port.layer.get_hashed_set_index(k) == 0
+               and k != "inline/0")
+    for srv, root in ((p.ref, p.ref_root), (p.port, p.port_root)):
+        for d in (1, 2):
+            shutil.rmtree(root / f"d{d}")
+        for d in srv.layer.sets[0].disks[1:3]:
+            with pytest.raises(OSError):
+                d.stat_vol("sets")
+    p.same("GET", f"/sets/{key}", status=200)
+    for method in ("GET", "HEAD"):
+        r = p.same(method, "/minio/health/cluster", auth="anon", status=503)
+        assert r.header("X-Minio-Write-Quorum") == "3"
+        p.same(method, "/minio/health/cluster", "maintenance=true",
+               auth="anon", status=412)
