@@ -102,7 +102,28 @@
    it (the same threads and PUTs per set; one CUDA stream for every set),
    the peak thread count, and the pooled buffers checked out after the
    phase (0).
-10. One JSON line of readings, one describing each kernel, the card line,
+10. The control plane, on phase 9's server before it stops: set
+   ``pipeline depth`` to 0 and back to 2 with the admin client, one
+   16 MiB PUT under each (no writer-plane op at 0, the writer plane at
+   2); two 16 MiB versions of a key in a versioned bucket (the key
+   chosen to land in the set of the foreign drive, which holds one of its
+   data shards), a drive holding another data shard of the key emptied
+   of it, ``POST heal/<bucket>`` through the admin client: both
+   versions' part files back on that drive byte for byte, Kernels A and
+   B launched; both versions read back, each GET rebuilding the foreign
+   drive's shard through Kernel A; the heal sweep, then
+   ``heal-status`` equal to its stats and ``storageinfo`` (31 drives ok,
+   the foreign one offline).  The scrape of ``/minio-tpu/metrics``
+   against the one before the phase: ``mt_s3_requests_api_total`` per
+   API equal to the requests the phase made, ``mt_tpu_ops_total`` per op
+   (4 encodes, the matmuls of the heal and of the GETs, each read from a
+   scrape taken between the two) reconciled with Kernel A's launches
+   (two per 16 MiB encode, one per matmul) and each op's
+   ``mt_tpu_kernel_seconds`` count equal to its op total, the heal
+   counters equal to the sweep's stats, the overlap efficiency and every
+   drive's writer stats present; the scrape's latency over 32 drives.
+   Last, ``service?action=stop`` stops the server.
+11. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -1578,6 +1599,9 @@ def phase_sets(bodies: dict, card: str, gen, single: dict):
               "the foreign drive was admitted or written")
         out_after = bufpool.GLOBAL.checked_out
         lap("foreign")
+        control = phase_control(srv, root, card, gen)
+        check(bufpool.GLOBAL.checked_out == 0, "pooled buffers checked out "
+              "after phase 10")
     finally:
         srv.stop()
         threads = peak.stop()
@@ -1650,7 +1674,246 @@ def phase_sets(bodies: dict, card: str, gen, single: dict):
           "buffers out after")
     print("sets path seconds per step: " + json.dumps(laps))
     print("sets launches per step (kernel, plain): " + json.dumps(steps))
-    return {k: v[0] for k, v in total.items()}, readings
+    return {k: v[0] for k, v in total.items()}, readings, control
+
+
+CTL_BUCKET, CTL_OBJ = "control", 16 << 20      # phase 10
+
+
+def parse_scrape(text: str) -> dict:
+    """{(name, ((label, value), ...)): value} of a Prometheus scrape."""
+    import re
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        head, value = ln.rsplit(" ", 1)
+        name, _, labels = head.partition("{")
+        out[(name, tuple(sorted(re.findall(r'(\w+)="([^"]*)"',
+                                           labels))))] = float(value)
+    return out
+
+
+def by_label(samples: dict, name: str, label: str) -> dict:
+    """{label value: sample} of one family, other labels summed over."""
+    out: dict = {}
+    for (n, labels), v in samples.items():
+        if n == name:
+            key = dict(labels)[label]
+            out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def version_shards(disk, bucket: str, key: str) -> dict:
+    """{version id: sha256 of the drive's part file} for every version of
+    ``key`` on one drive."""
+    return {fi.version_id: hashlib.sha256(disk.read_all(
+        bucket, f"{key}/{fi.data_dir}/part.1")).digest()
+        for fi in disk.list_versions(bucket, key)}
+
+
+def phase_control(srv, root: str, card: str, gen):
+    """Phase 10 on phase 9's running server: the scrape reconciled with
+    the phase's requests, the codec ops and the kernel launches; a live
+    ``pipeline depth`` change; both versions of a key healed onto a drive
+    through the admin route; ``storageinfo``, ``heal-status``; then
+    ``service?action=stop``.  Returns the launches and the readings."""
+    from collections import Counter
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.s3.server import _api_name
+    layer = srv.layer
+    client = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    made: Counter = Counter()
+
+    def s3(method, bucket, key="", query=""):
+        made[_api_name(method, bucket, key,
+                       {query.split("=")[0]: ""} if query else {})] += 1
+
+    readings: dict = {}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    before = parse_scrape(adm.metrics())
+    reset_counts()
+    s0 = snapshot()
+    # a live pipeline change: depth 0 (serial fan-out, no writer plane),
+    # then 2 (the writer plane), one 16 MiB PUT under each
+    bodies = rand_bytes((3, CTL_OBJ), gen).cpu().numpy()
+    put_s, plane_ops = {}, {}
+    for depth in ("0", "2"):
+        adm.set_config_kv("pipeline", "depth", depth)
+        check(adm.get_config_kv("pipeline")["depth"] == depth and all(
+            s._pipe_depth == int(depth) for s in layer.sets),
+            f"pipeline depth {depth} not live")
+        key = f"depth{depth}"
+        er = layer.get_hashed_set(key)
+        ops0 = sum(st["ops"] for st in er._write_plane.stats().values())
+        t0 = time.perf_counter()
+        client.put_object(SETS_BUCKET, key, bodies[int(depth) // 2].tobytes())
+        s3("PUT", SETS_BUCKET, key)
+        put_s[depth] = time.perf_counter() - t0
+        plane_ops[depth] = sum(
+            st["ops"] for st in er._write_plane.stats().values()) - ops0
+        online = sum(not hd.offline for hd in er.disks)
+    # one commit op per online drive of the set through the writer plane
+    # at depth 2, none at 0
+    check(plane_ops == {"0": 0, "2": online},
+          f"writer plane ops per PUT at depth 0, 2: {plane_ops}")
+    s_depth = snapshot()
+
+    def beside_offline(name):
+        dist = hash_order(f"{CTL_BUCKET}/{name}", K + M)
+        return any(hd.offline and dist[i] <= K for i, hd in
+                   enumerate(layer.sets[layer.get_hashed_set_index(name)]
+                             .disks))
+    # the key lands in the set of phase 9's foreign (offline) drive, which
+    # holds one of its data shards, whatever set the deployment id gives
+    # it: its GETs rebuild that shard (Kernel A, counted as matmul ops)
+    key = next(n for n in ("k", *(f"k{i}" for i in range(1, 1000)))
+               if beside_offline(n))
+    # two versions of the key, a drive holding a data shard of the key
+    # emptied of it, then the admin heal route
+    client.make_bucket(CTL_BUCKET)
+    s3("PUT", CTL_BUCKET)
+    client.set_bucket_versioning(CTL_BUCKET, True)
+    s3("PUT", CTL_BUCKET, query="versioning")
+    vids = []
+    for i in (1, 2):
+        r = client.put_object(CTL_BUCKET, key, bodies[i].tobytes())
+        s3("PUT", CTL_BUCKET, key)
+        vids.append(r.headers["x-amz-version-id"])
+    s_put = snapshot()
+    si = layer.get_hashed_set_index(key)
+    er = layer.sets[si]
+    fi, _ = er._read_quorum_fileinfo(CTL_BUCKET, key)
+    d = next(d for d, shard in enumerate(fi.erasure.distribution)
+             if shard <= K and not er.disks[d].offline)
+    disk = er.disks[d]
+    want = version_shards(disk, CTL_BUCKET, key)
+    check(sorted(want) == sorted(vids), "both versions on the drive")
+    shutil.rmtree(f"{root}/d{si * (K + M) + d}/{CTL_BUCKET}/{key}")
+    t0 = time.perf_counter()
+    out = adm.heal(CTL_BUCKET)
+    torch.cuda.synchronize()
+    heal_s = time.perf_counter() - t0
+    s_heal = snapshot()
+    healed = parse_scrape(adm.metrics())
+    check([(o["object"], o["version_id"]) for o in out["objects"]] ==
+          [(key, v) for v in vids[::-1]] and
+          all(o["healed"] == [disk.endpoint()] for o in out["objects"]),
+          f"admin heal answered {out}")
+    check(version_shards(disk, CTL_BUCKET, key) == want,
+          "healed version shards differ from the drive's before")
+    healed_bytes = sum(
+        len(disk.read_all(CTL_BUCKET, f"{key}/{v.data_dir}/part.1"))
+        for v in disk.list_versions(CTL_BUCKET, key))
+    for i, vid in enumerate(vids):
+        check(client.get_object(CTL_BUCKET, key, version_id=vid).body ==
+              bodies[i + 1].tobytes(), f"GET version {i + 1}")
+        s3("GET", CTL_BUCKET, key, "versionId=x")
+    torch.cuda.synchronize()
+    s_get = snapshot()
+    # the sweep, unpaced (a live heal change), then what the admin
+    # routes and the scrape say of it
+    adm.set_config_kv("heal", "max_sleep", "0s")
+    check(srv.healer.pace_s == 0.0, "heal max_sleep not live")
+    t0 = time.perf_counter()
+    srv.healer.sweep()
+    sweep_s = time.perf_counter() - t0
+    status = adm.heal_status()
+    check(status["sweep"] == srv.healer.stats.to_dict(),
+          f"heal-status {status} against {srv.healer.stats}")
+    info = adm.storage_info()["disks"]
+    check(len(info) == 2 * (K + M) and sum(e["state"] == "ok" for e in info)
+          == 2 * (K + M) - 1, "storageinfo: 31 drives ok, the foreign one "
+          "offline")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = adm.metrics()
+    scrape_ms = (time.perf_counter() - t0) * 1e3
+    after = parse_scrape(text)
+    s1 = snapshot()
+
+    def gained(name, label, now=after, then=before):
+        a, b = by_label(now, name, label), by_label(then, name, label)
+        return {k: v - b.get(k, 0.0) for k, v in a.items()
+                if v != b.get(k, 0.0)}
+    apis = gained("mt_s3_requests_api_total", "api")
+    check(apis == dict(made), f"per-API requests {apis} against {made}")
+    ops = gained("mt_tpu_ops_total", "op")
+    heal_ops = gained("mt_tpu_ops_total", "op", healed, before)
+    get_ops = gained("mt_tpu_ops_total", "op", after, healed)
+    launches = delta(s0, s1)
+    a, b = launches["gf8_apply"][0], launches["hh256"][0]
+    # a 16 MiB PUT: one encode, Kernel A for the full block and the short
+    # one, Kernel B for their frames; the heal, and the GETs that rebuild
+    # the offline drive's data shard: one matmul per Kernel A launch (full
+    # and short stripe), Kernel B to verify and frame
+    check(set(ops) == {"encode", "matmul"} and ops["encode"] == 4,
+          f"codec ops {ops}")
+    check(a == 2 * ops["encode"] + ops["matmul"],
+          f"Kernel A launched {a} times for codec ops {ops}")
+    put_a = delta(s0, s_put)
+    check(put_a["gf8_apply"][0] == put_a["hh256"][0] == 2 * 4,
+          f"PUT launches {put_a}")
+    heal_l = delta(s_put, s_heal)
+    check(set(heal_ops) == {"encode", "matmul"} and
+          heal_l["gf8_apply"][0] == heal_ops["matmul"] > 0 and
+          heal_l["hh256"][0] > 0,
+          f"admin heal launches {heal_l} for codec ops {heal_ops}")
+    get_l = delta(s_heal, s_get)
+    check(set(get_ops) == {"matmul"} and
+          get_l["gf8_apply"][0] == get_ops["matmul"] > 0 and
+          delta(s_get, s1)["gf8_apply"][0] == 0,
+          f"degraded GET launches {get_l} for codec ops {get_ops}")
+    for (name, labels), v in after.items():
+        if name == "mt_tpu_kernel_seconds_count":
+            check(after[("mt_tpu_ops_total", labels)] == v,
+                  f"kernel seconds count {v} for {labels}")
+    st = srv.healer.stats
+    for fam, field in (("mt_heal_objects_scanned_total", st.objects_scanned),
+                       ("mt_heal_objects_healed_total", st.objects_healed),
+                       ("mt_heal_objects_failed_total", st.objects_failed),
+                       ("mt_heal_cycles_total", st.cycles)):
+        check(after[(fam, ())] == field, f"{fam} {after[(fam, ())]} "
+              f"against the sweep's {field}")
+    effs = by_label(after, "mt_put_pipeline_overlap_efficiency", "set")
+    check(effs and all(0 < e <= 1 for e in effs.values()),
+          f"overlap efficiency {effs}")
+    writes = by_label(after, "mt_put_pipeline_writes_total", "drive")
+    check(len(writes) == 2 * (K + M) and min(writes.values()) > 0,
+          "writer stats of every drive")
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"control plane: {kernel} plain version ran")
+    # stop through the admin route: serve_forever ends
+    adm.service_stop()
+    check(srv.shutdown.wait(60), "service?action=stop did not stop")
+    readings.update(
+        scrape_ms=scrape_ms, scrape_bytes=len(text), put_depth0_s=put_s["0"],
+        put_depth2_s=put_s["2"], writer_ops_depth0=plane_ops["0"],
+        writer_ops_depth2=plane_ops["2"], overlap_efficiency=effs,
+        admin_heal_s=heal_s, admin_heal_bytes=healed_bytes,
+        admin_heal_gib_s=healed_bytes / heal_s / 2**30,
+        sweep_s=sweep_s, sweep_versions=srv.healer.stats.objects_scanned,
+        codec_ops=ops, heal_codec_ops=heal_ops, get_codec_ops=get_ops,
+        key=key, key_set=si, requests=dict(made),
+        phase_s=time.perf_counter() - t_phase,
+        launches={"depth_puts": {k: v[0] for k, v in
+                                 delta(s0, s_depth).items()},
+                  "version_puts": {k: v[0] for k, v in
+                                   delta(s_depth, s_put).items()},
+                  "admin_heal": {k: v[0] for k, v in heal_l.items()},
+                  "degraded_gets": {k: v[0] for k, v in get_l.items()}})
+    print(f"control plane on {card}: scrape {scrape_ms:.2f} ms over "
+          f"{2 * (K + M)} drives ({len(text)} B); 16 MiB PUT at pipeline "
+          f"depth 0 {put_s['0']:.3f} s, depth 2 {put_s['2']:.3f} s; admin "
+          f"heal of 2 versions {heal_s:.3f} s, {healed_bytes} B "
+          f"({readings['admin_heal_gib_s']:.3f} GiB/s); sweep of "
+          f"{st.objects_scanned} versions {sweep_s:.3f} s; codec ops {ops}, "
+          f"Kernel A {a}, Kernel B {b} launches")
+    return {k: v[0] for k, v in launches.items()}, readings
 
 
 def sm_clock_mhz() -> float:
@@ -1687,18 +1950,21 @@ def main() -> int:
     mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
     s3_path, s3_readings = phase_s3(bodies, card, path_readings)
     mp_path, mp_readings = phase_multipart(card, gen)
-    sets_path, sets_readings = phase_sets(bodies, card, gen, s3_readings)
+    sets_path, sets_readings, (ctl_path, ctl_readings) = phase_sets(
+        bodies, card, gen, s3_readings)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
                    "multipart_path": mp_path[k["name"]],
-                   "sets_path": sets_path[k["name"]]}
+                   "sets_path": sets_path[k["name"]],
+                   "control_path": ctl_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
                       "mesh_path": mesh_readings, "s3_path": s3_readings,
                       "multipart_path": mp_readings,
-                      "sets_path": sets_readings}))
+                      "sets_path": sets_readings,
+                      "control_path": ctl_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -39,8 +39,14 @@ writes on a per-drive writer plane.
     metacache), then ``metacache.paginate``.
 
 The ETag is the body's MD5 (the reference's strict-compat mode).  No
-caches and no MRF queue.  Several sets on one card form a namespace in
-``sets.py``; each launches on the card's default stream.  The drives hold the same bytes as after the
+caches and no MRF queue.  The pipeline's knobs (the ``pipeline`` kvconfig
+subsystem: batches in flight per stream, per-drive queue depth) are read
+at construction from the environment and reloaded live by
+``reload_pipeline_config``; depth 0 takes the serial fan-out.
+``pipe_stats`` holds the last streaming PUT's stage seconds and overlap
+efficiency (the ``mt_put_pipeline_*`` scrape reads it).  Several sets on
+one card form a namespace in ``sets.py``; each launches on the card's
+default stream.  The drives hold the same bytes as after the
 same calls to ``minio_tpu``'s default layer with the same geometry and
 block size (xl.meta, part files, segment files and journal).  On a host
 with one core the drive fan-out runs in line and nothing is pipelined or
@@ -64,7 +70,7 @@ import numpy as np
 import torch
 
 from ..hashing import bitrot
-from ..ops import gf8, rs_kernels, rs_mesh
+from ..ops import gf8, rs_kernels
 from ..ops.codec import Erasure
 from ..parallel.dsync import NamespaceLock
 from ..parallel.mesh import Mesh
@@ -72,9 +78,11 @@ from ..storage import commit as _commit
 from ..storage import errors as serrors
 from ..storage.datatypes import (ChecksumInfo, ErasureInfo, FileInfo,
                                  ObjectPartInfo, now_ns)
+from ..ops import codec as codec_mod
 from ..storage.writers import QUEUE_DEPTH, WriterPlane, held_release
 from ..storage.xl_storage import SYS_DIR
 from ..utils import bufpool
+from ..utils.kvconfig import Config
 from ..utils.readahead import readahead
 from . import metadata as meta
 from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
@@ -91,7 +99,6 @@ DEFAULT_BLOCK_SIZE = 10 * 1024 * 1024
 INLINE_THRESHOLD = 128 * 1024           # small objects live in xl.meta
 STREAM_BATCH_BYTES = 64 * 1024 * 1024   # bytes of body encoded per batch
 ETAG_KEY = "etag"
-PIPE_DEPTH = 2                          # stream batches in flight
 OVERLAP_MD5_BYTES = 1 << 20             # hash beside encode from here on
 ABORT_DRAIN_S = 5.0                     # a failed commit's wait on its ops
 # one core: the drive fan-out runs in line, without pipeline or packing
@@ -156,9 +163,11 @@ class ErasureObjects(MultipartOps):
         # request concurrency x drive fan-out, and the MD5 links
         self._pool = ThreadPoolExecutor(max_workers=min(4 * max(4, n), 64))
         self._serial = SERIAL_FANOUT
-        self._write_plane = WriterPlane()
-        # the last streaming PUT's stage times, and the last parts'
-        # (chip_smoke.py reads them)
+        self.reload_pipeline_config(Config())
+        self._write_plane = WriterPlane(
+            queue_depth=lambda: self._pipe_queue_depth)
+        # the last streaming PUT's stage times and overlap (the scrape
+        # and chip_smoke.py read them), and the last parts'
         self.pipe_stats: dict = {}
         self.part_stats: collections.deque = collections.deque(maxlen=64)
         # seconds each device-to-host copy of a framed batch waited on its
@@ -174,8 +183,24 @@ class ErasureObjects(MultipartOps):
             if d is not None:
                 d.close()
 
+    def reload_pipeline_config(self, config) -> None:
+        """Take the ``pipeline`` knobs from a kvconfig ``Config``: batches
+        in flight per stream (``depth``; 0, and always on one core, the
+        serial fan-out: no writer plane, no packing) and ops queued per
+        drive writer (``queue_depth``)."""
+        try:
+            depth = int(config.get("pipeline", "depth"))
+        except (KeyError, ValueError):
+            depth = 2
+        try:
+            qd = int(config.get("pipeline", "queue_depth"))
+        except (KeyError, ValueError):
+            qd = QUEUE_DEPTH
+        self._pipe_depth = 0 if self._serial else max(0, depth)
+        self._pipe_queue_depth = max(1, qd)
+
     def _pipeline_on(self) -> bool:
-        return not self._serial
+        return self._pipe_depth > 0
 
     # -- drive fan-out -----------------------------------------------------
 
@@ -215,7 +240,8 @@ class ErasureObjects(MultipartOps):
                                     for i, d in enumerate(shuffled)])
             return errs
         sw = self._write_plane.stream(shuffled)
-        bound = max(QUEUE_DEPTH, _commit.MAX_BATCH)
+        bound = max(self._write_plane.queue_bound(),
+                    _commit.CONFIG.max_batch)
         try:
             for i in range(len(shuffled)):
                 buf.hold()
@@ -372,9 +398,7 @@ class ErasureObjects(MultipartOps):
         (k + m, framed_len) on-disk bytes on the device."""
         codec = self.codec
         if codec.mesh is not None:
-            return rs_mesh.encode_object_framed_fused(
-                codec.data_blocks, codec.parity_blocks, codec.block_size,
-                chunk, mesh=codec.mesh)
+            return codec.encode_object_framed(chunk)
         return bitrot.frame_batch(codec.encode_object(chunk),
                                   codec.shard_size())
 
@@ -391,6 +415,7 @@ class ErasureObjects(MultipartOps):
             t0 = time.perf_counter()
             done.synchronize()
             self.d2h_waits.append(time.perf_counter() - t0)
+            codec_mod.settle_observations()
         return buf.numpy(), lambda: bufpool.GLOBAL.release(buf)
 
     def _encode_framed_pooled(self, chunk):
@@ -506,11 +531,11 @@ class ErasureObjects(MultipartOps):
     def _commit_put(self, fi: FileInfo, framed: np.ndarray, inline: bool,
                     shuffled: list, buf) -> None:
         """Inline into xl.meta, packed into each drive's segment (past
-        the inline threshold and up to ``commit.PACK_THRESHOLD``, on the
+        the inline threshold and up to ``commit.CONFIG.pack_threshold``, on the
         writer plane only, where group commits amortise the journal), or
         one part file per drive."""
         packed = (not inline and self._pipeline_on()
-                  and 0 < fi.size <= _commit.PACK_THRESHOLD)
+                  and 0 < fi.size <= _commit.CONFIG.pack_threshold)
         if packed:
             fi.data_dir = ""            # the segment extent replaces it
         vdict = None if inline else fi.to_dict()
@@ -606,7 +631,7 @@ class ErasureObjects(MultipartOps):
     def _pump_put_pipeline(self, chunks, sw, md5, stats, write_batch_for,
                            wq: int) -> tuple[int, int]:
         """Chained MD5 on the pool, encode into a pooled buffer, the
-        drives' writer queues: at most ``PIPE_DEPTH`` batches in flight,
+        drives' writer queues: at most ``_pipe_depth`` batches in flight,
         quorum re-checked as completions drain.  Returns (bytes,
         batches).  ``stats["body_wait_s"]``: time spent waiting for the
         next batch of the body (a reader's socket and digests)."""
@@ -625,14 +650,14 @@ class ErasureObjects(MultipartOps):
             links.append(self._pool.submit(
                 self._md5_link, links[-1] if links else None, md5, chunk,
                 stats))
-            while len(links) > PIPE_DEPTH:
+            while len(links) > self._pipe_depth:
                 links.popleft().result()
             t0 = time.perf_counter()
             framed, release = self._encode_framed_pooled(chunk)
             stats["encode_s"] += time.perf_counter() - t0
             inflight.append(sw.submit_batch(write_batch_for(framed),
                                             release=release))
-            while len(inflight) > PIPE_DEPTH:
+            while len(inflight) > self._pipe_depth:
                 inflight.popleft().done.wait()
             alive = sw.alive()
             if alive < wq:
@@ -660,7 +685,7 @@ class ErasureObjects(MultipartOps):
         t_wall = time.perf_counter()
         try:
             # the batch in hand plus depth - 1 read ahead
-            src = readahead(chunks, depth=PIPE_DEPTH - 1) \
+            src = readahead(chunks, depth=max(1, self._pipe_depth - 1)) \
                 if readahead_body else chunks
 
             def write_batch_for(framed):
@@ -692,8 +717,14 @@ class ErasureObjects(MultipartOps):
             sw.submit_batch(commit_one)
             sw.drain()
             self._reduce_write(list(sw.errs), fi)
-            self.pipe_stats = {"wall_s": time.perf_counter() - t_wall,
-                               "batches": batches, "bytes": total, **stats}
+            wall = time.perf_counter() - t_wall
+            write_s = sw.max_busy_s()
+            # the slowest stage over the wall: 1.0 when the pipeline hid
+            # every other stage behind it
+            crit = max(stats["md5_s"], stats["encode_s"], write_s)
+            self.pipe_stats = {"wall_s": wall, "batches": batches,
+                               "bytes": total, "write_s": write_s,
+                               "overlap_efficiency": crit / wall, **stats}
         finally:
             if src is not None and readahead_body:
                 src.close()
@@ -815,14 +846,15 @@ class ErasureObjects(MultipartOps):
     def get_object_reader(self, bucket: str, object_name: str,
                           offset: int = 0, length: int = -1,
                           opts: Optional[ObjectOptions] = None,
-                          readahead_depth: int = PIPE_DEPTH - 1):
+                          readahead_depth: int | None = None):
         """(info, chunk iterator) of the bytes [offset, offset + length)
         of the latest version or of ``opts.version_id``, under HTTP range
         rules (negative offset = suffix, length < 0 = to the end,
         overlong ranges clamp, a start past the end is InvalidRange); a
         delete marker is MethodNotAllowed.  The body streams one batch of
         blocks at a time, part by part, ``readahead_depth`` batches read
-        and decoded ahead in a thread, and is never joined.  The object's
+        and decoded ahead in a thread (None: one less than the pipeline
+        depth, at least one), and is never joined.  The object's
         read lock is held until the iterator ends, fails or is closed or
         dropped, advanced or not."""
         opts = opts or ObjectOptions()
@@ -851,6 +883,8 @@ class ErasureObjects(MultipartOps):
             lk.unlock()
             return info, iter(())
         chunks = _LockedStream(lk, self._read_range(fi, fis, offset, length))
+        if readahead_depth is None:
+            readahead_depth = max(1, self._pipe_depth - 1)
         if readahead_depth > 0:
             return info, readahead(chunks, depth=readahead_depth)
         return info, chunks

@@ -18,6 +18,7 @@ import email.utils
 import hashlib
 import xml.etree.ElementTree as ET
 
+from ..admin import metrics as _metrics
 from ..objectlayer import interface as ol
 from ..objectlayer.interface import ObjectOptions, PutObjectOptions
 from . import errors as s3err
@@ -251,6 +252,8 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
             raise S3Error("EntityTooLarge")
         want_md5 = self._content_md5()
         reader = self._auth_stream(path, query, cl)
+        self._rx_bytes = cl
+        _metrics.GLOBAL.inc("mt_s3_rx_bytes_total", value=cl)
         self._allow()
         # the layer checks Content-MD5 against the MD5 it takes for the
         # ETag, before it commits: one pass over the body, not two

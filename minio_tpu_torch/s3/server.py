@@ -6,16 +6,27 @@ Path-style S3 on a threading HTTP server, one thread per connection.
 A handler authenticates (SigV4: header-signed, presigned or aws-chunked),
 authorizes, maps the route to one call of the object layer and renders
 S3 XML; the erasure coding and bitrot hashing of the body run on the
-layer's device.  One root credential and no subsystems: the root key may
-do everything, an unknown key gets InvalidAccessKeyId and an anonymous
-request AccessDenied.  Multipart uploads and versioned buckets are
-served (a bucket's versioning state in ``bucket_meta``).  What the port
-does not serve (bucket configs, tagging, object lock, copy, select,
-SigV2, STS, admin, the web UI, SSE) answers the S3 ``NotImplemented``
-error document.  The health probes are served: ``/minio/health/live``
-and ``ready`` while the process serves, ``/minio/health/cluster`` from the
-layer's write quorum.  Background loops attached to the server (the heal
-sweep) start and stop with it.
+layer's device.  One root credential: the root key may do everything,
+an unknown key gets InvalidAccessKeyId and an anonymous request
+AccessDenied.  Multipart uploads and versioned buckets are served (a
+bucket's versioning state in ``bucket_meta``).  What the port does not
+serve (bucket configs, tagging, object lock, copy, select, SigV2, STS,
+the web UI, SSE, the admin routes of ``admin/handlers.py`` it lacks)
+answers the S3 ``NotImplemented`` error document.  The health probes are
+served: ``/minio/health/live`` and ``ready`` while the process serves,
+``/minio/health/cluster`` from the layer's write quorum.
+
+The control plane: ``/minio-tpu/metrics`` (Prometheus, GET only, no
+auth) and the admin API under ``/minio-tpu/admin/v1/`` (root only),
+both in ``admin/handlers.py``; ``config`` is the live kvconfig, whose
+``pipeline``, ``commit`` and ``heal`` changes the ``reload_*`` hooks push
+into the layer, the commit plane and the heal sweep.  Every response
+counts into ``mt_s3_requests_total`` and ``mt_s3_tx_bytes_total``, every
+request body into ``mt_s3_rx_bytes_total``; S3 API requests (not the
+``/minio-tpu/`` and ``/minio/`` paths) also count per API name into
+``mt_s3_requests_api_total``, ``mt_s3_requests_errors_total``,
+``mt_s3_ttfb_seconds`` and the last-minute ``api_stats`` windows.  The
+heal sweep (``healer``) starts and stops with the server.
 """
 
 from __future__ import annotations
@@ -26,14 +37,20 @@ import hashlib
 import re
 import socket
 import threading
+import time
 import urllib.parse
 import uuid
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..admin import handlers as admin_handlers
+from ..admin import metrics as _metrics
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
+from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
+from ..storage import commit as _commit
+from ..utils.kvconfig import Config, parse_duration
 from . import errors as s3err
 from . import sigv4
 
@@ -143,30 +160,78 @@ class S3Server:
     def __init__(self, layer, access_key: str = "minioadmin",
                  secret_key: str = "minioadmin", region: str = "us-east-1",
                  host: str = "127.0.0.1", port: int = 0,
-                 max_body_size: int = 1024 ** 3):
+                 max_body_size: int = 1024 ** 3,
+                 config: Config | None = None):
+        """``config``: the live kvconfig (a fresh one by default); its
+        values reach the layer, the commit plane and the heal sweep
+        through the ``reload_*`` hooks."""
         self.layer = layer
+        self.config = config if config is not None else Config()
         self.bucket_meta = BucketMetadataSys(layer)
         self.access_key = access_key
         self._secret_key = secret_key
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
+        self._serving = False
         self._conns: set = set()
         self._conns_mu = threading.Lock()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        # the last-minute per-API windows (cmd/last-minute.go)
+        self.api_stats = OpWindows(f"{host}:{self.port}")
+        # set once the server has stopped (admin service?action=stop)
+        self.shutdown = threading.Event()
         # the background heal sweep (initBackgroundHealing,
         # cmd/server-main.go): its life follows the server's
         self.healer = None
+        self._deep_every_before_bitrot: int | None = None
+
+    # -- live config (reference s3/server.py:514, :553, :664) -------------
+
+    def reload_pipeline_config(self) -> None:
+        """Push the ``pipeline`` knobs into every erasure set."""
+        for s in getattr(self.layer, "sets", [self.layer]):
+            s.reload_pipeline_config(self.config)
+
+    def reload_commit_config(self) -> None:
+        """Push the ``commit`` knobs into the process's commit plane."""
+        _commit.CONFIG.load(self.config)
+
+    def reload_background_config(self) -> None:
+        """Push the ``heal`` knobs into the heal sweep: ``max_sleep`` is
+        its pace; ``bitrotscan=on`` makes every sweep deep, and ``off``
+        gives back the sweep's own cadence."""
+        healer = self.healer
+        if healer is None:
+            return
+        try:
+            bitrot = self.config.get("heal", "bitrotscan") == "on"
+            pace = parse_duration(self.config.get("heal", "max_sleep")
+                                  or "1s", 1.0)
+        except KeyError:
+            return
+        healer.pace_s = pace
+        if bitrot and self._deep_every_before_bitrot is None:
+            self._deep_every_before_bitrot = healer.deep_every
+            healer.deep_every = 1
+        elif not bitrot and self._deep_every_before_bitrot is not None:
+            healer.deep_every = self._deep_every_before_bitrot
+            self._deep_every_before_bitrot = None
 
     def lookup_secret(self, access_key: str) -> str | None:
         return self._secret_key if access_key == self.access_key else None
 
+    def serve_forever(self) -> None:
+        """Serve on this thread until ``stop()``."""
+        self._serving = True
+        self.httpd.serve_forever()
+
     def start(self) -> None:
         """Serve on a thread, and start the heal sweep."""
-        self._thread = threading.Thread(target=self.httpd.serve_forever,
+        self._thread = threading.Thread(target=self.serve_forever,
                                         daemon=True, name="mt-s3-server")
         self._thread.start()
         if self.healer is not None:
@@ -175,12 +240,17 @@ class S3Server:
     def stop(self) -> None:
         """Stop the heal sweep and listening, cut the open connections,
         and close the layer (its drive monitor stops, its writer threads
-        join; cmd/server-main.go's shutdown)."""
-        self._stopping = True
+        join; cmd/server-main.go's shutdown).  A second call returns at
+        once; ``shutdown`` is set when the server has stopped."""
+        with self._conns_mu:
+            if self._stopping:
+                return
+            self._stopping = True
         if self.healer is not None:
             self.healer.stop()
+        if self._serving:
+            self.httpd.shutdown()       # ends serve_forever, on any thread
         if self._thread is not None:
-            self.httpd.shutdown()
             self._thread.join()
         self.httpd.server_close()
         with self._conns_mu:
@@ -191,10 +261,54 @@ class S3Server:
             except OSError:
                 pass                    # already gone
         self.layer.close()
+        self.shutdown.set()
 
     @property
     def endpoint(self) -> str:
         return f"http://127.0.0.1:{self.port}"
+
+
+def _api_name(method: str, bucket: str, key: str, q1: dict) -> str:
+    """The S3 API name of a request, as the reference names it for its
+    metrics (its route names, cmd/api-router.go)."""
+    if bucket == "minio-tpu" or not bucket:
+        if method == "POST" and not bucket:
+            return "STS"
+        return "AdminAPI" if bucket else "ListBuckets"
+    sub = {"uploads": "MultipartUpload", "uploadId": "MultipartUpload",
+           "tagging": "Tagging", "retention": "Retention",
+           "legal-hold": "LegalHold", "select": "SelectObjectContent",
+           "versioning": "Versioning", "policy": "BucketPolicy",
+           "lifecycle": "BucketLifecycle", "encryption": "BucketEncryption",
+           "replication": "BucketReplication", "notification":
+           "BucketNotification", "object-lock": "ObjectLockConfig",
+           "versions": "ListObjectVersions", "delete": "DeleteObjects"}
+    feature = next((v for k, v in sub.items() if k in q1), "")
+    if key:
+        base = {"GET": "GetObject", "HEAD": "HeadObject",
+                "PUT": "PutObject", "DELETE": "DeleteObject",
+                "POST": "PostObject"}.get(method, method)
+        if feature and feature != "MultipartUpload":
+            return {"GET": "Get", "PUT": "Put",
+                    "DELETE": "Delete"}.get(method, "") + feature \
+                if feature in ("Tagging", "Retention", "LegalHold") \
+                else feature
+        if feature == "MultipartUpload":
+            return {"POST": "CompleteMultipartUpload"
+                    if "uploadId" in q1 else "CreateMultipartUpload",
+                    "PUT": "UploadPart", "GET": "ListParts",
+                    "DELETE": "AbortMultipartUpload"}.get(method, base)
+        return base
+    base = {"GET": "ListObjectsV2" if q1.get("list-type") == "2"
+            else "ListObjectsV1",
+            "HEAD": "HeadBucket", "PUT": "MakeBucket",
+            "DELETE": "DeleteBucket", "POST": "PostPolicyBucket"}
+    if feature:
+        return ({"GET": "Get", "PUT": "Put", "DELETE": "Delete"}
+                .get(method, "") + feature) \
+            if feature.startswith("Bucket") or feature == "Versioning" \
+            else feature
+    return base.get(method, method)
 
 
 def _make_handler(srv: S3Server):
@@ -284,8 +398,21 @@ def _make_handler(srv: S3Server):
             if not self.access_key:
                 raise S3Error("AccessDenied")
 
-        def _send_prologue(self, status: int, entity_len: int,
-                           content_type: str, headers: dict | None):
+        def _send_prologue(self, status: int, sent_bytes: int,
+                           entity_len: int, content_type: str,
+                           headers: dict | None):
+            """The status line and headers; counts the response
+            (``sent_bytes``: its body's length, counted as the reference
+            counts it, a HEAD's unsent body too) and takes the time to
+            its first byte."""
+            m = _metrics.GLOBAL
+            m.inc("mt_s3_requests_total",
+                  {"method": self.command, "status": str(status)})
+            m.inc("mt_s3_tx_bytes_total", value=sent_bytes)
+            self._resp_status = status
+            self._resp_bytes += sent_bytes
+            if not self._ttfb_ns:
+                self._ttfb_ns = time.monotonic_ns() - self._t0_ns
             self.send_response(status)
             self.send_header("x-amz-request-id", self._req_id)
             self.send_header("Server", "MinioTPU")
@@ -302,7 +429,7 @@ def _make_handler(srv: S3Server):
             """``content_length``: the entity's length for a HEAD, whose
             body is not sent."""
             self._send_prologue(
-                status, len(body) if content_length is None
+                status, len(body), len(body) if content_length is None
                 else content_length, content_type, headers)
             if body and self.command != "HEAD":
                 self.wfile.write(body)
@@ -319,7 +446,8 @@ def _make_handler(srv: S3Server):
             first = b""
             if self.command != "HEAD" and total:
                 first = next(it, b"")
-            self._send_prologue(status, total, content_type, headers)
+            self._send_prologue(status, total, total, content_type,
+                                headers)
             try:
                 if first:
                     self.wfile.write(first)
@@ -359,13 +487,41 @@ def _make_handler(srv: S3Server):
         def _dispatch(self):
             self._req_id = uuid.uuid4().hex[:16]
             self.access_key = ""
+            self._t0_ns = time.monotonic_ns()
+            self._ttfb_ns = 0
+            self._resp_status = 0
+            self._resp_bytes = 0
+            self._rx_bytes = 0
             try:
                 self._dispatch_inner()
             except (ConnectionError, TimeoutError):
                 # the client died mid-body or mid-response
                 self.close_connection = True
+            finally:
+                self._record_request()
             if srv._stopping:
                 self.close_connection = True
+
+        def _record_request(self):
+            """The per-API families and windows, for S3 APIs only: the
+            health probes, the admin API and the scrape (the
+            ``/minio-tpu/`` and ``/minio/`` paths) do not count
+            (reference s3/server.py:1497-1530)."""
+            path, bucket, key, query = self._split()
+            if path.startswith(("/minio-tpu/", "/minio/")):
+                return
+            dur_ns = time.monotonic_ns() - self._t0_ns
+            api = _api_name(self.command, bucket, key,
+                            {k: v[0] for k, v in query.items()})
+            m = _metrics.GLOBAL
+            m.inc("mt_s3_requests_api_total", {"api": api})
+            if self._resp_status >= 400:
+                m.inc("mt_s3_requests_errors_total",
+                      {"api": api, "status": str(self._resp_status)})
+            m.observe("mt_s3_ttfb_seconds", {"api": api},
+                      (self._ttfb_ns or dur_ns) / 1e9)
+            srv.api_stats.record(api, dur_ns,
+                                 self._rx_bytes + self._resp_bytes)
 
         def _dispatch_inner(self):
             path, bucket, key, query = self._split()
@@ -375,13 +531,27 @@ def _make_handler(srv: S3Server):
                     # unauthenticated probes (cmd/healthcheck-router.go)
                     self._body()
                     return self._health_api(path, query)
-                if path.startswith("/minio-tpu/") or \
-                        any(h in self.headers for h in SSE_HEADERS):
-                    # admin, metrics, web UI; server-side encryption
-                    raise S3Error("NotImplemented")
+                if path == admin_handlers.METRICS_PATH:
+                    # the public scrape, GET only
+                    self._body()
+                    if self.command != "GET":
+                        raise S3Error("MethodNotAllowed")
+                    return admin_handlers.handle(self, srv, path, query,
+                                                 b"")
+                if any(h in self.headers for h in SSE_HEADERS):
+                    raise S3Error("NotImplemented")   # server-side encryption
                 if self._try_stream_put(path, bucket, key, query):
                     return
-                payload = self._auth(path, query, self._body())
+                payload = self._body()
+                self._rx_bytes = len(payload)
+                _metrics.GLOBAL.inc("mt_s3_rx_bytes_total",
+                                    value=len(payload))
+                payload = self._auth(path, query, payload)
+                if path.startswith("/minio-tpu/"):
+                    if admin_handlers.handle(self, srv, path, query,
+                                             payload):
+                        return
+                    raise S3Error("NotImplemented")       # the web UI
                 if bucket in RESERVED_BUCKETS:
                     # isMinioReservedBucket (cmd/generic-handlers.go)
                     raise S3Error("AccessDenied")

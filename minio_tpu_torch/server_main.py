@@ -5,9 +5,11 @@ cmd/server-main.go:389 serverMain).
 the N drives as the reference lays them out: sets of the largest size in
 4..16 that divides N (or ``--set-drive-count``), every drive's
 format.json loaded or written, each drive behind a health proxy, a drive
-monitor that reconnects returning drives and heals their set, and the
-background heal sweep.  Erasure coding and bitrot hashing run on the
-card (``--device cuda``, the default, which raises without one) or, when
+monitor that reconnects returning drives and heals their set, the
+background heal sweep, and the control plane: the live kvconfig
+(``MT_<SUBSYS>_<KEY>`` environment overrides), the admin API and the
+Prometheus scrape.  Erasure coding and bitrot hashing run on the card
+(``--device cuda``, the default, which raises without one) or, when
 asked, on the CPU through the kernels' plain versions (``--device
 cpu``).  The reference's crawler, IAM, gateway and node subcommands are
 not served.
@@ -24,6 +26,7 @@ from .device import resolve
 from .objectlayer.erasure_object import DEFAULT_BLOCK_SIZE
 from .objectlayer.sets import ErasureSets
 from .s3.server import S3Server
+from .utils.kvconfig import Config
 
 # set sizing (cmd/endpoint-ellipses.go:44 setSizes{4..16})
 SET_SIZES = list(range(16, 3, -1))
@@ -55,8 +58,9 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
                  set_drive_count: int | None = None) -> S3Server:
     """``ErasureSets`` over ``dirs`` (parity by set size) with its drive
     monitor running, behind an S3Server bound to ``address`` with the
-    heal sweep attached (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``);
-    not started."""
+    heal sweep attached (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``)
+    and the kvconfig's pipeline, commit and heal knobs applied; not
+    started."""
     access_key = access_key or os.environ.get("MT_ROOT_USER", "minioadmin")
     secret_key = secret_key or os.environ.get("MT_ROOT_PASSWORD",
                                               "minioadmin")
@@ -74,13 +78,16 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
         host, _, port = address.rpartition(":")
         srv = S3Server(layer, access_key=access_key, secret_key=secret_key,
                        region=region, host=host or "0.0.0.0",
-                       port=int(port))
+                       port=int(port), config=Config())
     except BaseException:
         layer.close()
         raise
     srv.healer = BackgroundHealer(
         layer, interval_s=float(os.environ.get("MT_HEAL_INTERVAL_S", "3600")),
         deep_every=int(os.environ.get("MT_HEAL_DEEP_EVERY", "8")))
+    srv.reload_pipeline_config()
+    srv.reload_commit_config()
+    srv.reload_background_config()
     return srv
 
 
@@ -123,7 +130,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{args.address.rpartition(':')[0] or '0.0.0.0'}:{srv.port}",
               flush=True)
         srv.healer.start()
-        srv.httpd.serve_forever()
+        srv.serve_forever()         # until ^C or admin service?action=stop
     except KeyboardInterrupt:
         pass
     finally:

@@ -1,6 +1,6 @@
 """Per-drive group commit and packed small-object segments
-(``minio_tpu/storage/commit.py``), without its kvconfig, metrics and lock
-tracing.
+(``minio_tpu/storage/commit.py``), without its eager path, linger and
+lock tracing.
 
 Two pieces:
 
@@ -23,28 +23,58 @@ Two pieces:
     of msgpack ``add``/``free``/``seal``/``drop`` records; recovery is an
     idempotent replay that truncates a torn tail record.
 
-The reference's defaults are this module's constants: group commit on,
-16 ops per group, no extra wait for batch-mates, objects up to 1 MiB
-packed, segments rotated at 64 MiB.
+Group commit is always on, with no extra wait for batch-mates.  Its
+knobs are the live ``CONFIG`` (the ``commit`` kvconfig subsystem, pushed
+by ``S3Server.reload_commit_config``): 16 ops per group, objects up to
+1 MiB packed, segments rotated at 64 MiB by default.  The group flush
+feeds the ``mt_drive_op_seconds{op="fsync"}`` histogram.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 
+from ..admin import metrics as _metrics
 from . import errors
 from .msgpack_codec import packb, unpack_stream
 
-MAX_BATCH = 16                       # ops coalesced per group commit
-PACK_THRESHOLD = 1 << 20             # objects packed up to this size
-SEGMENT_MAX_BYTES = 64 << 20         # segment rotation point
 COMPACT_DEAD_RATIO = 0.5             # a sealed segment this dead compacts
 
 
+class CommitConfig:
+    """The live knobs of the commit plane (``commit`` kvconfig
+    subsystem), read at every group commit, packing decision and segment
+    append."""
+
+    def __init__(self):
+        self.max_batch = 16                 # ops coalesced per group commit
+        self.pack_threshold = 1 << 20       # objects packed up to this size
+        self.segment_max_bytes = 64 << 20   # segment rotation point
+
+    def load(self, config) -> None:
+        """Take the knobs from a kvconfig ``Config``; all or none, so a
+        bad value leaves the last good set in force.  A segment is at
+        least 1 MiB, as the reference clamps it."""
+        try:
+            max_batch = max(1, int(config.get("commit", "max_batch")))
+            pack = max(0, int(config.get("commit", "pack_threshold")))
+            seg_max = max(1 << 20,
+                          int(config.get("commit", "segment_max_bytes")))
+        except (KeyError, ValueError):
+            return
+        self.max_batch = max_batch
+        self.pack_threshold = pack
+        self.segment_max_bytes = seg_max
+
+
+CONFIG = CommitConfig()
+
+
 class CommitCounts:
-    """What the group commits did, summed over every drive writer (the
-    reference publishes the same as its mt_commit_group_* metrics)."""
+    """What the group commits did, summed over every drive writer; each
+    batch also ticks the reference's mt_commit_group_* metrics."""
 
     def __init__(self):
         self._mu = threading.Lock()
@@ -72,6 +102,14 @@ class CommitCounts:
             self.deferred += col.deferred
             self.fsyncs += col.synced
             self.seg_bytes += col.seg_bytes
+        m = _metrics.GLOBAL
+        m.inc("mt_commit_group_batches_total")
+        m.inc("mt_commit_group_streams_total", value=max(1, len(col.streams)))
+        if col.deferred > col.synced:
+            m.inc("mt_commit_group_fsyncs_saved_total",
+                  value=col.deferred - col.synced)
+        if col.seg_bytes:
+            m.inc("mt_commit_group_segment_bytes_total", value=col.seg_bytes)
 
 
 COUNTS = CommitCounts()
@@ -103,7 +141,10 @@ class GroupCollector:
     fsync failure latches onto exactly the streams whose writes it
     covered."""
 
-    def __init__(self):
+    def __init__(self, storage=None):
+        """``storage``: the drive, whose commit profile is charged each
+        flush round's file fsyncs."""
+        self.storage = storage
         self.current_op = None
         self._fds: list = []                # (fd, [ops], dedup key)
         self._dirs: dict[str, list] = {}    # path -> registering ops
@@ -165,6 +206,7 @@ class GroupCollector:
         while self._fds or self._dirs or self._after:
             fds, self._fds = self._fds, []
             dirs, self._dirs = self._dirs, {}
+            t0 = time.monotonic_ns()
             for fd, ops, _ in fds:
                 try:
                     os.fsync(fd)
@@ -173,6 +215,8 @@ class GroupCollector:
                 finally:
                     os.close(fd)
                 self.synced += 1
+            if fds and self.storage is not None:
+                self.storage._prof("fsync", t0)
             for path in dirs:
                 self.synced += 1
                 try:
@@ -229,7 +273,9 @@ class SegmentStore:
     journal; duplicate adds and frees are idempotent."""
 
     def __init__(self, dir_path: str,
-                 segment_max_bytes: int = SEGMENT_MAX_BYTES):
+                 segment_max_bytes: int | None = None):
+        """``segment_max_bytes``: this store's rotation point; None
+        follows ``CONFIG``."""
         self.dir = dir_path
         self.segment_max_bytes = segment_max_bytes
         self._mu = threading.Lock()
@@ -332,7 +378,8 @@ class SegmentStore:
         with self._mu:
             self._ensure()
             s = self._segs[self._cur]
-            if s["size"] and (s["size"] + len(data) > self.segment_max_bytes
+            seg_max = self.segment_max_bytes or CONFIG.segment_max_bytes
+            if s["size"] and (s["size"] + len(data) > seg_max
                               or self._lost(s)):
                 self._rotate()
                 s = self._segs[self._cur]

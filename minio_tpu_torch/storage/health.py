@@ -1,6 +1,5 @@
-"""Drive lifecycle: the circuit breaker, identity checks and
-heal-on-return (``minio_tpu/storage/health.py``), without its slow-drive
-detection.
+"""Drive lifecycle: the circuit breaker, identity checks, heal-on-return
+and slow-drive detection (``minio_tpu/storage/health.py``).
 
   * cmd/erasure-sets.go:196-332 connectDisks and
     monitorAndConnectEndpoints: a background monitor reconnects offline
@@ -18,7 +17,10 @@ the drive unguarded, as in the reference (the writer plane's
 ``write_packed``, ``read_segment`` and ``compact_segments`` among them).
 ``DriveMonitor`` is the reconnect loop: it probes offline drives,
 revalidates online drives' identity every ``verify_every`` cycles, and
-a drive that comes back fires the heal callback.
+a drive that comes back fires the heal callback.  ``slow_drives`` flags
+a drive whose last-minute p50 latency is far above its set's (the
+``drive`` kvconfig knobs); a slow drive is flagged in the metrics and
+``storageinfo``, never ejected.
 """
 
 from __future__ import annotations
@@ -42,6 +44,68 @@ _GUARDED = {
     "list_versions", "delete_version", "verify_file", "check_parts",
     "walk_dir", "walk_entries", "tmp_dir", "clean_tmp", "disk_info",
 }
+
+
+def slow_drive_knobs(config=None) -> tuple[float, int]:
+    """(multiple, min_samples) from the ``drive`` subsystem of
+    ``config`` (a fresh ``Config``, so the environment and defaults,
+    when None), read at every call so a live change lands at the next
+    scrape."""
+    if config is None:
+        from ..utils.kvconfig import Config
+        config = Config()
+    try:
+        multiple = float(config.get("drive", "slow_latency_multiple"))
+    except (KeyError, ValueError):
+        multiple = 4.0
+    try:
+        min_samples = int(config.get("drive", "slow_min_samples"))
+    except (KeyError, ValueError):
+        min_samples = 10
+    return max(multiple, 1.0), max(min_samples, 1)
+
+
+def slow_drives(disks, multiple: float = 4.0, min_samples: int = 10
+                ) -> dict[str, dict]:
+    """Slow-drive detection over one set's last-minute windows: a drive
+    whose p50 exceeds ``multiple`` x the median p50 of the set's other
+    drives, over at least ``min_samples`` ops, is slow.  The median
+    leaves the drive itself out, so one outlier in a small set cannot
+    drag the median up to its own p50.  {endpoint: {"p50_ns", "samples",
+    "median_ns", "slow"}} for the drives with last-minute traffic."""
+    from ..obs.lastminute import drive_windows
+    stats = {}
+    for endpoint, w in drive_windows(disks).items():
+        samples = sum(c for c, _, _ in w.totals().values())
+        if samples:
+            stats[endpoint] = {"p50_ns": w.p50_all(), "samples": samples}
+    for endpoint, v in stats.items():
+        others = sorted(o["p50_ns"] for e, o in stats.items()
+                        if e != endpoint)
+        median = others[len(others) // 2] if others else 0
+        v["median_ns"] = median
+        v["slow"] = bool(median > 0 and v["samples"] >= min_samples
+                         and v["p50_ns"] > multiple * median)
+    return stats
+
+
+def disks_by_set(layer) -> list[list]:
+    """The drives of each erasure set of ``layer`` (``ErasureSets`` or
+    one set)."""
+    if hasattr(layer, "sets"):
+        return [list(s.disks) for s in layer.sets]
+    return [list(layer.disks)]
+
+
+def slow_drives_for_layer(layer, multiple: float = 4.0,
+                          min_samples: int = 10) -> dict[str, dict]:
+    """``slow_drives`` per erasure set: a drive is compared with its set's
+    drives only (the same workload and shard fan-out)."""
+    out: dict[str, dict] = {}
+    for dlist in disks_by_set(layer):
+        out.update(slow_drives(dlist, multiple=multiple,
+                               min_samples=min_samples))
+    return out
 
 
 class HealthDisk:

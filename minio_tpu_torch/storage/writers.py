@@ -5,8 +5,9 @@ MinIO gives every drive its own goroutine and pipe for the life of a
 stream (cmd/erasure-encode.go:80-107 parallelWriter).  Here one
 persistent writer thread per drive consumes a bounded in-order queue:
 
-  * enqueue does not block until the per-drive depth bound, so batch
-    N+1's encode overlaps batch N's drive writes;
+  * enqueue does not block until the per-drive depth bound (the
+    ``pipeline.queue_depth`` knob, read live through ``queue_depth``), so
+    batch N+1's encode overlaps batch N's drive writes;
   * per-drive order is strict FIFO: a stream's create lands before its
     appends and its appends before its commit;
   * errors latch per (stream, drive): once a drive fails a stream's op,
@@ -14,13 +15,15 @@ persistent writer thread per drive consumes a bounded in-order queue:
     failed one would corrupt the staged file) and the caller re-checks
     quorum as completions drain;
   * each drive's drain is a group commit (``storage/commit.py``): up to
-    ``commit.MAX_BATCH`` queued ops, from any streams, run their bodies
+    ``commit.CONFIG.max_batch`` queued ops, from any streams, run their bodies
     with a GroupCollector armed, one flush of deduplicated file and
     directory fsyncs settles them all, and only then does each op settle.
 
 ``close()`` wakes blocked enqueuers (they see PlaneClosed), fails queued
 ops so ``drain()`` returns, and joins the writer threads.  The plane
-restarts lazily on the next stream.
+restarts lazily on the next stream.  ``stats()`` is what the metrics
+scrape reads per drive: queued ops, enqueues that waited at the bound,
+ops settled.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import time
 from . import commit as _commit
 from . import errors as serrors
 
-QUEUE_DEPTH = 2             # per-drive queued ops before enqueue blocks
+QUEUE_DEPTH = 2             # the default per-drive queue bound
 
 
 class PlaneClosed(serrors.StorageError):
@@ -93,22 +96,24 @@ class _Op:
         self.fn = fn
         self.batch = batch
 
-    def run_body(self, disk) -> Exception | None:
-        """Run the op body without settling it.  An error latches into
-        the stream at once, so a same-stream batch-mate later in the
-        batch skips instead of appending after the failure."""
+    def run_body(self, disk) -> tuple[Exception | None, float]:
+        """Run the op body without settling it; (error, seconds).  An
+        error latches into the stream at once, so a same-stream
+        batch-mate later in the batch skips instead of appending after
+        the failure."""
         st = self.stream
         if st.cancelled or st.errs[self.idx] is not None:
-            return None
+            return None, 0.0
+        t0 = time.perf_counter()
         try:
             self.fn(self.idx, disk)
-            return None
+            return None, time.perf_counter() - t0
         except Exception as e:  # noqa: BLE001 — latched, quorum decides
             st._latch_err(self.idx, e)
-            return e
+            return e, time.perf_counter() - t0
 
-    def settle(self, err: Exception | None) -> None:
-        self.stream._op_done(self.idx, err, self.batch)
+    def settle(self, err: Exception | None, busy_s: float = 0.0) -> None:
+        self.stream._op_done(self.idx, err, self.batch, busy_s)
 
 
 class _DriveWriter:
@@ -119,14 +124,21 @@ class _DriveWriter:
         self._q: list[_Op] = []
         self._cv = threading.Condition()
         self._closed = False
+        self.stalls = 0          # enqueues that waited at the bound
+        self.ops = 0             # ops settled (skipped and failed too)
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=name)
         self._thread.start()
 
+    def depth(self) -> int:
+        return len(self._q)
+
     def put(self, op: _Op, bound: int) -> None:
         with self._cv:
-            while len(self._q) >= bound and not self._closed:
-                self._cv.wait()
+            if len(self._q) >= bound and not self._closed:
+                self.stalls += 1
+                while len(self._q) >= bound and not self._closed:
+                    self._cv.wait()
             if self._closed:
                 raise PlaneClosed("writer plane closed")
             self._q.append(op)
@@ -139,13 +151,14 @@ class _DriveWriter:
                     self._cv.wait()
                 if not self._q:          # closed and drained
                     return
-                ops = self._q[:_commit.MAX_BATCH]
+                ops = self._q[:max(1, _commit.CONFIG.max_batch)]
                 del self._q[:len(ops)]
                 closed = self._closed
                 self._cv.notify_all()    # wake putters at the bound
             if closed:
                 for op in ops:
                     op.settle(PlaneClosed("writer plane closed"))
+                    self.ops += 1
             else:
                 self._group_commit(ops)
 
@@ -153,7 +166,8 @@ class _DriveWriter:
         """Run every op body with the collector armed, flush once, then
         settle each op, so a stream's quorum is re-checked only after its
         covering fsync landed."""
-        col = _commit.GroupCollector()
+        col = _commit.GroupCollector(
+            self.disk if hasattr(self.disk, "_prof") else None)
         _commit.arm(col)
         errs: list = []
         try:
@@ -168,10 +182,11 @@ class _DriveWriter:
         finally:
             _commit.disarm()
             _commit.COUNTS.add(col, len(ops))
-            errs += [None] * (len(ops) - len(errs))
-            for op, err in zip(ops, errs):
+            errs += [(None, 0.0)] * (len(ops) - len(errs))
+            for op, (err, busy_s) in zip(ops, errs):
                 # a flush-time failure is already latched in the stream
-                op.settle(err)
+                op.settle(err, busy_s)
+                self.ops += 1
 
     def close(self, timeout: float) -> None:
         with self._cv:
@@ -187,6 +202,7 @@ class _DriveWriter:
                 op = self._q.pop(0)
                 self._cv.notify_all()
             op.settle(PlaneClosed("writer plane closed"))
+            self.ops += 1
 
     def is_alive(self) -> bool:
         return self._thread.is_alive()
@@ -206,6 +222,7 @@ class StreamWriter:
         self.cancelled = False
         self._pending = 0
         self._drive_pending = [0] * len(self.disks)
+        self.drive_busy = [0.0] * len(self.disks)   # seconds in op bodies
         self._on_idle: dict[int, list] = {}
         self._cv = threading.Condition()
 
@@ -271,10 +288,11 @@ class StreamWriter:
     # -- progress / settlement --------------------------------------------
 
     def _op_done(self, idx: int, err: Exception | None,
-                 batch: _Batch | None) -> None:
+                 batch: _Batch | None, busy_s: float = 0.0) -> None:
         with self._cv:
             if err is not None and self.errs[idx] is None:
                 self.errs[idx] = err
+            self.drive_busy[idx] += busy_s
             self._pending -= 1
             self._drive_pending[idx] -= 1
             cbs = (self._on_idle.pop(idx, [])
@@ -303,6 +321,11 @@ class StreamWriter:
                 self._on_idle.setdefault(idx, []).append(fn)
                 return
         self._run_idle_cbs([fn])
+
+    def max_busy_s(self) -> float:
+        """The busiest drive's seconds in this stream's op bodies (the
+        write stage of the PUT's overlap efficiency)."""
+        return max(self.drive_busy, default=0.0)
 
     def alive(self) -> int:
         return sum(1 for i, d in enumerate(self.disks)
@@ -333,16 +356,25 @@ class WriterPlane:
 
     _NAMES = itertools.count()
 
-    def __init__(self):
+    def __init__(self, queue_depth=None):
+        """``queue_depth``: the per-drive queue bound, an int or a
+        callable read at every enqueue (the live ``pipeline.queue_depth``
+        knob); None is ``QUEUE_DEPTH``."""
+        self._depth = queue_depth
         self._writers: dict[int, _DriveWriter] = {}
         self._mu = threading.Lock()
         self._closed = False
         self._gen = 0            # bumped by close(); older streams die
+        self.used = False        # ever carried an op (the scrape's gate)
 
     def stream(self, disks: list) -> StreamWriter:
         with self._mu:
             gen = self._gen
         return StreamWriter(self, disks, gen)
+
+    def queue_bound(self) -> int:
+        d = self._depth() if callable(self._depth) else self._depth
+        return QUEUE_DEPTH if d is None else max(1, int(d))
 
     def _enqueue(self, disk, op: _Op, bound: int | None = None) -> None:
         key = id(disk)
@@ -356,7 +388,22 @@ class WriterPlane:
                 w = _DriveWriter(
                     disk, f"mt-putw-{next(WriterPlane._NAMES)}")
                 self._writers[key] = w
-        w.put(op, bound if bound is not None else QUEUE_DEPTH)
+            self.used = True
+        w.put(op, bound if bound is not None else self.queue_bound())
+
+    def stats(self) -> dict[str, dict]:
+        """{drive endpoint: {queue_depth, stalls, ops}}."""
+        with self._mu:
+            writers = list(self._writers.values())
+        out = {}
+        for w in writers:
+            try:
+                ep = w.disk.endpoint()
+            except Exception:  # noqa: BLE001 — a dead drive still counts
+                ep = f"drive-{id(w.disk):x}"
+            out[ep] = {"queue_depth": w.depth(), "stalls": w.stalls,
+                       "ops": w.ops}
+        return out
 
     def threads(self) -> list[threading.Thread]:
         with self._mu:

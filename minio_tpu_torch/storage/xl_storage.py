@@ -25,6 +25,13 @@ On a drive writer's thread with a group commit armed
 (``commit.collector()``), the same order runs batched: fsyncs defer into
 the batch's flush and the visibility-flipping xl.meta replace runs after
 them (``storage/commit.py``).
+
+Every drive op in ``_TIMED_OPS`` records its duration and bytes into the
+drive's last-minute windows (``self.latency``), which slow-drive
+detection and the ``mt_node_disk_latency_*`` scrape read; the commit
+phases (create, append, fsync, rename, meta_merge; a group commit's
+fsyncs at its flush) feed the ``mt_drive_op_seconds`` histogram, at the
+points where ``minio_tpu``'s drive takes them.
 """
 
 from __future__ import annotations
@@ -32,10 +39,14 @@ from __future__ import annotations
 import itertools
 import os
 import shutil
+import threading
+import time
 import uuid
 from dataclasses import dataclass
 
+from ..admin import metrics as _metrics
 from ..hashing.bitrot import bitrot_shard_file_size
+from ..obs import lastminute as _lastminute
 from . import commit as _commit
 from . import errors
 from .datatypes import FileInfo
@@ -44,12 +55,27 @@ from .xl_meta import XLMeta
 SYS_DIR = ".mt.sys"
 TMP_DIR = os.path.join(SYS_DIR, "tmp")
 META_FILE = "xl.meta"
+# mt_drive_op_seconds: tmpfs phases run in microseconds, a failing
+# spindle's fsync in hundreds of milliseconds
+DRIVE_OP_BUCKETS = (0.000025, 0.00005, 0.0001, 0.00025, 0.0005, 0.001,
+                    0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25)
 
 
 @dataclass
 class VolInfo:
     name: str
     created: int = 0   # unix ns
+
+
+@dataclass
+class DiskInfo:
+    total: int
+    free: int
+    used: int
+    free_inodes: int
+    endpoint: str
+    mount_path: str
+    disk_id: str = ""
 
 
 _TMP_SEQ = itertools.count()
@@ -136,6 +162,7 @@ class XLStorage:
     def __init__(self, root: str):
         self.root = os.path.abspath(root)
         self._disk_id = ""
+        self.latency = _lastminute.OpWindows(self.root)
         if not os.path.isdir(self.root):
             raise errors.DiskNotFound(self.root)
         os.makedirs(os.path.join(self.root, TMP_DIR), exist_ok=True)
@@ -160,8 +187,25 @@ class XLStorage:
     def set_disk_id(self, disk_id: str) -> None:
         self._disk_id = disk_id
 
+    def disk_info(self) -> DiskInfo:
+        st = os.statvfs(self.root)
+        total = st.f_blocks * st.f_frsize
+        free = st.f_bavail * st.f_frsize
+        return DiskInfo(total=total, free=free, used=total - free,
+                        free_inodes=st.f_favail, endpoint=self.root,
+                        mount_path=self.root, disk_id=self._disk_id)
+
     def close(self) -> None:
         self.segments.close()
+
+    def _prof(self, op: str, t0_ns: int, nbytes: int = 0) -> int:
+        """One commit-phase sample since ``t0_ns`` (monotonic) into
+        ``mt_drive_op_seconds``; returns now, so phases chain."""
+        t1 = time.monotonic_ns()
+        _metrics.GLOBAL.observe("mt_drive_op_seconds", {"op": op},
+                                (t1 - t0_ns) / 1e9,
+                                buckets=DRIVE_OP_BUCKETS)
+        return t1
 
     def reopen(self) -> None:
         """Take back a drive that returned empty and was just formatted
@@ -253,12 +297,30 @@ class XLStorage:
         full = self._file_path(volume, path)
         self._check_vol(volume)
         os.makedirs(os.path.dirname(full), exist_ok=True)
-        _write_fsync(full, data, os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        self._write_phased(full, data,
+                           os.O_WRONLY | os.O_CREAT | os.O_TRUNC, "create")
 
     def append_file(self, volume: str, path: str, data) -> None:
         full = self._file_path(volume, path)
         self._check_vol(volume)
-        _write_fsync(full, data, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+        self._write_phased(full, data,
+                           os.O_WRONLY | os.O_CREAT | os.O_APPEND, "append")
+
+    def _write_phased(self, path: str, data, flags: int, op: str,
+                      sync_dir: str | None = None) -> None:
+        """``_write_fsync`` with its two commit phases timed: the write
+        as ``op``, then the fsync (and of ``sync_dir``, if given)."""
+        t0 = time.monotonic_ns()
+        fd = os.open(path, flags, 0o644)
+        try:
+            _commit.write_full(fd, data)
+            t0 = self._prof(op, t0, len(data))
+            _fsync_fd(fd)
+        finally:
+            os.close(fd)
+        if sync_dir is not None:
+            _fsync_dir(sync_dir)
+        self._prof("fsync", t0)
 
     def list_dir(self, volume: str, dir_path: str) -> list[str]:
         """The entries of a directory, sorted, subdirectories with a
@@ -376,6 +438,7 @@ class XLStorage:
         """Merge ``vd`` into the object's xl.meta, written last; returns
         the replaced version ({} without one).  Its unshared data dir is
         purged once the new xl.meta is durable."""
+        t0 = time.monotonic_ns()
         meta, old = XLMeta(), {}
         if not fresh:
             try:
@@ -389,6 +452,7 @@ class XLStorage:
         _fsync_dir(dst_obj)
         if fresh:
             _fsync_dir(os.path.dirname(dst_obj))
+        self._prof("meta_merge", t0)
         old_ddir = old.get("ddir", "")
         if old_ddir and old_ddir != vd.get("ddir", "") \
                 and meta.shared_data_dir_count(fi.version_id, old_ddir) == 0:
@@ -437,11 +501,15 @@ class XLStorage:
         dst_obj, fresh = self._object_dir(volume, path)
         ddir = os.path.join(dst_obj, fi.data_dir)
         os.mkdir(ddir)
-        _write_fsync(os.path.join(ddir, "part.1"), data,
-                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
-        _fsync_dir(ddir)
+        self._write_phased(os.path.join(ddir, "part.1"), data,
+                           os.O_WRONLY | os.O_CREAT | os.O_TRUNC, "create",
+                           sync_dir=ddir)
+        t0 = time.monotonic_ns()
         if meta_gate is not None:
             version_dict = meta_gate()
+            # the wait on the object's MD5 is not drive time
+            _IN_OP.exclude_ns = getattr(_IN_OP, "exclude_ns", 0) + \
+                time.monotonic_ns() - t0
         self._merge_version(volume, path, dst_obj, fresh, fi,
                             self._version_dict(fi, shard_index,
                                                version_dict))
@@ -461,8 +529,11 @@ class XLStorage:
             os.makedirs(obj_dir, exist_ok=True)
             if os.path.isdir(dst_dir):
                 shutil.rmtree(dst_dir)
+            t0 = time.monotonic_ns()
             os.replace(src_dir, dst_dir)
+            t0 = self._prof("rename", t0)
             _fsync_dir(obj_dir)
+            self._prof("fsync", t0)
         else:
             os.makedirs(obj_dir, exist_ok=True)
         self._merge_version(dst_volume, dst_path, obj_dir, fresh, fi,
@@ -482,12 +553,15 @@ class XLStorage:
         self._check_vol(volume)
         dst_obj, fresh = self._object_dir(volume, path)
         col = _commit.collector()
+        t0 = time.monotonic_ns()
         sid, off = self.segments.append(data, volume, path, fi.version_id)
+        t0 = self._prof("create", t0, len(data))
         if col is not None:
             self.segments.defer_sync(col)
             col.seg_bytes += len(data)
         else:
             self.segments.sync()
+            self._prof("fsync", t0)
         vd = self._version_dict(fi, shard_index, version_dict)
         vd["ddir"] = ""
         vd["seg"] = {"sid": sid, "off": off, "len": len(data)}
@@ -656,3 +730,52 @@ class XLStorage:
     def clean_tmp(self, rel_dir: str) -> None:
         shutil.rmtree(os.path.join(self.root, SYS_DIR, rel_dir),
                       ignore_errors=True)
+
+
+# -- per-op latency windows ---------------------------------------------------
+
+_TIMED_OPS = ("read_all", "read_file_stream", "write_all", "create_file",
+              "append_file", "write_data_commit", "write_packed",
+              "read_segment", "rename_data", "rename_file",
+              "write_metadata", "read_version", "list_versions",
+              "delete_version", "delete", "list_dir", "check_parts")
+# the payload's position after ``self`` for the write ops; the read ops
+# count the bytes they return
+_OP_IN_ARG = {"write_all": 2, "create_file": 2, "append_file": 2,
+              "write_data_commit": 3, "write_packed": 3}
+# drive ops call each other (a meta read goes through read_all): only
+# the outermost call records, so one logical op counts once
+_IN_OP = threading.local()
+
+
+def _timed_op(op: str, fn, in_arg: int | None):
+    def timed(self, *a, **kw):
+        if getattr(_IN_OP, "depth", 0):
+            return fn(self, *a, **kw)
+        _IN_OP.depth = 1
+        _IN_OP.exclude_ns = 0
+        t0 = time.monotonic_ns()
+        out = None
+        try:
+            out = fn(self, *a, **kw)
+            return out
+        finally:
+            _IN_OP.depth = 0
+            dt = max(0, time.monotonic_ns() - t0 - _IN_OP.exclude_ns)
+            nbytes = 0
+            if in_arg is not None:
+                data = a[in_arg] if len(a) > in_arg else kw.get("data")
+                nbytes = len(data) if data is not None else 0
+            elif isinstance(out, (bytes, bytearray)):
+                nbytes = len(out)
+            self.latency.record(op, dt, nbytes)
+    timed.__name__ = op
+    timed.__qualname__ = f"XLStorage.{op}"
+    timed.__doc__ = fn.__doc__
+    timed.__wrapped__ = fn
+    return timed
+
+
+for _op in _TIMED_OPS:
+    setattr(XLStorage, _op,
+            _timed_op(_op, getattr(XLStorage, _op), _OP_IN_ARG.get(_op)))

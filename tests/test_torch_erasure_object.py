@@ -14,10 +14,9 @@ are compared as placeholders), each layer must read the other's
 objects, a GET with four drives wiped must return the body, and heal
 must restore the wiped shards byte for byte.
 
-The same checks run on the port's mesh engine (``ErasureObjects(mesh=
-<1 x 1 CPU mesh>)``, the counterpart of ``backend="mesh"``), whose PUT
-goes through Kernel C's plain version instead of Kernels A and B, and
-with both packages in their single-core mode (no pipeline, no packing).
+The same checks run with both packages in their single-core mode (no
+pipeline, no packing), and on the port's mesh engine in
+``test_torch_erasure_object_mesh.py``.
 """
 
 import glob
@@ -41,7 +40,7 @@ from minio_tpu.storage.xl_meta import XLMeta as RefXLMeta
 from minio_tpu.storage.xl_storage import XLStorage as RefStorage
 from minio_tpu_torch.objectlayer import erasure_object as port_eo
 from minio_tpu_torch.objectlayer.interface import PutObjectOptions
-from minio_tpu_torch.ops import hh, rs_fused, rs_kernels
+from minio_tpu_torch.ops import hh, rs_kernels
 from minio_tpu_torch.parallel.mesh import make_mesh
 from minio_tpu_torch.storage import commit
 from minio_tpu_torch.storage.xl_storage import XLStorage
@@ -148,11 +147,6 @@ def layers(tmp_path_factory):
     yield from _build_layers(tmp_path_factory, mesh=False)
 
 
-@pytest.fixture(scope="module")
-def mesh_layers(tmp_path_factory):
-    yield from _build_layers(tmp_path_factory, mesh=True)
-
-
 def _shard_bytes(root, size: int, i: int) -> bytes:
     """Drive i's shard of the object: its part file, its packed extent,
     or its inline data."""
@@ -197,16 +191,11 @@ def test_shard_files_match_reference(layers, size):
     _check_shard_files(layers, size)
 
 
-@pytest.mark.parametrize("size", SIZES)
-def test_mesh_shard_files_match_reference(mesh_layers, size):
-    _check_shard_files(mesh_layers, size)
-
-
-@pytest.mark.parametrize("engine", ["device", "mesh"])
-def test_drives_match_reference(layers, mesh_layers, engine):
+@pytest.mark.parametrize("engine", ["device"])
+def test_drives_match_reference(layers, engine):
     """Every file of every drive: xl.meta, part files, segments and the
     segment journal."""
-    root = (layers if engine == "device" else mesh_layers)[0]
+    root = layers[0]
     assert_drives_equal(root / "port", root / "ref")
     assert len(glob.glob(f"{root}/port/d*/.mt.sys/seg/journal")) == N
 
@@ -241,11 +230,6 @@ def _check_reads(layers, size):
 @pytest.mark.parametrize("size", SIZES)
 def test_each_layer_reads_the_other(layers, size):
     _check_reads(layers, size)
-
-
-@pytest.mark.parametrize("size", SIZES)
-def test_mesh_each_layer_reads_the_other(mesh_layers, size):
-    _check_reads(mesh_layers, size)
 
 
 def _wipe_data_drives(root, layer, name: str, count: int) -> list[int]:
@@ -319,11 +303,6 @@ def _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh):
 @pytest.mark.parametrize("size", HEAL_SIZES)
 def test_degraded_get_and_heal(tmp_path, monkeypatch, size):
     _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh=False)
-
-
-@pytest.mark.parametrize("size", HEAL_SIZES)
-def test_mesh_degraded_get_and_heal(tmp_path, monkeypatch, size):
-    _check_degraded_get_and_heal(tmp_path, monkeypatch, size, mesh=True)
 
 
 def test_delete_and_missing(tmp_path):
@@ -521,7 +500,7 @@ def test_failed_commit_keeps_its_buffer_until_the_writes_end(
         busy = threading.Event()
         pre.submit(0, lambda i, d: (busy.set(), release_gate.wait(30)))
         assert busy.wait(10)
-        bound = max(port_eo.QUEUE_DEPTH, commit.MAX_BATCH)
+        bound = max(port_eo.QUEUE_DEPTH, commit.CONFIG.max_batch)
         for _ in range(bound):
             pre.submit(0, lambda i, d: None, bound=bound + 1)
         st["on"] = True
@@ -596,31 +575,5 @@ def test_path_uses_plain_versions_on_cpu(tmp_path):
         assert lay.get_object(BUCKET, "o")[1] == _body(3 * BS)
         assert rs_kernels.COUNTS.launches == hh.COUNTS.launches == 0
         assert rs_kernels.COUNTS.plain > 0 and hh.COUNTS.plain > 0
-    finally:
-        lay.close()
-
-
-def test_mesh_put_runs_kernel_c_plain_version(tmp_path, monkeypatch):
-    """On the mesh engine PUT runs Kernel C's plain version (one pass per
-    batch's full blocks and one per short last block), never Kernel A's or
-    Kernel B's; degraded GET and heal still run A and B."""
-    monkeypatch.setattr(port_eo, "STREAM_BATCH_BYTES", BATCH)
-    lay = _port_layer(tmp_path, mesh=True)
-    try:
-        lay.make_bucket(BUCKET)
-        for c in (rs_fused.COUNTS, rs_kernels.COUNTS, hh.COUNTS):
-            c.reset()
-        size = 2 * BATCH + 3 * BS + 5          # 3 batches, a short tail
-        body = _body(size)
-        lay.put_object(BUCKET, "o", body)
-        assert rs_fused.COUNTS.plain == 4
-        assert rs_kernels.COUNTS.plain == hh.COUNTS.plain == 0
-        assert rs_fused.COUNTS.launches == rs_kernels.COUNTS.launches == \
-            hh.COUNTS.launches == 0
-        _wipe_data_drives(tmp_path, lay, "o", M)
-        assert lay.get_object(BUCKET, "o")[1] == body
-        lay.heal_object(BUCKET, "o")
-        assert rs_kernels.COUNTS.plain > 0 and hh.COUNTS.plain > 0
-        assert rs_fused.COUNTS.plain == 4
     finally:
         lay.close()

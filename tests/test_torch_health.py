@@ -16,14 +16,15 @@ import threading
 import pytest
 
 from minio_tpu.background.heal import BackgroundHealer as RefHealer
-from minio_tpu_torch.background.heal import BackgroundHealer
+from minio_tpu_torch.background.heal import BackgroundHealer, iter_versions
+from minio_tpu_torch.objectlayer import interface as port_ol
 from minio_tpu_torch.storage import errors as serrors
 from minio_tpu_torch.storage.format import (FORMAT_FILE, FormatErasure,
                                             init_format_erasure)
 from minio_tpu_torch.storage.health import DriveMonitor, HealthDisk
 from minio_tpu_torch.storage.xl_storage import SYS_DIR, XLStorage
 
-from ._torch_versions import assert_trees_equal, body, pin
+from ._torch_versions import assert_trees_equal, body, pin, tree
 from .test_torch_sets import (BATCH, PER, SIZES, close, damage, port_sets,
                               ref_sets, sequence)
 
@@ -356,6 +357,13 @@ def test_sweep_compacts_segments(tmp_path, deployment):
 
 
 def test_swept_drives_match_reference(tmp_path, monkeypatch):
+    """The same damage, then one sweep in each package: the same drive
+    bytes, but for the older versions of ``ver/v/a``.  The port's sweep
+    heals every version (ROADMAP Queue 3 item 16); ``minio_tpu``'s heals
+    only the latest and leaves the two older ones missing on the damaged
+    drive (a ``minio_tpu`` fault not carried over, Queue 3 item 17), so
+    those versions take their bodies and the set's version list as the
+    oracle."""
     pin(monkeypatch, batch=BATCH)
     port = port_sets(tmp_path / "port", 2)
     ref = ref_sets(tmp_path / "ref", 2)
@@ -365,10 +373,36 @@ def test_swept_drives_match_reference(tmp_path, monkeypatch):
             damage(root, lay, 2)
         got = BackgroundHealer(port).sweep()
         want = RefHealer(ref).sweep()
-        assert (got.objects_scanned, got.objects_healed, got.objects_failed) \
-            == (want.objects_scanned, want.objects_healed,
-                want.objects_failed)
-        assert got.objects_healed > 0
+        versions = sum(1 for b in port.list_buckets()
+                       for _ in iter_versions(port, b.name))
+        live = sum(len(ref.list_objects(b.name).objects)
+                   for b in ref.list_buckets())
+        assert (got.objects_scanned, want.objects_scanned) == (versions, live)
+        assert got.objects_healed == want.objects_healed + 2
+        assert got.objects_failed == want.objects_failed == 0
+        assert got.objects_healed > 2
+        s = port.get_hashed_set_index("v/a")
+        vers = [fi.version_id for fi in
+                port.sets[s].disks[2].list_versions("ver", "v/a")]
+        assert vers == [fi.version_id for fi in
+                        port.sets[s].disks[0].list_versions("ver", "v/a")]
+        assert len(vers) == 3
+        for vid, (i, size) in zip(vers[::-1], enumerate(
+                (500, SIZES["packed"], SIZES["part"]))):
+            assert port.get_object("ver", "v/a", opts=port_ol.ObjectOptions(
+                version_id=vid))[1] == body(size, i)
     finally:
         close(port, ref)
-    assert_trees_equal(tmp_path / "port", tmp_path / "ref", 2 * PER)
+    # the damaged drive's segment files hold the healed older versions
+    # past what the reference's hold
+    victim = port.get_hashed_set_index("v/a") * PER + 2
+    seg = ".mt.sys/seg/"
+    got, want = (tree(root / f"d{victim}") for root in
+                 (tmp_path / "port", tmp_path / "ref"))
+    assert sorted(p for p in got if p.startswith(seg)) == \
+        sorted(p for p in want if p.startswith(seg))
+    for p in want:
+        if p.startswith(seg):
+            assert got[p].startswith(want[p]), p
+    assert_trees_equal(tmp_path / "port", tmp_path / "ref", 2 * PER,
+                       skip={victim: ("ver/v/a", seg)})
