@@ -123,7 +123,25 @@
    counters equal to the sweep's stats, the overlap efficiency and every
    drive's writer stats present; the scrape's latency over 32 drives.
    Last, ``service?action=stop`` stops the server.
-11. One JSON line of readings, one describing each kernel, the card line,
+11. Identities and the request plane, on a fresh ``build_server`` of 16
+   drives (the 12 + 4 set, 10 MiB blocks): root adds a policy over
+   ``alpha`` and a user with it, whose 16 MiB PUT launches Kernels A and
+   B twice each (one ``encode`` op in the scrape) and whose GET is
+   byte-exact; the user's 16 MiB PUT to ``beta`` answers 403 with no
+   launch, no codec op and nothing on the drives; an STS session bounded
+   to GetObject reads and may not write; a service account writes; a
+   SigV2 header-signed and a presigned GET, a 1 MiB POST-policy upload,
+   and a bucket policy that lets anonymous callers GET ``alpha/pub/*``
+   but not PUT.  Then ``api mem_limit`` below a 16 MiB PUT's framed
+   bytes sheds it (503 SlowDown, Retry-After, ``mt_mem_shed_total`` + 1,
+   no object); ``requests_max`` 1 with a stalled body in flight sheds
+   further PUTs while ``/minio/health/live`` and the scrape answer; a
+   body stalled after 1 MiB under ``body_deadline`` 1s answers 408
+   within 3 s with no pooled buffer out; every drive's ``iam.json`` and
+   ``config.json`` are sealed; ``stop()`` drains a GET in flight; a new
+   ``build_server`` on the drives admits the user and the service
+   account and keeps the ``api`` knobs.  No plain version runs.
+12. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -1915,6 +1933,294 @@ def phase_control(srv, root: str, card: str, gen):
           f"Kernel A {a}, Kernel B {b} launches")
     return {k: v[0] for k, v in launches.items()}, readings
 
+ID_OBJ, ID_POST = 16 << 20, 1 << 20                 # phase 11
+ALPHA_RW = {"Version": "2012-10-17", "Statement": [{
+    "Effect": "Allow", "Action": ["s3:*"],
+    "Resource": ["arn:aws:s3:::alpha", "arn:aws:s3:::alpha/*"]}]}
+
+
+def raw_put(endpoint: str, key: str, body: bytes, sent: int):
+    """A signed PUT of ``body`` to ``/alpha/<key>`` that sends only its
+    first ``sent`` bytes; the open socket (``sendall`` the rest)."""
+    import socket
+    import urllib.parse
+    from minio_tpu_torch.s3 import sigv4
+    url = f"{endpoint}/alpha/{key}"
+    hdrs = sigv4.sign_request(sigv4.Credentials(S3_KEY, S3_SECRET), "PUT",
+                              url, {"Connection": "close"}, body)
+    u = urllib.parse.urlsplit(url)
+    head = f"PUT {u.path} HTTP/1.1\r\n" + "".join(
+        f"{k}: {v}\r\n" for k, v in hdrs.items()) + \
+        f"Content-Length: {len(body)}\r\n\r\n"
+    s = socket.create_connection((u.hostname, u.port))
+    s.sendall(head.encode() + body[:sent])
+    return s
+
+
+def read_all(s, timeout: float = 30.0) -> bytes:
+    s.settimeout(timeout)
+    out = b""
+    try:
+        while True:
+            x = s.recv(1 << 20)
+            if not x:
+                break
+            out += x
+    except (ConnectionError, OSError):
+        pass
+    s.close()
+    return out
+
+
+def phase_identity(card: str, gen):
+    """Phase 11 on a fresh ``build_server`` of 16 drives: IAM users,
+    sessions and service accounts, SigV2, POST policy and bucket policy
+    over HTTP with their kernel launches reconciled against the scrape, a
+    denied 16 MiB PUT that launches nothing, the request plane's sheds
+    and deadlines, config and IAM sealed on every drive, the drain of
+    ``stop()`` and a restart.  Returns the launches and the readings."""
+    import threading
+    import urllib.request
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.secure.configcrypt import MAGIC
+    from minio_tpu_torch.server_main import build_server
+    from minio_tpu_torch.utils import bufpool
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-id-")
+    dirs = [f"{root}/d{i}" for i in range(K + M)]
+    srv = build_server(dirs, "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                       device="cuda")
+    srv.start()
+    readings: dict = {}
+    bodies = rand_bytes((2, ID_OBJ), gen).cpu().numpy()
+    put_body, post_body = bodies[0].tobytes(), bodies[1, :ID_POST].tobytes()
+    root_c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+
+    def ops_now():
+        return by_label(parse_scrape(adm.metrics()), "mt_tpu_ops_total",
+                        "op")
+
+    def on_drives(bucket, key):
+        return [d for d in dirs if os.path.exists(f"{d}/{bucket}/{key}")]
+    try:
+        for b in ("alpha", "beta"):
+            root_c.make_bucket(b)
+        adm.add_policy("alpha-rw", ALPHA_RW)
+        adm.add_user("u1", "u1-secret-key", ["alpha-rw"])
+        u1 = S3Client(srv.endpoint, "u1", "u1-secret-key")
+        torch.cuda.synchronize()
+        reset_counts()
+        s0, ops0 = snapshot(), ops_now()
+        # 1: the user's 16 MiB PUT and GET
+        t0 = time.perf_counter()
+        u1.put_object("alpha", "obj", put_body)
+        torch.cuda.synchronize()
+        readings["user_put_s"] = time.perf_counter() - t0
+        s_put, ops_put = snapshot(), ops_now()
+        t0 = time.perf_counter()
+        check(u1.get_object("alpha", "obj").body == put_body,
+              "user GET byte-exact")
+        readings["user_get_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        s_get = snapshot()
+        put_l = delta(s0, s_put)
+        gained = {k: v - ops0.get(k, 0) for k, v in ops_put.items()
+                  if v != ops0.get(k, 0)}
+        # a 16 MiB PUT: one encode of a full and a short block, Kernels
+        # A and B once for each
+        check(gained == {"encode": 1} and put_l["gf8_apply"][0] ==
+              put_l["hh256"][0] == 2, f"user PUT launches {put_l}, "
+              f"codec ops {gained}")
+        get_l = delta(s_put, s_get)
+        check(get_l["gf8_apply"][0] == 0 and get_l["hh256"][0] > 0,
+              f"user GET launches {get_l}")
+        # 2: a denied 16 MiB PUT launches nothing and leaves nothing
+        r = u1.request("PUT", "/beta/denied", body=put_body, expect=())
+        torch.cuda.synchronize()
+        s_denied = snapshot()
+        check(r.status == 403 and r.xml().findtext("Code") ==
+              "AccessDenied", f"denied PUT answered {r.status}")
+        check(delta(s_get, s_denied) == {k: (0, 0) for k in KERNELS} and
+              ops_now() == ops_put, "the denied PUT launched a kernel")
+        check(on_drives("beta", "denied") == [], "denied PUT left a trace")
+        # 3: an STS session bounded to GetObject; a service account
+        sess = u1.assume_role(900, {"Version": "2012-10-17", "Statement": [
+            {"Effect": "Allow", "Action": ["s3:GetObject"],
+             "Resource": ["arn:aws:s3:::*"]}]})
+        check(sess.get_object("alpha", "obj").body == put_body,
+              "session GET")
+        check(sess.request("PUT", "/alpha/sess", body=b"x",
+                           expect=()).status == 403, "session PUT refused")
+        sa = adm.add_service_account("u1")
+        sac = S3Client(srv.endpoint, sa["accessKey"], sa["secretKey"])
+        check(sac.put_object("alpha", "sa", post_body).status == 200,
+              "service-account PUT")
+        # 4: SigV2, POST policy, bucket policy
+        check(u1.request_v2("GET", "/alpha/sa").body == post_body,
+              "SigV2 header-signed GET")
+        with urllib.request.urlopen(u1.presign_v2("GET", "alpha", "sa"),
+                                    timeout=60) as resp:
+            check(resp.read() == post_body, "SigV2 presigned GET")
+        r = u1.post_object("alpha", "post/obj", post_body,
+                           [["content-length-range", 0, ID_POST]])
+        check(r.status == 204 and root_c.get_object(
+            "alpha", "post/obj").body == post_body, "POST-policy upload")
+        root_c.set_bucket_policy("alpha", {
+            "Version": "2012-10-17", "Statement": [{
+                "Effect": "Allow", "Principal": {"AWS": ["*"]},
+                "Action": ["s3:GetObject"],
+                "Resource": ["arn:aws:s3:::alpha/pub/*"]}]})
+        root_c.put_object("alpha", "pub/x", post_body)
+        anon = S3Client(srv.endpoint, "", "")
+        check(anon.request("GET", "/alpha/pub/x", sign=False).body ==
+              post_body, "anonymous GET the bucket policy allows")
+        check(anon.request("PUT", "/alpha/pub/y", body=b"z", sign=False,
+                           expect=()).status == 403,
+              "anonymous PUT refused")
+        torch.cuda.synchronize()
+        s_feat = snapshot()
+        # 5a: the governor sheds a PUT whose framed shards pass mem_limit
+        shed0 = parse_scrape(adm.metrics()).get(
+            ("mt_mem_shed_total", (("kind", "commit"),)), 0.0)
+        # below the object's framed shards, which parity makes larger
+        adm.set_config_kv("api", "mem_limit", str(ID_OBJ))
+        t0 = time.perf_counter()
+        r = root_c.request("PUT", "/alpha/shed", body=put_body, expect=())
+        readings["mem_shed_s"] = time.perf_counter() - t0
+        shed1 = parse_scrape(adm.metrics()).get(
+            ("mt_mem_shed_total", (("kind", "commit"),)), 0.0)
+        adm.set_config_kv("api", "mem_limit", "0")
+        check(r.status == 503 and r.xml().findtext("Code") == "SlowDown"
+              and r.headers.get("Retry-After") == "1" and shed1 == shed0 + 1
+              and on_drives("alpha", "shed") == [],
+              f"memory shed: {r.status} {r.headers.get('Retry-After')} "
+              f"shed {shed0} -> {shed1}")
+        # 5b: a full request pool sheds while health and scrape answer
+        for k, v in (("requests_max", "1"), ("requests_queue", "1"),
+                     ("requests_deadline", "1s")):
+            adm.set_config_kv("api", k, v)
+        small = put_body[:4096]
+        held = raw_put(srv.endpoint, "held", small, 100)
+        time.sleep(0.3)
+        shed: list = []
+
+        def one(i):
+            t = time.perf_counter()
+            r = root_c.request("PUT", f"/alpha/q{i}", body=small, expect=())
+            shed.append((r.status, r.headers.get("Retry-After"),
+                         time.perf_counter() - t))
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for t in ts:
+            t.start()
+        live = root_c.request("GET", "/minio/health/live", sign=False,
+                              expect=()).status
+        scrape = len(adm.metrics())
+        for t in ts:
+            t.join(30)
+        held.sendall(small[100:])
+        held_status = read_all(held).split(b"\r\n")[0]
+        for k, v in (("requests_max", "64"), ("requests_queue", "0"),
+                     ("requests_deadline", "10s")):
+            adm.set_config_kv("api", k, v)
+        n503 = [x for x in shed if x[0] == 503 and x[1] == "1"]
+        check(n503 and live == 200 and scrape > 0 and
+              held_status == b"HTTP/1.1 200 OK",
+              f"pool shed {shed}, live {live}, held {held_status}")
+        readings["pool_shed_s"] = min(x[2] for x in n503)
+        # 5c: a body that stalls after 1 MiB is cut with 408
+        adm.set_config_kv("api", "body_deadline", "1s")
+        adm.set_config_kv("api", "body_min_rate", "0")
+        t0 = time.perf_counter()
+        slow = raw_put(srv.endpoint, "slow", put_body, 1 << 20)
+        answer = read_all(slow, 10)
+        readings["timeout_s"] = time.perf_counter() - t0
+        adm.set_config_kv("api", "body_deadline", "5m")
+        adm.set_config_kv("api", "body_min_rate", "1048576")
+        deadline = time.monotonic() + 10
+        while bufpool.GLOBAL.checked_out and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(answer.startswith(b"HTTP/1.1 408") and
+              readings["timeout_s"] < 3 and
+              bufpool.GLOBAL.checked_out == 0 and
+              on_drives("alpha", "slow") == [],
+              f"stalled body: {answer[:40]!r} after "
+              f"{readings['timeout_s']:.2f} s, "
+              f"{bufpool.GLOBAL.checked_out} buffers out")
+        # 6: sealed at rest on every drive
+        for d in dirs:
+            for name in ("iam.json", "config.json"):
+                with open(f"{d}/.mt.sys/config/{name}", "rb") as f:
+                    check(f.read(len(MAGIC)) == MAGIC,
+                          f"{d} {name} not sealed")
+        # stop() drains a GET in flight
+        import socket
+        from minio_tpu_torch.s3 import sigv4
+        url = f"{srv.endpoint}/alpha/obj"
+        hdrs = sigv4.sign_request(sigv4.Credentials(S3_KEY, S3_SECRET),
+                                  "GET", url, {})
+        g = socket.create_connection(("127.0.0.1", srv.port))
+        g.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 65536)
+        g.sendall(("GET /alpha/obj HTTP/1.1\r\n" + "".join(
+            f"{k}: {v}\r\n" for k, v in hdrs.items()) + "\r\n").encode())
+        first = g.recv(65536)
+        stopper = threading.Thread(target=srv.stop)
+        stopper.start()
+        time.sleep(0.3)
+        draining = stopper.is_alive()
+        got = first + read_all(g)
+        stopper.join(60)
+        check(draining and not stopper.is_alive() and
+              got.split(b"\r\n\r\n", 1)[1] == put_body,
+              "stop() did not drain the GET in flight")
+    finally:
+        srv.stop()
+    # a restart on the same drives keeps identities and knobs
+    t0 = time.perf_counter()
+    srv2 = build_server(dirs, "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                        device="cuda")
+    readings["restart_build_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        srv2.iam.load()
+        readings["restart_iam_load_s"] = time.perf_counter() - t0
+        srv2.start()
+        check(S3Client(srv2.endpoint, "u1", "u1-secret-key").get_object(
+            "alpha", "obj").body == put_body, "u1 after the restart")
+        check(S3Client(srv2.endpoint, sa["accessKey"], sa["secretKey"])
+              .get_object("alpha", "sa").body == post_body,
+              "service account after the restart")
+        check(srv2.config.get("api", "requests_max") == "64" and
+              srv2._req_max == 64 and srv2.body_deadline_s == 300.0,
+              "api knobs after the restart")
+        torch.cuda.synchronize()
+        s2 = snapshot()
+    finally:
+        srv2.stop()
+    launches = delta(s0, s2)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"identity path: {kernel} plain version ran")
+    for kernel in ("gf8_apply", "hh256"):
+        check(delta(s_denied, s_feat)[kernel][0] > 0,
+              f"{kernel} not launched by the features' PUTs and GETs")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={"user_put": {k: v[0] for k, v in put_l.items()},
+                  "user_get": {k: v[0] for k, v in get_l.items()},
+                  "denied_put": {k: v[0] for k, v in
+                                 delta(s_get, s_denied).items()},
+                  "features": {k: v[0] for k, v in
+                               delta(s_denied, s_feat).items()}})
+    print(f"identity path on {card}: user {ID_OBJ / 2**20:g} MiB PUT "
+          f"{readings['user_put_s']:.3f} s, GET {readings['user_get_s']:.3f}"
+          f" s; memory shed {readings['mem_shed_s']:.3f} s; pool shed "
+          f"{readings['pool_shed_s']:.4f} s; 408 after "
+          f"{readings['timeout_s']:.3f} s; restart iam.load "
+          f"{readings['restart_iam_load_s']:.4f} s; phase "
+          f"{readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
 
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
@@ -1952,19 +2258,22 @@ def main() -> int:
     mp_path, mp_readings = phase_multipart(card, gen)
     sets_path, sets_readings, (ctl_path, ctl_readings) = phase_sets(
         bodies, card, gen, s3_readings)
+    id_path, id_readings = phase_identity(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
                    "multipart_path": mp_path[k["name"]],
                    "sets_path": sets_path[k["name"]],
-                   "control_path": ctl_path[k["name"]]}
+                   "control_path": ctl_path[k["name"]],
+                   "identity_path": id_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
                       "mesh_path": mesh_readings, "s3_path": s3_readings,
                       "multipart_path": mp_readings,
                       "sets_path": sets_readings,
-                      "control_path": ctl_readings}))
+                      "control_path": ctl_readings,
+                      "identity_path": id_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

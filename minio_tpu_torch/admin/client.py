@@ -5,13 +5,15 @@ the metrics scrape.
     adm = AdminClient("http://127.0.0.1:9000", "minioadmin", "minioadmin")
     adm.set_config_kv("pipeline", "depth", "0")
     adm.heal("bucket")
+    adm.add_policy("alpha-rw", {"Statement": [...]})
+    adm.add_user("u1", "u1-secret", ["alpha-rw"])
     text = adm.metrics()
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any
+from typing import Any, Optional
 
 from ..s3.client import S3Client, S3ClientError
 
@@ -63,6 +65,75 @@ class AdminClient:
 
     def set_config_kv(self, subsys: str, key: str, value: str) -> None:
         self._call("PUT", f"config/{subsys}/{key}", body=value.encode())
+
+    # -- identities ----------------------------------------------------------
+
+    def add_user(self, access_key: str, secret_key: str,
+                 policies: Optional[list[str]] = None) -> None:
+        self._call("POST", "add-user", body=json.dumps(
+            {"accessKey": access_key, "secretKey": secret_key,
+             "policies": policies or []}).encode())
+
+    def remove_user(self, access_key: str) -> None:
+        self._call("POST", "remove-user", f"accessKey={access_key}")
+
+    def list_users(self) -> dict:
+        return self._call("GET", "list-users")
+
+    def set_user_status(self, access_key: str, enabled: bool) -> None:
+        self._call("POST", "set-user-status",
+                   f"accessKey={access_key}&status="
+                   f"{'enabled' if enabled else 'disabled'}")
+
+    def set_user_policy(self, access_key: str, policies: list[str]) -> None:
+        self._call("POST", "set-user-policy",
+                   f"accessKey={access_key}&policies={','.join(policies)}")
+
+    def add_service_account(self, parent: str,
+                            access_key: Optional[str] = None,
+                            secret_key: Optional[str] = None) -> dict:
+        doc = {"parent": parent}
+        if access_key:
+            doc["accessKey"] = access_key
+        if secret_key:
+            doc["secretKey"] = secret_key
+        return self._call("POST", "add-service-account",
+                          body=json.dumps(doc).encode())
+
+    def list_service_accounts(self, parent: Optional[str] = None) -> dict:
+        return self._call("GET", "list-service-accounts",
+                          f"parent={parent}" if parent else "")
+
+    def delete_service_account(self, access_key: str) -> None:
+        self._call("POST", "delete-service-account", f"accessKey={access_key}")
+
+    def list_groups(self) -> dict:
+        return self._call("GET", "list-groups")
+
+    def add_user_to_group(self, access_key: str, group: str) -> None:
+        self._call("POST", "add-user-to-group",
+                   f"accessKey={access_key}&group={group}")
+
+    def set_group_policy(self, group: str, policies: list[str]) -> None:
+        self._call("POST", "set-group-policy", body=json.dumps(
+            {"group": group, "policies": policies}).encode())
+
+    # -- policies ------------------------------------------------------------
+
+    def list_policies(self) -> Any:
+        return self._call("GET", "policy")
+
+    def get_policy(self, name: str) -> dict:
+        return self._call("GET", f"policy/{name}")
+
+    def add_policy(self, name: str, policy_doc: dict) -> None:
+        self._call("PUT", f"policy/{name}",
+                   body=json.dumps(policy_doc).encode())
+
+    def remove_policy(self, name: str) -> None:
+        self._call("DELETE", f"policy/{name}")
+
+    # -- heal --------------------------------------------------------------
 
     def heal(self, bucket: str, prefix: str = "", deep: bool = False,
              remove: bool = False) -> dict:

@@ -3,24 +3,41 @@ cmd/admin-router.go:38), for the routes whose subsystems the port has.
 
 ``/minio-tpu/metrics`` is the Prometheus scrape: public, GET only.  The
 admin routes live under ``/minio-tpu/admin/v1/`` on the S3 listener and
-need the root credential (the port has no IAM yet, ROADMAP Queue 1 item
-14): any other identity gets AccessDenied.  They answer JSON:
+admit an identity that IAM allows ``admin:*`` (the root credential, or a
+user, service account or session with such a policy); any other gets
+AccessDenied.  They answer JSON:
 
   GET  info                     server info (``_server_info``)
   GET  config[/<subsys>]        the live kvconfig, all or one subsystem
-  PUT  config/<subsys>/<key>    set a key (the body is the value), then
-                                reload what reads it
+  PUT  config/<subsys>/<key>    set a key (the body is the value; sealed
+                                onto the drives), then reload what reads
+                                it
   POST heal/<bucket>[/<prefix>] heal the bucket and every version of
                                 every object under the prefix
                                 (``?scan=deep``, ``?remove=true``)
   GET  heal-status              the heal sweep's counters
   GET  storageinfo              per-drive capacity, state and slow flag
   POST service?action=stop|restart
+  POST add-user                 {"accessKey", "secretKey", "policies"}
+  GET  list-users
+  POST remove-user?accessKey=   (its service accounts go too)
+  POST set-user-status?accessKey=&status=enabled|disabled
+  POST set-user-policy?accessKey=&policies=a,b
+  POST add-service-account      {"parent", "accessKey", "secretKey"}
+  GET  list-service-accounts[?parent=]
+  POST delete-service-account?accessKey=
+  GET  list-groups
+  POST add-user-to-group?accessKey=&group=
+  POST set-group-policy         {"group", "policies"}
+  GET  policy                   the policy names
+  GET|PUT|DELETE policy/<name>  one policy document
 
-Every other admin route answers the S3 NotImplemented error.  The
-reference's heal route lists only latest versions and stops at 10,000
-objects (``minio_tpu/admin/handlers.py:1427-1454``); this one pages and
-heals every version, as the heal sweep does.
+An unknown user or policy answers 404, another IAM refusal 400, a
+malformed request 400.  Every other admin route answers the S3
+NotImplemented error.  The reference's heal route lists only latest
+versions and stops at 10,000 objects
+(``minio_tpu/admin/handlers.py:1427-1454``); this one pages and heals
+every version, as the heal sweep does.
 """
 
 from __future__ import annotations
@@ -32,6 +49,8 @@ import threading
 import time
 
 from ..background.heal import iter_versions
+from ..iam import policy as iampol
+from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
 from . import metrics
 
 ADMIN_PREFIX = "/minio-tpu/admin/v1"
@@ -41,7 +60,8 @@ _START = time.time()
 
 # kvconfig subsystem -> the server hook that pushes its keys into what
 # reads them (the drive knobs are read at every scrape)
-_RELOADS = {"pipeline": "reload_pipeline_config",
+_RELOADS = {"api": "reload_api_config",
+            "pipeline": "reload_pipeline_config",
             "commit": "reload_commit_config",
             "heal": "reload_background_config"}
 
@@ -59,7 +79,7 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
         return True
     if not path.startswith(ADMIN_PREFIX + "/"):
         return False
-    if not h.access_key or h.access_key != srv.access_key:
+    if not srv.iam.is_allowed(h.access_key, iampol.ADMIN_ALL):
         raise S3Error("AccessDenied")
     route = path[len(ADMIN_PREFIX) + 1:]
     q1 = {k: v[0] for k, v in query.items()}
@@ -85,9 +105,136 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
             return send_json(_storage_info(srv))
         if route == "service" and h.command == "POST":
             return _service(srv, q1, send_json)
+        if route.startswith("policy"):
+            return _policy(h, srv, route, payload, send_json)
+        iam_route = _IAM_ROUTES.get((h.command, route))
+        if iam_route is not None:
+            return iam_route(h, srv, q1, payload, send_json)
     except (KeyError, json.JSONDecodeError) as e:
         return send_json({"error": f"bad request: {e}"}, 400)
+    except (NoSuchUser, NoSuchPolicy) as e:
+        return send_json({"error": str(e)}, 404)
+    except IAMError as e:
+        return send_json({"error": str(e)}, 400)
     raise S3Error("NotImplemented")
+
+
+# -- identities (cmd/admin-handlers-users.go) ----------------------------------
+
+def _ok(send_json) -> bool:
+    return send_json({"status": "ok"})
+
+
+def _add_user(h, srv, q1, payload, send_json) -> bool:
+    doc = json.loads(payload)
+    srv.iam.add_user(doc["accessKey"], doc["secretKey"],
+                     doc.get("policies", []))
+    return _ok(send_json)
+
+
+def _list_users(h, srv, q1, payload, send_json) -> bool:
+    return send_json({u.access_key: {"status": u.status,
+                                     "policies": u.policies}
+                      for u in srv.iam.list_users()})
+
+
+def _remove_user(h, srv, q1, payload, send_json) -> bool:
+    srv.iam.remove_user(q1["accessKey"])
+    return _ok(send_json)
+
+
+def _set_user_status(h, srv, q1, payload, send_json) -> bool:
+    status = q1.get("status")
+    if status not in ("enabled", "disabled"):
+        return send_json({"error": "status must be enabled|disabled"}, 400)
+    srv.iam.set_user_status(q1["accessKey"], status == "enabled")
+    return _ok(send_json)
+
+
+def _set_user_policy(h, srv, q1, payload, send_json) -> bool:
+    pols = [p for p in q1.get("policies", "").split(",") if p]
+    srv.iam.attach_policy(q1["accessKey"], pols)
+    return _ok(send_json)
+
+
+def _add_service_account(h, srv, q1, payload, send_json) -> bool:
+    doc = json.loads(payload) if payload else {}
+    sa = srv.iam.new_service_account(doc.get("parent", h.access_key),
+                                     doc.get("accessKey"),
+                                     doc.get("secretKey"))
+    return send_json({"accessKey": sa.access_key,
+                      "secretKey": sa.secret_key})
+
+
+def _list_service_accounts(h, srv, q1, payload, send_json) -> bool:
+    return send_json({u.access_key: {"parent": u.parent_user}
+                      for u in srv.iam.list_service_accounts(
+                          q1.get("parent"))})
+
+
+def _delete_service_account(h, srv, q1, payload, send_json) -> bool:
+    ak = q1.get("accessKey", "")
+    try:
+        u = srv.iam.get_user(ak)
+    except NoSuchUser:
+        return send_json({"error": "no such account"}, 404)
+    if not u.parent_user or u.expiration:
+        # a user here would take all its service accounts with it
+        return send_json({"error": f"{ak!r} is not a service account"},
+                         400)
+    srv.iam.remove_user(ak)
+    return _ok(send_json)
+
+
+def _list_groups(h, srv, q1, payload, send_json) -> bool:
+    return send_json(srv.iam.list_groups())
+
+
+def _add_user_to_group(h, srv, q1, payload, send_json) -> bool:
+    srv.iam.add_user_to_group(q1["accessKey"], q1["group"])
+    return _ok(send_json)
+
+
+def _set_group_policy(h, srv, q1, payload, send_json) -> bool:
+    doc = json.loads(payload)
+    srv.iam.set_group_policy(doc["group"], doc["policies"])
+    return _ok(send_json)
+
+
+_IAM_ROUTES = {
+    ("POST", "add-user"): _add_user,
+    ("GET", "list-users"): _list_users,
+    ("POST", "remove-user"): _remove_user,
+    ("POST", "set-user-status"): _set_user_status,
+    ("POST", "set-user-policy"): _set_user_policy,
+    ("POST", "add-service-account"): _add_service_account,
+    ("GET", "list-service-accounts"): _list_service_accounts,
+    ("POST", "delete-service-account"): _delete_service_account,
+    ("GET", "list-groups"): _list_groups,
+    ("POST", "add-user-to-group"): _add_user_to_group,
+    ("POST", "set-group-policy"): _set_group_policy,
+}
+
+
+def _policy(h, srv, route: str, payload: bytes, send_json) -> bool:
+    """``policy``: the names; ``policy/<name>``: one document, read,
+    put or deleted (a canned policy cannot be deleted)."""
+    from ..s3.server import S3Error
+    parts = route.split("/", 1)
+    if len(parts) == 1:
+        if h.command == "GET":
+            return send_json({"policies": srv.iam.list_policies()})
+        raise S3Error("MethodNotAllowed")
+    name = parts[1]
+    if h.command == "GET":
+        return send_json(json.loads(srv.iam.get_policy(name).to_json()))
+    if h.command == "PUT":
+        srv.iam.set_policy(name, iampol.Policy.from_json(payload))
+        return _ok(send_json)
+    if h.command == "DELETE":
+        srv.iam.delete_policy(name)
+        return _ok(send_json)
+    raise S3Error("MethodNotAllowed")
 
 
 def _server_info(srv) -> dict:

@@ -19,6 +19,8 @@ families computed at scrape time from the live server:
   mt_put_pipeline_*       writer queues and the last streaming PUT's
                           overlap
   mt_heal_*               the heal sweep's counters and rates
+  mt_mem_*                the memory governor (``utils/memgov.py``):
+                          watermark, bytes in use per kind, peak, sheds
 
 Family names are the reference's, so its dashboards read the port.  A
 family that nothing fills is not rendered.
@@ -102,6 +104,28 @@ def _fmt_labels(labels: tuple, extra: str = "") -> str:
     return "{" + inner + "}" if inner else ""
 
 
+def _memgov_gauges() -> list[str]:
+    """The memory governor's watermark, bytes in use per kind (every
+    kind the reference charges, 0 where nothing is charged) and peak;
+    nothing until the governor has been configured, charged or has shed.
+    ``mt_mem_shed_total`` is a counter, ticked where a charge sheds."""
+    from ..utils.memgov import GOVERNOR
+    if not GOVERNOR.touched:
+        return []
+    st = GOVERNOR.stats()
+    lines = ["# TYPE mt_mem_limit_bytes gauge",
+             f"mt_mem_limit_bytes {st['limit_bytes']}",
+             "# TYPE mt_mem_peak_bytes gauge",
+             f"mt_mem_peak_bytes {st['peak_bytes']}",
+             "# TYPE mt_mem_inuse_bytes gauge"]
+    inuse = st["inuse"]
+    for kind in sorted(set(inuse) | {"select", "listing", "multipart",
+                                     "cache", "pipeline"}):
+        lbl = _fmt_labels((("kind", kind),))
+        lines.append(f"mt_mem_inuse_bytes{lbl} {inuse.get(kind, 0)}")
+    return lines
+
+
 def render(layer=None, healer=None, config=None, api_stats=None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
@@ -154,6 +178,7 @@ def render(layer=None, healer=None, config=None, api_stats=None) -> str:
                     lambda: _put_pipeline_gauges(layer)]
     if api_stats is not None:
         sources.append(lambda: _s3_lastminute_gauges(api_stats))
+    sources.append(_memgov_gauges)
     if healer is not None:
         sources += [lambda: _heal_counters(healer),
                     lambda: _progress_gauges("mt_heal", healer.progress)]

@@ -1,25 +1,33 @@
-"""A bucket's versioning state (``minio_tpu/objectlayer/bucket_meta.py``,
-cmd/bucket-metadata-sys.go), trimmed to the versioning document.
+"""A bucket's versioning state and policy
+(``minio_tpu/objectlayer/bucket_meta.py``, cmd/bucket-metadata-sys.go).
 
 The document is the reference's: JSON in every drive's system volume at
 ``.mt.sys/buckets/<bucket>/bucket-meta.json``, written with quorum,
-``{"versioning": {"status": "Enabled" | "Suspended"}, "_rev": n}``.  A
-read takes the copy with the highest ``_rev``, so a drive that missed the
-last write cannot roll the state back.  Either package serving the drives
-sees the same state.  Over several sets the document lives on set 0's
-drives, as the reference's ``ErasureSets._fanout`` keeps it.  The other
-configs the reference keeps in the same document (policy, lifecycle, ...)
-are not read or written here.
+``{"versioning": {"status": "Enabled" | "Suspended"}, "policy": "<raw
+JSON>", "_rev": n}``.  A read takes the copy with the highest ``_rev``,
+so a drive that missed the last write cannot roll the state back.
+Either package serving the drives sees the same state.  Over several
+sets the document lives on set 0's drives, as the reference's
+``ErasureSets._fanout`` keeps it.  The other configs the reference keeps
+in the same document (lifecycle, tagging, ...) are carried through, not
+read (ROADMAP Queue 1 item 16.5).  Every S3 request looks up its bucket's
+policy, and every PUT its versioning, so a bucket found without a
+document is remembered as such (up to ``ABSENT_CAP`` names, so probes of
+random names cannot grow it) until this process writes one: a request on
+such a bucket reads no drive.  The reference rereads every drive each
+time.
 """
 
 from __future__ import annotations
 
 import json
 import threading
-from typing import Any
+from typing import Any, Optional
 
 from ..storage import errors as serrors
 from ..storage.xl_storage import SYS_DIR
+
+ABSENT_CAP = 4096
 
 
 class BucketMetadataSys:
@@ -27,6 +35,9 @@ class BucketMetadataSys:
         # the ErasureObjects it reads and writes
         self._er = layer.meta_set
         self._cache: dict[str, dict] = {}
+        self._absent: set[str] = set()     # read, and found without one
+        # (bucket, name) -> (raw document, parsed): parsed once per raw
+        self._parsed: dict[tuple[str, str], tuple[str, Any]] = {}
         self._mu = threading.Lock()
 
     @staticmethod
@@ -38,9 +49,11 @@ class BucketMetadataSys:
         with self._mu:
             if bucket in self._cache:
                 return self._cache[bucket]
+            if bucket in self._absent:
+                return {}
         er = self._er
-        res, _ = er._fanout(lambda d: d.read_all(SYS_DIR, self._path(bucket)),
-                            er.disks)
+        res, errs = er._fanout(
+            lambda d: d.read_all(SYS_DIR, self._path(bucket)), er.disks)
         doc: dict = {}
         for r in res:
             if r is None:
@@ -51,18 +64,24 @@ class BucketMetadataSys:
                 continue
             if cand.get("_rev", 0) >= doc.get("_rev", 0):
                 doc = cand
-        if doc:
-            # an empty document is never cached: probes of random bucket
-            # names must not grow the cache
-            with self._mu:
+        with self._mu:
+            if doc:
                 self._cache[bucket] = doc
+            elif len(self._absent) < ABSENT_CAP and sum(
+                    isinstance(e, serrors.FileNotFound) for e in errs) \
+                    > len(errs) // 2:
+                # a quorum of drives says so: not an outage
+                self._absent.add(bucket)
         return doc
 
     def update(self, bucket: str, key: str, value: Any) -> None:
-        """Set one key and write the document, a revision up, to every
-        drive; a write below quorum raises."""
+        """Set one key (None removes it) and write the document, a
+        revision up, to every drive; a write below quorum raises."""
         doc = dict(self.get(bucket))
-        doc[key] = value
+        if value is None:
+            doc.pop(key, None)
+        else:
+            doc[key] = value
         doc["_rev"] = doc.get("_rev", 0) + 1
         blob = json.dumps(doc).encode()
         er = self._er
@@ -75,6 +94,7 @@ class BucketMetadataSys:
                 f"bucket metadata write reached only {ok} drives")
         with self._mu:
             self._cache[bucket] = doc
+            self._absent.discard(bucket)
 
     def drop(self, bucket: str) -> None:
         """Forget a deleted bucket's document, on the drives too."""
@@ -83,6 +103,36 @@ class BucketMetadataSys:
                                       recursive=True), er.disks)
         with self._mu:
             self._cache.pop(bucket, None)
+            self._absent.discard(bucket)
+            for k in [k for k in self._parsed if k[0] == bucket]:
+                del self._parsed[k]
+
+    def get_config(self, bucket: str, name: str) -> Optional[str]:
+        """A stored config document, raw, or None."""
+        v = self.get(bucket).get(name)
+        if isinstance(v, dict):
+            return v.get("raw")
+        return v
+
+    def set_config(self, bucket: str, name: str, raw: Optional[str]) -> None:
+        self.update(bucket, name, raw)
+
+    def get_bucket_policy(self, bucket: str):
+        """The bucket's parsed policy, or None; parsed once for each
+        stored document, not on every request."""
+        from ..bucket.policy import BucketPolicy
+        raw = self.get_config(bucket, "policy")
+        if raw is None:
+            return None
+        key = (bucket, "policy")
+        with self._mu:
+            cached = self._parsed.get(key)
+            if cached is not None and cached[0] == raw:
+                return cached[1]
+        parsed = BucketPolicy.parse(raw.encode())
+        with self._mu:
+            self._parsed[key] = (raw, parsed)
+        return parsed
 
     def versioning_enabled(self, bucket: str) -> bool:
         return self.get(bucket).get("versioning", {}).get(

@@ -12,7 +12,10 @@ writes on a per-drive writer plane.
     storage call per drive: packed into the drive's segment file below
     1 MiB (``XLStorage.write_packed``), else a part file
     (``write_data_commit``) whose xl.meta waits for the MD5 hashed
-    beside it.  Larger objects stream: a chained MD5 task, encode, and
+    beside it; on the writer plane its framed shards are charged to the
+    memory governor (``commit``, ``utils/memgov.py``) until the drives
+    have them, and a charge past the watermark refuses the PUT before
+    any drive is written.  Larger objects stream: a chained MD5 task, encode, and
     the drives' create/append run side by side, at most two batches in
     flight, then one ``rename_data`` per drive commits.
   * Drive writes go through ``storage/writers.py``: one thread per drive
@@ -81,7 +84,7 @@ from ..storage.datatypes import (ChecksumInfo, ErasureInfo, FileInfo,
 from ..ops import codec as codec_mod
 from ..storage.writers import QUEUE_DEPTH, WriterPlane, held_release
 from ..storage.xl_storage import SYS_DIR
-from ..utils import bufpool
+from ..utils import bufpool, memgov
 from ..utils.kvconfig import Config
 from ..utils.readahead import readahead
 from . import metadata as meta
@@ -221,7 +224,8 @@ class ErasureObjects(MultipartOps):
                else list(self._pool.map(run, items)))
         return [r for r, _ in out], [e for _, e in out]
 
-    def _commit_fanout(self, write_one, shuffled: list, buf) -> list:
+    def _commit_fanout(self, write_one, shuffled: list, buf,
+                       framed_bytes: int | None = None) -> list:
         """One storage call ``write_one(idx, disk)`` per drive; returns the
         per-drive errors.  On the writer plane, where concurrent streams'
         commits coalesce into group commits; the queue bound widens to a
@@ -231,7 +235,10 @@ class ErasureObjects(MultipartOps):
         settled, also when a failed commit stops waiting for them.  A
         drive its health proxy holds offline is skipped: ``write_packed``
         passes the proxy unguarded, and a swapped drive must never be
-        written."""
+        written.  ``framed_bytes`` (a PUT's framed shards) is charged to
+        the memory governor (``commit``) while the plane holds the ops,
+        and released however the fan-out ends; past the watermark it
+        raises MemoryPressure before any drive is written."""
         shuffled = [None if getattr(d, "offline", False) else d
                     for d in shuffled]
         if not self._pipeline_on():
@@ -239,6 +246,8 @@ class ErasureObjects(MultipartOps):
                                    [None if d is None else (i, d)
                                     for i, d in enumerate(shuffled)])
             return errs
+        charge = None if framed_bytes is None else \
+            memgov.GOVERNOR.charge(framed_bytes, "commit")
         sw = self._write_plane.stream(shuffled)
         bound = max(self._write_plane.queue_bound(),
                     _commit.CONFIG.max_batch)
@@ -251,6 +260,9 @@ class ErasureObjects(MultipartOps):
             sw.abort()
             sw.drain(ABORT_DRAIN_S)
             raise
+        finally:
+            if charge is not None:
+                charge.release()
         return list(sw.errs)
 
     # -- buckets -----------------------------------------------------------
@@ -555,8 +567,8 @@ class ErasureObjects(MultipartOps):
                                        shard_index=idx + 1,
                                        version_dict=vdict)
 
-        self._reduce_write(self._commit_fanout(write_one, shuffled, buf),
-                           fi)
+        self._reduce_write(self._commit_fanout(write_one, shuffled, buf,
+                                               framed.nbytes), fi)
 
     def _commit_put_overlapped(self, fi: FileInfo, framed: np.ndarray,
                                shuffled: list, etag_future,
@@ -590,7 +602,8 @@ class ErasureObjects(MultipartOps):
 
         resolver = self._pool.submit(resolve)
         try:
-            errs = self._commit_fanout(write_one, shuffled, buf)
+            errs = self._commit_fanout(write_one, shuffled, buf,
+                                       framed.nbytes)
             resolver.result()
             self._reduce_write(errs, fi)
         finally:

@@ -3,21 +3,31 @@ trimmed to what drives the port without boto3: make and list buckets,
 PUT (header-signed or aws-chunked), GET, HEAD, DELETE and listing, by
 version id too; bucket versioning and ListObjectVersions; multipart
 uploads, with ``upload_parts`` sending the parts from worker threads as
-minio-go does.  ``send`` takes any request signed by ``sigv4``.
+minio-go does; bucket policies; STS AssumeRole (``assume_role`` returns
+a client of the session, which sends its token on every request);
+SigV2 header-signed requests and presigned URLs; POST-policy uploads.
+``send`` takes any request signed by ``sigv4`` or ``sigv2``.
 """
 
 from __future__ import annotations
 
 import base64
+import datetime
+import email.utils
 import hashlib
 import http.client
+import json
 import time
 import urllib.parse
+import uuid
 import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+from . import postpolicy, sigv2
 from .sigv4 import Credentials, sign_request, sign_request_streaming
+
+STS_NS = "{https://sts.amazonaws.com/doc/2011-06-15/}"
 
 S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 
@@ -46,6 +56,7 @@ class S3Client:
     secret_key: str
     region: str = "us-east-1"
     timeout: float = 600.0
+    session_token: str = ""             # an STS session's
 
     @property
     def _creds(self) -> Credentials:
@@ -64,8 +75,13 @@ class S3Client:
         conn = http.client.HTTPConnection(u.hostname, u.port,
                                           timeout=self.timeout)
         try:
-            conn.request(method, u.path + (f"?{u.query}" if u.query else ""),
-                         body=body, headers=headers or {})
+            try:
+                conn.request(method,
+                             u.path + (f"?{u.query}" if u.query else ""),
+                             body=body, headers=headers or {})
+            except (BrokenPipeError, ConnectionResetError):
+                pass    # the server answered before it read the whole
+                #         body (a refusal): its answer is still readable
             resp = conn.getresponse()
             out = S3Response(resp.status, dict(resp.getheaders()),
                              resp.read())
@@ -86,11 +102,38 @@ class S3Client:
                 body: bytes = b"", headers: dict | None = None,
                 sign: bool = True, expect=(200, 204, 206)) -> S3Response:
         url = self._url(path, query)
-        hdrs = dict(headers or {})
+        hdrs = self._token(headers)
         if sign:
             hdrs = sign_request(self._creds, method, url, hdrs, body,
                                 self.region)
         return self.send(method, url, body, hdrs, expect)
+
+    def _token(self, headers: dict | None) -> dict:
+        hdrs = dict(headers or {})
+        if self.session_token:
+            hdrs["x-amz-security-token"] = self.session_token
+        return hdrs
+
+    def request_v2(self, method: str, path: str, query: str = "",
+                   body: bytes = b"", headers: dict | None = None,
+                   expect=(200, 204, 206)) -> S3Response:
+        """A SigV2 header-signed request (``Authorization: AWS
+        key:signature`` over the Date header)."""
+        url = self._url(path, query)
+        hdrs = self._token(headers)
+        hdrs["Date"] = email.utils.formatdate(usegmt=True)
+        hdrs["Authorization"] = sigv2.sign_header(
+            self.access_key, self.secret_key, method, path,
+            urllib.parse.parse_qs(query, keep_blank_values=True), hdrs)
+        return self.send(method, url, body, hdrs, expect)
+
+    def presign_v2(self, method: str, bucket: str, key: str,
+                   expires_s: int = 900) -> str:
+        """A SigV2 presigned URL, valid for ``expires_s`` seconds."""
+        path = f"/{bucket}/{key}"
+        return self._url(path, "") + "?" + sigv2.presign(
+            self.access_key, self.secret_key, method, path,
+            int(time.time()) + expires_s)
 
     # -- buckets -----------------------------------------------------------
 
@@ -119,8 +162,9 @@ class S3Client:
             hdrs["Content-MD5"] = base64.b64encode(
                 hashlib.md5(data).digest()).decode()
         url = self._url(f"/{bucket}/{key}", "")
-        hdrs, body = sign_request_streaming(self._creds, "PUT", url, hdrs,
-                                            data, chunk_size, self.region)
+        hdrs, body = sign_request_streaming(self._creds, "PUT", url,
+                                            self._token(hdrs), data,
+                                            chunk_size, self.region)
         return self.send("PUT", url, body, hdrs)
 
     def get_object(self, bucket: str, key: str,
@@ -173,6 +217,65 @@ class S3Client:
                         "size": int(v.findtext(f"{S3_NS}Size") or 0)})
         return out
 
+    # -- bucket policy, STS, POST policy -----------------------------------
+
+    def set_bucket_policy(self, bucket: str, policy: dict) -> None:
+        self.request("PUT", f"/{bucket}", "policy",
+                     json.dumps(policy).encode())
+
+    def get_bucket_policy(self, bucket: str) -> dict:
+        return json.loads(self.request("GET", f"/{bucket}", "policy").body)
+
+    def delete_bucket_policy(self, bucket: str) -> None:
+        self.request("DELETE", f"/{bucket}", "policy")
+
+    def assume_role(self, duration_s: int = 3600,
+                    policy: dict | None = None) -> "S3Client":
+        """STS AssumeRole: a client of the session's credentials (within
+        ``policy`` when given)."""
+        form = {"Action": "AssumeRole", "Version": "2011-06-15",
+                "DurationSeconds": str(duration_s)}
+        if policy is not None:
+            form["Policy"] = json.dumps(policy)
+        root = self.request("POST", "/", body=urllib.parse.urlencode(
+            form).encode(), headers={
+                "Content-Type": "application/x-www-form-urlencoded"}).xml()
+        ce = root.find(f"{STS_NS}AssumeRoleResult/{STS_NS}Credentials")
+        return S3Client(self.endpoint,
+                        ce.findtext(f"{STS_NS}AccessKeyId"),
+                        ce.findtext(f"{STS_NS}SecretAccessKey"),
+                        self.region, self.timeout,
+                        ce.findtext(f"{STS_NS}SessionToken"))
+
+    def post_object(self, bucket: str, key: str, data: bytes,
+                    conditions: list | None = None, expires_s: int = 900,
+                    fields: dict | None = None,
+                    expect=(200, 201, 204, 303)) -> S3Response:
+        """A browser POST-policy upload, signed V4: the policy holds the
+        bucket, the key, ``conditions`` and an expiry ``expires_s`` away;
+        ``fields`` go into the form beside them."""
+        now = datetime.datetime.now(datetime.timezone.utc)
+        doc = {"expiration": (now + datetime.timedelta(
+            seconds=expires_s)).strftime("%Y-%m-%dT%H:%M:%S.000Z"),
+            "conditions": [{"bucket": bucket}, {"key": key},
+                           *(conditions or [])]}
+        form = {"key": key, **(fields or {}),
+                **postpolicy.sign_policy_v4(self.access_key,
+                                            self.secret_key, doc,
+                                            self.region, now)}
+        boundary = uuid.uuid4().hex
+        parts = [f'--{boundary}\r\nContent-Disposition: form-data; '
+                 f'name="{k}"\r\n\r\n{v}\r\n'.encode()
+                 for k, v in form.items()]
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="file"; filename="{key.rsplit("/", 1)[-1]}"'
+                     f'\r\nContent-Type: application/octet-stream'
+                     f'\r\n\r\n'.encode() + data + b"\r\n")
+        body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+        return self.send("POST", self._url(f"/{bucket}", ""), body, {
+            "Content-Type": f"multipart/form-data; boundary={boundary}"},
+            expect)
+
     # -- multipart ---------------------------------------------------------
 
     def create_multipart_upload(self, bucket: str, key: str) -> str:
@@ -190,8 +293,9 @@ class S3Client:
         else:
             url = self._url(f"/{bucket}/{key}", query)
             hdrs, body = sign_request_streaming(
-                self._creds, "PUT", url, {"Content-MD5": base64.b64encode(
-                    hashlib.md5(data).digest()).decode()},
+                self._creds, "PUT", url, self._token({
+                    "Content-MD5": base64.b64encode(
+                        hashlib.md5(data).digest()).decode()}),
                 data, chunk_size, self.region)
             r = self.send("PUT", url, body, hdrs)
         return r.headers["ETag"].strip('"')

@@ -53,6 +53,9 @@ _ERRORS = {e.code: e for e in (
              "order.", 400),
     APIError("InvalidRange", "The requested range is not satisfiable", 416),
     APIError("InvalidRequest", "Invalid Request", 400),
+    APIError("MalformedPOSTRequest", "The body of your POST request is not "
+             "well-formed multipart/form-data.", 400),
+    APIError("MalformedPolicy", "Policy has invalid resource.", 400),
     APIError("MalformedXML", "The XML you provided was not well-formed or "
              "did not validate against our published schema.", 400),
     APIError("MethodNotAllowed", "The specified method is not allowed "
@@ -60,6 +63,7 @@ _ERRORS = {e.code: e for e in (
     APIError("MissingContentLength", "You must provide the Content-Length "
              "HTTP header.", 411),
     APIError("NoSuchBucket", "The specified bucket does not exist", 404),
+    APIError("NoSuchBucketPolicy", "The bucket policy does not exist", 404),
     APIError("NoSuchKey", "The specified key does not exist.", 404),
     APIError("NoSuchUpload", "The specified multipart upload does not exist. "
              "The upload ID may be invalid, or the upload may have been "
@@ -83,6 +87,10 @@ _ERRORS = {e.code: e for e in (
 
 def get(code: str) -> APIError:
     return _ERRORS.get(code, _ERRORS["InternalError"])
+
+
+def has(code: str) -> bool:
+    return code in _ERRORS
 
 
 _OBJECT_ERRORS = {

@@ -1,9 +1,13 @@
 """S3 bucket handlers (``minio_tpu/s3/handlers_bucket.py``,
 cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket, GET
-``?location``, PUT and GET ``?versioning``, ListObjects V1 and V2,
-ListObjectVersions (``?versions``), ListMultipartUploads (``?uploads``)
-and DeleteObjects, with version ids.  ``_make_handler`` (server.py) attaches them to the
-request handler; ``self`` is the handler and ``self.srv`` its server.
+``?location``, PUT and GET ``?versioning``, PUT, GET and DELETE
+``?policy`` (the bucket policy, ``bucket/policy.py``), ListObjects V1
+and V2, ListObjectVersions (``?versions``), ListMultipartUploads
+(``?uploads``), DeleteObjects, with version ids, and the browser
+POST-policy upload.  Each authorises the reference's S3 action on the
+bucket (on ``bucket/key`` for a key) before it touches the layer.
+``_make_handler`` (server.py) attaches them to the request handler;
+``self`` is the handler and ``self.srv`` its server.
 """
 
 from __future__ import annotations
@@ -11,15 +15,19 @@ from __future__ import annotations
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket.policy import BucketPolicy
+from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer import metacache
+from ..objectlayer.interface import PutObjectOptions
 from . import errors as s3err
-from .server import S3_NS, S3Error, _iso_date, _xml
+from . import postpolicy, sigv4
+from .server import MAX_PUT_SIZE, S3_NS, S3Error, _iso_date, _xml
 
-# bucket subresources the port does not serve (configs, ACLs, event
-# listening)
+# bucket subresources the port does not serve (the other configs, ACLs,
+# event listening: ROADMAP Queue 1 item 16)
 UNSERVED = frozenset((
-    "policy", "lifecycle", "encryption", "replication", "notification",
+    "lifecycle", "encryption", "replication", "notification",
     "object-lock", "tagging", "quota", "acl", "cors", "website",
     "accelerate", "requestPayment", "logging", "events"))
 
@@ -27,7 +35,7 @@ UNSERVED = frozenset((
 def _list_buckets(self):
     if self.command != "GET":
         raise S3Error("MethodNotAllowed")
-    self._allow()
+    self._allow(iampol.LIST_ALL_MY_BUCKETS)
     root = ET.Element("ListAllMyBucketsResult", xmlns=S3_NS)
     owner = ET.SubElement(root, "Owner")
     ET.SubElement(owner, "ID").text = "minio-tpu"
@@ -42,16 +50,18 @@ def _list_buckets(self):
 
 def _bucket_api(self, bucket, query, payload):
     cmd = self.command
+    if "policy" in query:
+        return self._bucket_policy(bucket, payload)
     if "versioning" in query:
         if cmd == "PUT":
-            self._allow()
+            self._allow(iampol.PUT_BUCKET_VERSIONING, bucket)
             return self._put_versioning(bucket, payload)
         if cmd == "GET":
-            self._allow()
+            self._allow(iampol.GET_BUCKET_VERSIONING, bucket)
             return self._get_versioning(bucket)
         raise S3Error("NotImplemented")
     if cmd == "GET" and "location" in query:
-        self._allow()
+        self._allow(iampol.GET_BUCKET_LOCATION, bucket)
         root = ET.Element("LocationConstraint", xmlns=S3_NS)
         # us-east-1 is the empty constraint on the wire
         root.text = "" if self.srv.region == "us-east-1" \
@@ -59,35 +69,127 @@ def _bucket_api(self, bucket, query, payload):
         self.srv.layer.get_bucket_info(bucket)
         return self._send(200, _xml(root))
     if cmd == "GET" and "versions" in query:
-        self._allow()
+        self._allow(iampol.LIST_BUCKET_VERSIONS, bucket)
         return self._list_object_versions(bucket, query)
     if cmd == "POST" and "delete" in query:
         return self._delete_objects(bucket, payload)
+    if cmd == "POST" and (self.headers.get("Content-Type") or ""
+                          ).startswith("multipart/form-data"):
+        return self._post_policy_upload(bucket, payload)
     if cmd == "GET" and "uploads" in query:
-        self._allow()
+        self._allow(iampol.LIST_MULTIPART_UPLOADS, bucket)
         return self._list_uploads(bucket, query)
     if UNSERVED & set(query) or cmd == "POST":
-        raise S3Error("NotImplemented")     # configs, POST policy uploads
+        raise S3Error("NotImplemented")     # the other configs
     if cmd == "PUT":
-        self._allow()
+        self._allow(iampol.CREATE_BUCKET, bucket)
         if self.headers.get("x-amz-bucket-object-lock-enabled",
                             "").lower() == "true":
             raise S3Error("NotImplemented")
         self.srv.layer.make_bucket(bucket)
         return self._send(200, headers={"Location": f"/{bucket}"})
     if cmd == "HEAD":
-        self._allow()
+        self._allow(iampol.LIST_BUCKET, bucket)
         self.srv.layer.get_bucket_info(bucket)
         return self._send(200)
     if cmd == "DELETE":
-        self._allow()
+        self._allow(iampol.DELETE_BUCKET, bucket)
         self.srv.layer.delete_bucket(bucket)
         self.srv.bucket_meta.drop(bucket)
         return self._send(204)
     if cmd == "GET":
-        self._allow()
+        self._allow(iampol.LIST_BUCKET, bucket)
         return self._list_objects(bucket, query)
     raise S3Error("MethodNotAllowed")
+
+
+def _bucket_policy(self, bucket, payload):
+    """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go):
+    authorised before the bucket's existence is checked, so a caller
+    cannot tell a missing bucket from a refused one.  The stored document
+    is the parsed policy written back as JSON."""
+    cmd = self.command
+    if cmd == "PUT":
+        self._allow(iampol.PUT_BUCKET_POLICY, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        try:
+            doc = BucketPolicy.parse(payload, bucket).to_json().decode()
+        except (ValueError, KeyError) as e:
+            raise S3Error(getattr(e, "code", "MalformedPolicy")) from e
+        self.srv.bucket_meta.set_config(bucket, "policy", doc)
+        return self._send(200)
+    if cmd == "GET":
+        self._allow(iampol.GET_BUCKET_POLICY, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        raw = self.srv.bucket_meta.get_config(bucket, "policy")
+        if raw is None:
+            raise S3Error("NoSuchBucketPolicy")
+        return self._send(200, raw.encode(),
+                          content_type="application/json")
+    if cmd == "DELETE":
+        self._allow(iampol.PUT_BUCKET_POLICY, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        self.srv.bucket_meta.set_config(bucket, "policy", None)
+        return self._send(204)
+    raise S3Error("MethodNotAllowed")
+
+
+def _post_policy_upload(self, bucket, payload):
+    """Browser POST upload (PostPolicyBucketHandler): the form's policy
+    signature authenticates, its conditions are checked against the
+    fields and the file's size, ``s3:PutObject`` is authorised, then the
+    file field is stored as the object.  ``success_action_redirect``
+    answers 303, ``success_action_status`` 200 or 201 (with a
+    PostResponse), else 204."""
+    try:
+        fields, file_data, filename = postpolicy.parse_form(
+            payload, self.headers.get("Content-Type", ""))
+        key = fields.get("key", "")
+        if not key:
+            raise S3Error("InvalidArgument")
+        key = key.replace("${filename}", filename)
+        self.access_key = postpolicy.verify_signature(
+            self.srv.iam.lookup_secret, fields, self.srv.region)
+        postpolicy.check_policy(fields.get("policy", ""),
+                                {**fields, "key": key, "bucket": bucket},
+                                len(file_data))
+    except sigv4.SigV4Error as e:
+        raise S3Error(e.code if s3err.has(e.code)
+                      else "AccessDenied") from e
+    self._allow(iampol.PUT_OBJECT, f"{bucket}/{key}")
+    if fields.get("tagging"):
+        raise S3Error("NotImplemented")     # object tagging, item 16.2
+    if len(file_data) > MAX_PUT_SIZE:
+        raise S3Error("EntityTooLarge")
+    user_defined = {}
+    if fields.get("content-type"):
+        user_defined["content-type"] = fields["content-type"]
+    for k, v in fields.items():
+        if k.startswith("x-amz-meta-"):
+            user_defined[k] = v
+    oi = self.srv.layer.put_object(
+        bucket, key, file_data, PutObjectOptions(
+            user_defined=user_defined,
+            versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+    hdrs = {"ETag": f'"{oi.etag}"'}
+    if oi.version_id:
+        hdrs["x-amz-version-id"] = oi.version_id
+    hdrs["Location"] = f"/{bucket}/{urllib.parse.quote(key)}"
+    redirect = fields.get("success_action_redirect", "")
+    if redirect:
+        sep = "&" if "?" in redirect else "?"
+        hdrs["Location"] = redirect + sep + urllib.parse.urlencode(
+            {"bucket": bucket, "key": key, "etag": f'"{oi.etag}"'})
+        return self._send(303, headers=hdrs)
+    status = fields.get("success_action_status", "204")
+    if status == "201":
+        root = ET.Element("PostResponse")
+        ET.SubElement(root, "Location").text = hdrs["Location"]
+        ET.SubElement(root, "Bucket").text = bucket
+        ET.SubElement(root, "Key").text = key
+        ET.SubElement(root, "ETag").text = hdrs["ETag"]
+        return self._send(201, _xml(root), headers=hdrs)
+    return self._send(200 if status == "200" else 204, headers=hdrs)
 
 
 def _put_versioning(self, bucket, payload):
@@ -268,7 +370,7 @@ def _delete_objects(self, bucket, payload):
         key = obj.findtext(f"{ns}Key") or obj.findtext("Key")
         vid = obj.findtext(f"{ns}VersionId") or obj.findtext("VersionId")
         try:
-            self._allow()
+            self._allow(iampol.DELETE_OBJECT, f"{bucket}/{key}")
             res = self.srv.layer.delete_object(
                 bucket, key, ol.ObjectOptions(version_id=vid,
                                               versioned=versioned))
@@ -294,6 +396,7 @@ def _delete_objects(self, bucket, payload):
 
 
 # the methods _make_handler attaches to the request handler
-HANDLERS = ["_list_buckets", "_bucket_api", "_put_versioning",
+HANDLERS = ["_list_buckets", "_bucket_api", "_bucket_policy",
+            "_post_policy_upload", "_put_versioning",
             "_get_versioning", "_list_object_versions", "_list_uploads",
             "_encoding_type", "_list_objects", "_delete_objects"]

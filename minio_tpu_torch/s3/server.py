@@ -3,27 +3,48 @@ cmd/api-router.go:82 with cmd/object-handlers.go and
 cmd/bucket-handlers.go).
 
 Path-style S3 on a threading HTTP server, one thread per connection.
-A handler authenticates (SigV4: header-signed, presigned or aws-chunked),
-authorizes, maps the route to one call of the object layer and renders
-S3 XML; the erasure coding and bitrot hashing of the body run on the
-layer's device.  One root credential: the root key may do everything,
-an unknown key gets InvalidAccessKeyId and an anonymous request
-AccessDenied.  Multipart uploads and versioned buckets are served (a
-bucket's versioning state in ``bucket_meta``).  What the port does not
-serve (bucket configs, tagging, object lock, copy, select, SigV2, STS,
-the web UI, SSE, the admin routes of ``admin/handlers.py`` it lacks)
-answers the S3 ``NotImplemented`` error document.  The health probes are
-served: ``/minio/health/live`` and ``ready`` while the process serves,
+A handler authenticates (SigV4: header-signed, presigned or aws-chunked;
+SigV2: header-signed or presigned; the POST-policy form's own
+signature), authorises the request's S3 action through the bucket
+policy and IAM (``iam/sys.py``: the root credential, users, service
+accounts and STS sessions, whose session token is checked on every
+request), maps the route to one call of the object layer and renders S3
+XML; the erasure coding and bitrot hashing of the body run on the
+layer's device.  A request is authorised before its body is read or
+encoded.  Multipart uploads, versioned buckets, bucket policies
+(``?policy``), POST-policy uploads and STS AssumeRole are served.  What
+the port does not serve (the other bucket configs, tagging, object lock,
+copy, select, the LDAP and web-identity STS calls, the web UI, SSE, the
+admin routes of ``admin/handlers.py`` it lacks) answers the S3
+``NotImplemented`` error document.  The health probes are served:
+``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
+The request plane (cmd/handler-api.go, cmd/http/server.go), from the
+``api`` kvconfig subsystem and live on its change
+(``reload_api_config``): S3 requests take a slot of ``requests_max``,
+waiting at most ``requests_deadline`` in a line of ``requests_queue``;
+a request beyond the line, or one whose wait runs out, answers 503
+``SlowDown`` with ``Retry-After``, while the admin, metrics and health
+paths stay reachable.  Each connection has a socket timeout for its
+request line, headers and keep-alive idle, and each body an absolute
+read budget (``_DeadlineRFile``), also when the read-ahead thread of a
+streamed PUT reads it; past it the request answers 408
+``RequestTimeout``.  A charge the memory governor refuses
+(``utils/memgov.py``) answers 503 ``SlowDown`` with ``Retry-After``.
+``stop()`` closes the listener, lets in-flight requests finish for
+``shutdown_drain_s``, then severs what is left.
+
 The control plane: ``/minio-tpu/metrics`` (Prometheus, GET only, no
-auth) and the admin API under ``/minio-tpu/admin/v1/`` (root only),
-both in ``admin/handlers.py``; ``config`` is the live kvconfig, whose
-``pipeline``, ``commit`` and ``heal`` changes the ``reload_*`` hooks push
-into the layer, the commit plane and the heal sweep.  Every response
-counts into ``mt_s3_requests_total`` and ``mt_s3_tx_bytes_total``, every
-request body into ``mt_s3_rx_bytes_total``; S3 API requests (not the
-``/minio-tpu/`` and ``/minio/`` paths) also count per API name into
+auth) and the admin API under ``/minio-tpu/admin/v1/`` (identities
+allowed ``admin:*``), both in ``admin/handlers.py``; ``config`` is the
+live kvconfig, sealed at rest in ``.mt.sys/config/config.json``, whose
+``api``, ``pipeline``, ``commit`` and ``heal`` changes the ``reload_*``
+hooks push into the request plane, the layer, the commit plane and the
+heal sweep.  Every response counts into ``mt_s3_requests_total`` and
+``mt_s3_tx_bytes_total``, every request body into
+``mt_s3_rx_bytes_total``; S3 API requests (not the ``/minio-tpu/`` and
+``/minio/`` paths) also count per API name into
 ``mt_s3_requests_api_total``, ``mt_s3_requests_errors_total``,
 ``mt_s3_ttfb_seconds`` and the last-minute ``api_stats`` windows.  The
 heal sweep (``healer``) starts and stops with the server.
@@ -34,6 +55,7 @@ from __future__ import annotations
 import datetime
 import email.utils
 import hashlib
+import os
 import re
 import socket
 import threading
@@ -45,20 +67,24 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..admin import handlers as admin_handlers
 from ..admin import metrics as _metrics
+from ..iam import sts as _sts
+from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..storage import commit as _commit
+from ..utils import memgov
 from ..utils.kvconfig import Config, parse_duration
 from . import errors as s3err
-from . import sigv4
+from . import sigv2, sigv4
 
 MAX_PUT_SIZE = 5 * 1024 * 1024 * 1024   # single PUT (docs/minio-limits.md)
 # bodies above this stream straight into the object layer (O(batch)
 # memory); smaller ones are read whole first
 STREAM_PUT_THRESHOLD = 8 * 1024 * 1024
 S3_NS = "http://s3.amazonaws.com/doc/2006-03-01/"
+STS_NS = "https://sts.amazonaws.com/doc/2011-06-15/"
 RESERVED_BUCKETS = ("minio-tpu", "minio")
 SSE_HEADERS = ("x-amz-server-side-encryption",
                "x-amz-server-side-encryption-customer-algorithm",
@@ -115,6 +141,79 @@ class _BodyReader:
         return line
 
 
+class _DeadlineRFile:
+    """A connection's read deadlines (cmd/http/server.go:185).  Between
+    requests, and while the request line and headers are read, the
+    socket timeout is ``header_timeout``.  While a body is read the
+    wrapper is armed with an absolute deadline: each read re-arms the
+    socket timeout to what is left of it (at most ``header_timeout``) and
+    issues one recv at a time, so a client trickling bytes cannot stretch
+    its budget.  Past the deadline a read raises TimeoutError, on
+    whichever thread reads (the read-ahead of a streamed PUT too)."""
+
+    def __init__(self, raw, sock, header_timeout: float | None):
+        self._raw = raw
+        self._sock = sock
+        self._header_timeout = header_timeout
+        self._deadline: float | None = None
+
+    def arm(self, budget_s: float) -> None:
+        self._deadline = time.monotonic() + budget_s
+
+    def disarm(self) -> None:
+        self._deadline = None
+        try:
+            self._sock.settimeout(self._header_timeout)
+        except OSError:
+            pass                        # the connection is already gone
+
+    def _tick(self) -> None:
+        if self._deadline is None:
+            return
+        remaining = self._deadline - time.monotonic()
+        if remaining <= 0:
+            raise TimeoutError("request body deadline exceeded")
+        try:
+            self._sock.settimeout(remaining if self._header_timeout is None
+                                  else min(remaining, self._header_timeout))
+        except OSError:
+            pass
+
+    def read(self, n: int = -1) -> bytes:
+        if self._deadline is None:
+            return self._raw.read(n)
+        # a buffered read(n) would loop on recv inside, beyond the
+        # deadline's reach; read1 is one recv, checked before each
+        out = bytearray()
+        want = n if n is not None and n >= 0 else None
+        while want is None or len(out) < want:
+            self._tick()
+            chunk = self._raw.read1(65536 if want is None
+                                    else want - len(out))
+            if not chunk:
+                break
+            out += chunk
+        return bytes(out)
+
+    def readline(self, limit: int = -1) -> bytes:
+        self._tick()
+        return self._raw.readline(limit)
+
+    def readinto(self, b) -> int:
+        self._tick()
+        return self._raw.readinto(b)
+
+    def close(self) -> None:
+        self._raw.close()
+
+    @property
+    def closed(self):
+        return self._raw.closed
+
+    def __getattr__(self, name):
+        return getattr(self._raw, name)
+
+
 def _http_date(ns: int) -> str:
     return email.utils.formatdate(ns / 1e9, usegmt=True)
 
@@ -155,27 +254,40 @@ def _parse_range(spec: str) -> tuple[int, int]:
 
 
 class S3Server:
-    """An object layer and one root credential behind an HTTP server."""
+    """An object layer, its identities and its live config behind an HTTP
+    server."""
 
     def __init__(self, layer, access_key: str = "minioadmin",
                  secret_key: str = "minioadmin", region: str = "us-east-1",
                  host: str = "127.0.0.1", port: int = 0,
                  max_body_size: int = 1024 ** 3,
                  config: Config | None = None):
-        """``config``: the live kvconfig (a fresh one by default); its
-        values reach the layer, the commit plane and the heal sweep
-        through the ``reload_*`` hooks."""
+        """``access_key``/``secret_key``: the root credential, which also
+        seals config.json and iam.json.  ``config``: the live kvconfig
+        (by default the layer's, read from and sealed onto its drives);
+        its values reach the request plane, the layer, the commit plane
+        and the heal sweep through the ``reload_*`` hooks.  IAM is not
+        read from the drives until ``iam.load()``."""
         self.layer = layer
-        self.config = config if config is not None else Config()
+        self.iam = IAMSys(layer, access_key, secret_key)
+        self.config = config if config is not None else \
+            Config(layer, secret=secret_key)
         self.bucket_meta = BucketMetadataSys(layer)
-        self.access_key = access_key
-        self._secret_key = secret_key
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
         self._serving = False
+        # every open connection, and those inside a request (the drain
+        # of stop() waits for these only)
         self._conns: set = set()
+        self._active_conns: set = set()
         self._conns_mu = threading.Lock()
+        # the request pool (cmd/handler-api.go:29 maxClients)
+        self._req_waiters = 0
+        self._req_waiters_mu = threading.Lock()
+        self._req_max = 0
+        self._req_sem: threading.BoundedSemaphore | None = None
+        self.reload_api_config()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
@@ -188,6 +300,52 @@ class S3Server:
         # cmd/server-main.go): its life follows the server's
         self.healer = None
         self._deep_every_before_bitrot: int | None = None
+
+    def reload_api_config(self) -> None:
+        """Take the request plane's knobs from the ``api`` subsystem:
+        the request pool, its waiting line and deadline, the header and
+        body deadlines, the drain of ``stop()`` and the memory governor's
+        watermark."""
+        cfg = self.config
+        try:
+            req_max = int(cfg.get("api", "requests_max") or 0)
+        except ValueError:
+            req_max = 0
+        if req_max <= 0:
+            req_max = 16 * (os.cpu_count() or 8)
+        self.requests_deadline_s = parse_duration(
+            cfg.get("api", "requests_deadline") or "10s")
+        if req_max != self._req_max:
+            # swap, never resize: a request releases the semaphore it
+            # acquired (the dispatch holds on to it)
+            self._req_max = req_max
+            self._req_sem = threading.BoundedSemaphore(req_max)
+        try:
+            req_queue = int(cfg.get("api", "requests_queue") or 0)
+        except ValueError:
+            req_queue = 0
+        self.requests_queue_max = req_queue if req_queue > 0 \
+            else 2 * req_max
+        self.read_header_timeout_s = parse_duration(
+            cfg.get("api", "read_header_timeout") or "30s")
+        self.body_deadline_s = parse_duration(
+            cfg.get("api", "body_deadline") or "2m")
+        try:
+            self.body_min_rate_bps = int(cfg.get("api", "body_min_rate")
+                                         or 0)
+        except ValueError:
+            self.body_min_rate_bps = 1 << 20
+        self.shutdown_drain_s = parse_duration(
+            cfg.get("api", "shutdown_drain_s") or "5s")
+        memgov.GOVERNOR.load(cfg)
+
+    def body_budget_s(self, content_length: int) -> float:
+        """The read budget of one body: ``body_deadline`` plus its
+        declared size over ``body_min_rate``."""
+        budget = self.body_deadline_s
+        if content_length > 0 and self.body_min_rate_bps > 0:
+            budget += content_length / self.body_min_rate_bps
+        return budget
 
     # -- live config (reference s3/server.py:514, :553, :664) -------------
 
@@ -222,7 +380,7 @@ class S3Server:
             self._deep_every_before_bitrot = None
 
     def lookup_secret(self, access_key: str) -> str | None:
-        return self._secret_key if access_key == self.access_key else None
+        return self.iam.lookup_secret(access_key)
 
     def serve_forever(self) -> None:
         """Serve on this thread until ``stop()``."""
@@ -238,10 +396,12 @@ class S3Server:
             self.healer.start()
 
     def stop(self) -> None:
-        """Stop the heal sweep and listening, cut the open connections,
-        and close the layer (its drive monitor stops, its writer threads
-        join; cmd/server-main.go's shutdown).  A second call returns at
-        once; ``shutdown`` is set when the server has stopped."""
+        """Stop the heal sweep and listening, let in-flight requests
+        finish for ``shutdown_drain_s`` (idle keep-alive connections are
+        cut at once), cut the rest, and close the layer (its drive
+        monitor stops, its writer threads join; cmd/server-main.go's
+        shutdown).  A second call returns at once; ``shutdown`` is set
+        when the server has stopped."""
         with self._conns_mu:
             if self._stopping:
                 return
@@ -252,20 +412,37 @@ class S3Server:
             self.httpd.shutdown()       # ends serve_forever, on any thread
         if self._thread is not None:
             self._thread.join()
+        # the listener closes first: new connections are refused while
+        # the requests in flight drain
         self.httpd.server_close()
+        if self.shutdown_drain_s > 0:
+            with self._conns_mu:
+                idle = [c for c in self._conns
+                        if c not in self._active_conns]
+            _sever(idle)
+            deadline = time.monotonic() + self.shutdown_drain_s
+            while time.monotonic() < deadline:
+                with self._conns_mu:
+                    if not self._active_conns:
+                        break
+                time.sleep(0.02)
         with self._conns_mu:
             conns = list(self._conns)
-        for c in conns:
-            try:
-                c.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass                    # already gone
+        _sever(conns)
         self.layer.close()
         self.shutdown.set()
 
     @property
     def endpoint(self) -> str:
         return f"http://127.0.0.1:{self.port}"
+
+
+def _sever(conns) -> None:
+    for c in conns:
+        try:
+            c.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass                        # already gone
 
 
 def _api_name(method: str, bucket: str, key: str, q1: dict) -> str:
@@ -317,7 +494,14 @@ def _make_handler(srv: S3Server):
         server_version = "MinioTPU"
 
         def setup(self):
+            # the socket timeout covers the request line, the headers
+            # and keep-alive idle (0: none; a zero socket timeout would
+            # make the socket non-blocking); the rfile wrapper adds each
+            # body's absolute budget, armed in _dispatch
+            self.timeout = srv.read_header_timeout_s or None
             super().setup()
+            self.rfile = _DeadlineRFile(self.rfile, self.connection,
+                                        self.timeout)
             with srv._conns_mu:
                 srv._conns.add(self.connection)
 
@@ -351,25 +535,39 @@ def _make_handler(srv: S3Server):
         def _auth(self, path, query, payload: bytes) -> bytes:
             """Authenticate; returns the effective payload (an aws-chunked
             body verified chunk by chunk and unframed).  Sets
-            ``self.access_key``, empty for an anonymous request."""
+            ``self.access_key``, empty for an anonymous request, and
+            checks an STS session's token."""
+            self._query_token = query.get("X-Amz-Security-Token", [""])[0]
+            out = self._auth_inner(path, query, payload)
+            self._check_session_token()
+            return out
+
+        def _auth_inner(self, path, query, payload: bytes) -> bytes:
+            lookup = srv.iam.lookup_secret
             hdrs = dict(self.headers.items())
             try:
                 if "Authorization" not in hdrs and \
                         "X-Amz-Signature" not in query and \
                         not ("Signature" in query and
                              "AWSAccessKeyId" in query):
+                    # anonymous: only a bucket policy may grant it
                     self.access_key = ""
                     sha = self.headers.get("x-amz-content-sha256")
                     if sha and sha != sigv4.UNSIGNED_PAYLOAD and \
                             hashlib.sha256(payload).hexdigest() != sha:
                         raise S3Error("BadDigest")
                     return payload
-                if hdrs.get("Authorization", "").startswith("AWS ") or \
-                        "AWSAccessKeyId" in query:
-                    raise S3Error("NotImplemented")        # SigV2
+                if hdrs.get("Authorization", "").startswith("AWS "):
+                    self.access_key = sigv2.verify_request(
+                        lookup, self.command, path, query, hdrs)
+                    return payload
+                if "Signature" in query and "AWSAccessKeyId" in query:
+                    self.access_key = sigv2.verify_presigned(
+                        lookup, self.command, path, query, hdrs)
+                    return payload
                 if "X-Amz-Signature" in query:
                     self.access_key = sigv4.verify_presigned(
-                        srv.lookup_secret, self.command, path, query, hdrs,
+                        lookup, self.command, path, query, hdrs,
                         region=srv.region)
                     return payload
                 sha = self.headers.get("x-amz-content-sha256",
@@ -377,25 +575,71 @@ def _make_handler(srv: S3Server):
                 if sha == sigv4.STREAMING_PAYLOAD:
                     self.access_key, key, seed, amz_date, scope = \
                         sigv4.verify_request_streaming(
-                            srv.lookup_secret, self.command, path, query,
-                            hdrs, region=srv.region)
+                            lookup, self.command, path, query, hdrs,
+                            region=srv.region)
                     return sigv4.decode_chunked_payload(
                         payload, key, seed, amz_date, scope)
                 if sha != sigv4.UNSIGNED_PAYLOAD and \
                         hashlib.sha256(payload).hexdigest() != sha:
                     raise S3Error("BadDigest")
                 self.access_key = sigv4.verify_request(
-                    srv.lookup_secret, self.command, path, query, hdrs, sha,
+                    lookup, self.command, path, query, hdrs, sha,
                     region=srv.region)
                 return payload
             except sigv4.SigV4Error as e:
                 raise S3Error(e.code) from e
 
-        def _allow(self) -> None:
-            """Authorize: with one root credential, every authenticated
-            request may act and no anonymous one may (no bucket
-            policies)."""
+        def _check_session_token(self):
+            """An STS session presents its token on every request, signed
+            by the root secret and naming the session's key
+            (checkClaimsFromToken, cmd/auth-handler.go)."""
             if not self.access_key:
+                return
+            try:
+                u = srv.iam.get_user(self.access_key)
+            except Exception:  # noqa: BLE001 — root or unknown: no token
+                return
+            if not (u.parent_user and u.expiration):
+                return
+            tok = self.headers.get("x-amz-security-token", "") or \
+                self._query_token
+            if not tok:
+                raise S3Error("AccessDenied")
+            try:
+                claims = _sts.verify_token(tok, srv.iam.root.secret_key)
+            except _sts.STSError as e:
+                raise S3Error("ExpiredToken" if e.code == "ExpiredToken"
+                              else "AccessDenied") from e
+            if claims.get("accessKey") != self.access_key:
+                raise S3Error("AccessDenied")
+
+        def _allow(self, action: str, resource: str = "") -> None:
+            """Authorise the request's key for an S3 action on
+            ``bucket[/key]`` (checkRequestAuthType): the bucket policy
+            first, where an explicit Deny refuses and an Allow grants,
+            anonymous callers too (an STS session still within its
+            session policy); then IAM."""
+            bucket = resource.split("/", 1)[0]
+            # a bucket document speaks for s3: actions only, never admin:*
+            if bucket and action.startswith("s3:"):
+                try:
+                    pol = srv.bucket_meta.get_bucket_policy(bucket)
+                    verdict = pol.is_allowed(self.access_key, action,
+                                             resource) \
+                        if pol is not None else None
+                except Exception as e:  # noqa: BLE001 — fail closed: an
+                    # unreadable policy must not drop its Denies
+                    raise S3Error("AccessDenied") from e
+                if verdict is False:
+                    raise S3Error("AccessDenied")
+                if verdict is True:
+                    if srv.iam.session_policy_allows(self.access_key,
+                                                     action, resource):
+                        return
+                    raise S3Error("AccessDenied")
+            if not self.access_key or \
+                    not srv.iam.is_allowed(self.access_key, action,
+                                           resource):
                 raise S3Error("AccessDenied")
 
         def _send_prologue(self, status: int, sent_bytes: int,
@@ -466,6 +710,15 @@ def _make_handler(srv: S3Server):
                     close()
 
         def _fail(self, e: Exception, resource: str = ""):
+            if isinstance(e, memgov.MemoryPressure):
+                # the governor shed: 503 with Retry-After, as a full
+                # request pool answers
+                api = s3err.get("SlowDown")
+                return self._send(
+                    api.http_status,
+                    s3err.to_xml(api, resource, self._req_id),
+                    headers={"Retry-After":
+                             str(max(1, int(e.retry_after_s)))})
             if isinstance(e, S3Error):
                 api = e.api
             elif isinstance(e, sigv4.SigV4Error):
@@ -487,20 +740,73 @@ def _make_handler(srv: S3Server):
         def _dispatch(self):
             self._req_id = uuid.uuid4().hex[:16]
             self.access_key = ""
+            self._query_token = ""
             self._t0_ns = time.monotonic_ns()
             self._ttfb_ns = 0
             self._resp_status = 0
             self._resp_bytes = 0
             self._rx_bytes = 0
+            # the request pool admits S3 traffic only: the admin, metrics
+            # and health paths stay reachable when it is full.  The
+            # semaphore is captured: a live requests_max swaps it, and
+            # acquire and release must pair on one object
+            throttled = not urllib.parse.urlsplit(self.path).path \
+                .startswith(("/minio-tpu/", "/minio/"))
+            sem = srv._req_sem if throttled else None
+            if sem is not None and not self._admit(sem):
+                try:
+                    api = s3err.get("SlowDown")
+                    self._send(api.http_status,
+                               s3err.to_xml(api, self.path, self._req_id),
+                               headers={"Retry-After": str(max(
+                                   1, int(srv.requests_deadline_s)))})
+                finally:
+                    self.close_connection = True
+                    self._record_request()
+                return
+            # the body's absolute read budget, scaled by its declared size
+            try:
+                cl = int(self.headers.get("Content-Length") or 0)
+            except ValueError:
+                cl = 0
+            self.rfile.arm(srv.body_budget_s(cl))
             try:
                 self._dispatch_inner()
             except (ConnectionError, TimeoutError):
                 # the client died mid-body or mid-response
                 self.close_connection = True
             finally:
+                self.rfile.disarm()
+                if sem is not None:
+                    sem.release()
                 self._record_request()
             if srv._stopping:
                 self.close_connection = True
+
+        def _admit(self, sem) -> bool:
+            """Wait up to ``requests_deadline`` for a slot, but only while
+            the waiting line is shorter than ``requests_queue``: a full
+            line sheds at once (cmd/handler-api.go:29-40)."""
+            with srv._req_waiters_mu:
+                if srv._req_waiters >= srv.requests_queue_max:
+                    return False
+                srv._req_waiters += 1
+            try:
+                return sem.acquire(timeout=srv.requests_deadline_s)
+            finally:
+                with srv._req_waiters_mu:
+                    srv._req_waiters -= 1
+
+        def _handle(self):
+            """The drain of ``stop()`` waits for connections inside this
+            window, and only for them."""
+            with srv._conns_mu:
+                srv._active_conns.add(self.connection)
+            try:
+                self._dispatch()
+            finally:
+                with srv._conns_mu:
+                    srv._active_conns.discard(self.connection)
 
         def _record_request(self):
             """The per-API families and windows, for S3 APIs only: the
@@ -557,7 +863,7 @@ def _make_handler(srv: S3Server):
                     raise S3Error("AccessDenied")
                 if not bucket:
                     if self.command == "POST":
-                        raise S3Error("NotImplemented")     # STS
+                        return self._sts_api(payload)
                     return self._list_buckets()
                 if not _BUCKET_RE.match(bucket):
                     raise S3Error("InvalidBucketName")
@@ -572,7 +878,68 @@ def _make_handler(srv: S3Server):
         # any method, PATCH and OPTIONS too, answers S3 XML, never the
         # stdlib's plain 501
         do_GET = do_PUT = do_HEAD = do_DELETE = do_POST = do_PATCH = \
-            do_OPTIONS = lambda self: self._dispatch()
+            do_OPTIONS = lambda self: self._handle()
+
+        # -- STS (cmd/sts-handlers.go) -----------------------------------
+
+        def _sts_fail(self, code: str, msg: str = ""):
+            root = ET.Element("ErrorResponse", xmlns=STS_NS)
+            err = ET.SubElement(root, "Error")
+            ET.SubElement(err, "Type").text = "Sender"
+            ET.SubElement(err, "Code").text = code
+            ET.SubElement(err, "Message").text = msg or code
+            status = 403 if code in ("AccessDenied", "ExpiredToken") \
+                else 400
+            self._send(status, _xml(root))
+
+        def _sts_api(self, payload: bytes):
+            """AssumeRole (cmd/sts-handlers.go:205): a signed request
+            gets temporary credentials of its own key, within the form's
+            ``Policy``.  The LDAP and web-identity calls answer
+            NotImplemented, as the reference does with no provider
+            configured (ROADMAP Queue 1 item 14)."""
+            form = {k: v[0] for k, v in urllib.parse.parse_qs(
+                payload.decode("utf-8", "replace"),
+                keep_blank_values=True).items()}
+            action = form.get("Action", "")
+            if action in ("AssumeRoleWithWebIdentity",
+                          "AssumeRoleWithClientGrants"):
+                return self._sts_fail(
+                    "NotImplemented",
+                    "no OpenID provider configured (identity_openid)")
+            if action == "AssumeRoleWithLDAPIdentity":
+                return self._sts_fail(
+                    "NotImplemented",
+                    "no LDAP provider configured (identity_ldap)")
+            if action != "AssumeRole":
+                return self._sts_fail("InvalidAction", action)
+            if not self.access_key:
+                return self._sts_fail("AccessDenied",
+                                      "request must be signed")
+            try:
+                duration = int(form.get("DurationSeconds",
+                                        str(_sts.DEFAULT_DURATION_S)))
+            except ValueError:
+                return self._sts_fail("InvalidParameterValue",
+                                      "DurationSeconds")
+            try:
+                creds = srv.iam.assume_role(self.access_key, duration,
+                                            form.get("Policy") or None)
+            except _sts.STSError as e:
+                return self._sts_fail(e.code, str(e))
+            root = ET.Element("AssumeRoleResponse", xmlns=STS_NS)
+            result = ET.SubElement(root, "AssumeRoleResult")
+            ce = ET.SubElement(result, "Credentials")
+            ET.SubElement(ce, "AccessKeyId").text = creds.access_key
+            ET.SubElement(ce, "SecretAccessKey").text = creds.secret_key
+            ET.SubElement(ce, "SessionToken").text = creds.session_token
+            ET.SubElement(ce, "Expiration").text = \
+                datetime.datetime.fromtimestamp(
+                    creds.expiration, datetime.timezone.utc).strftime(
+                        "%Y-%m-%dT%H:%M:%SZ")
+            meta = ET.SubElement(root, "ResponseMetadata")
+            ET.SubElement(meta, "RequestId").text = uuid.uuid4().hex[:16]
+            self._send(200, _xml(root))
 
         def _health_api(self, path, query):
             if self.command not in ("GET", "HEAD"):

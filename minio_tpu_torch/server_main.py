@@ -6,13 +6,17 @@ the N drives as the reference lays them out: sets of the largest size in
 4..16 that divides N (or ``--set-drive-count``), every drive's
 format.json loaded or written, each drive behind a health proxy, a drive
 monitor that reconnects returning drives and heals their set, the
-background heal sweep, and the control plane: the live kvconfig
-(``MT_<SUBSYS>_<KEY>`` environment overrides), the admin API and the
-Prometheus scrape.  Erasure coding and bitrot hashing run on the card
+background heal sweep, the request plane's limits and deadlines, IAM
+(users, service accounts, STS sessions, policies) loaded from the
+drives, and the control plane: the live kvconfig (``MT_<SUBSYS>_<KEY>``
+environment overrides), the admin API and the Prometheus scrape.
+``config.json`` and ``iam.json`` are sealed at rest under the root
+secret, with AES-GCM from the system libcrypto; without it the server
+does not start.  Erasure coding and bitrot hashing run on the card
 (``--device cuda``, the default, which raises without one) or, when
 asked, on the CPU through the kernels' plain versions (``--device
-cpu``).  The reference's crawler, IAM, gateway and node subcommands are
-not served.
+cpu``).  The reference's crawler, LDAP and OpenID identities, gateway
+and node subcommands are not served.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from .device import resolve
 from .objectlayer.erasure_object import DEFAULT_BLOCK_SIZE
 from .objectlayer.sets import ErasureSets
 from .s3.server import S3Server
-from .utils.kvconfig import Config
+from .secure import configcrypt
 
 # set sizing (cmd/endpoint-ellipses.go:44 setSizes{4..16})
 SET_SIZES = list(range(16, 3, -1))
@@ -57,10 +61,12 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
                  device: str = "cuda",
                  set_drive_count: int | None = None) -> S3Server:
     """``ErasureSets`` over ``dirs`` (parity by set size) with its drive
-    monitor running, behind an S3Server bound to ``address`` with the
-    heal sweep attached (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``)
-    and the kvconfig's pipeline, commit and heal knobs applied; not
-    started."""
+    monitor running, behind an S3Server bound to ``address`` with IAM
+    and the kvconfig read from the drives, the heal sweep attached
+    (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``) and the kvconfig's
+    api, pipeline, commit and heal knobs applied; not started.  Raises
+    RuntimeError when libcrypto cannot be bound (nothing is sealed in
+    the clear)."""
     access_key = access_key or os.environ.get("MT_ROOT_USER", "minioadmin")
     secret_key = secret_key or os.environ.get("MT_ROOT_PASSWORD",
                                               "minioadmin")
@@ -68,18 +74,23 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
         len(dirs), set_drive_count
         or int(os.environ.get("MT_ERASURE_SET_DRIVE_COUNT", 0)) or None)
     resolve(device)                 # no card: refuse before formatting
+    configcrypt.require_encryption()
     for d in dirs:
         os.makedirs(d, exist_ok=True)
     layer = ErasureSets.from_dirs(
         dirs, len(dirs) // sdc, sdc,
         block_size=block_size or DEFAULT_BLOCK_SIZE, device=device)
+    srv = None
     try:
         layer.start_drive_monitor()
         host, _, port = address.rpartition(":")
         srv = S3Server(layer, access_key=access_key, secret_key=secret_key,
                        region=region, host=host or "0.0.0.0",
-                       port=int(port), config=Config())
+                       port=int(port))
+        srv.iam.load()
     except BaseException:
+        if srv is not None:
+            srv.httpd.server_close()
         layer.close()
         raise
     srv.healer = BackgroundHealer(

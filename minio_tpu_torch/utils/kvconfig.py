@@ -7,14 +7,19 @@ reference's MINIO_<SUBSYS>_<KEY>), then the value ``set`` gave (admin
 SetConfigKV), then the default.  Only the subsystems and keys the port
 honours are registered; an unknown one raises KeyError.
 
-The dynamic layer lives in memory: the port writes no
-``.mt.sys/config/config.json`` and reads none (the reference seals that
-file with DARE, which the port does not have yet, ROADMAP Queue 1 item
-14), so a restart starts from the environment and the defaults.
+Bound to an object layer, the dynamic layer persists as the reference
+keeps it: ``.mt.sys/config/config.json`` on every drive of the layer's
+metadata set, sealed with DARE under the admin secret
+(``secure/configcrypt.py``), written on every ``set`` and read when the
+``Config`` is built.  A plaintext blob, or one sealed under a retired
+secret (``MT_ADMIN_SECRET_OLD``), is read and written back sealed under
+the current one.  The port never writes plaintext: without libcrypto
+sealing raises.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 
@@ -43,6 +48,30 @@ def parse_duration(s: str, default: float = 10.0) -> float:
 
 
 # the reference's defaults, for the keys the port reads
+register_subsys("api", {
+    # the request plane (s3/server.py reload_api_config): concurrent S3
+    # requests (0: 16 x the CPU count), how long one waits for a slot,
+    # and the waiting line beyond which a request is shed at once with
+    # 503 and Retry-After (0: twice requests_max)
+    "requests_max": "0",
+    "requests_deadline": "10s",
+    "requests_queue": "0",
+    # per connection: the socket timeout for the request line, headers
+    # and keep-alive idle; the absolute budget for reading one body,
+    # body_deadline + Content-Length / body_min_rate (bytes/s, 0: no
+    # size term), past which the request answers 408
+    "read_header_timeout": "30s",
+    "body_deadline": "2m",
+    "body_min_rate": "1048576",
+    # stop(): how long in-flight requests may finish once the listener
+    # has closed (0: sever at once)
+    "shutdown_drain_s": "5s",
+    # the memory governor (utils/memgov.py): its watermark (0: admit
+    # everything; sizes as 268435456, 256MiB, 1GiB) and the Retry-After
+    # of a shed
+    "mem_limit": "0",
+    "mem_retry_after": "1s",
+})
 register_subsys("heal", {
     # bitrotscan=on makes every sweep deep; max_sleep caps the sleep
     # after each heal (background/heal.py pace_s)
@@ -74,12 +103,22 @@ register_subsys("commit", {
 })
 
 
-class Config:
-    """Layered lookup: env > dynamic set > defaults."""
+CONFIG_PATH = "config/config.json"          # in the system volume
 
-    def __init__(self):
+
+class Config:
+    """Layered lookup: env > dynamic set > defaults.  ``layer`` (an
+    object layer with a ``meta_set``) makes the dynamic layer persist,
+    sealed under ``secret``."""
+
+    def __init__(self, layer=None, secret: str = ""):
+        self._layer = layer
+        self._secret = secret or ""
         self._dynamic: dict[str, dict[str, str]] = {}
         self._mu = threading.Lock()
+        self._persist_mu = threading.Lock()
+        if layer is not None:
+            self._load()
 
     @staticmethod
     def _env_key(subsys: str, key: str) -> str:
@@ -106,6 +145,7 @@ class Config:
             raise KeyError(f"{subsys}.{key}")
         with self._mu:
             self._dynamic.setdefault(subsys, {})[key] = value
+        self._persist()
 
     def get_subsys(self, subsys: str) -> dict[str, str]:
         defaults = _REGISTRY.get(subsys)
@@ -115,3 +155,42 @@ class Config:
 
     def subsystems(self) -> list[str]:
         return sorted(_REGISTRY)
+
+    # -- at rest (cmd/config-current.go) -------------------------------------
+
+    def _persist(self) -> None:
+        if self._layer is None:
+            return
+        from ..secure import configcrypt
+        from ..storage.xl_storage import SYS_DIR
+        er = self._layer.meta_set
+        with self._persist_mu:      # snapshot and write, one at a time
+            with self._mu:
+                blob = json.dumps(self._dynamic).encode()
+            blob = configcrypt.encrypt_data(self._secret, blob)
+            er._fanout(lambda d: d.write_all(SYS_DIR, CONFIG_PATH, blob),
+                       er.disks)
+
+    def _load(self) -> None:
+        """The first copy that opens under the current or an old secret;
+        resealed under the current one when it was not sealed by it."""
+        from ..secure import configcrypt
+        from ..storage.xl_storage import SYS_DIR
+        er = self._layer.meta_set
+        res, _ = er._fanout(lambda d: d.read_all(SYS_DIR, CONFIG_PATH),
+                            er.disks)
+        olds = configcrypt.old_secrets_from_env()
+        for r in res:
+            if r is None:
+                continue
+            try:
+                blob, reseal = configcrypt.maybe_decrypt(self._secret, r,
+                                                         olds)
+                doc = json.loads(blob)
+            except (configcrypt.DecryptError, json.JSONDecodeError):
+                continue            # sealed under a secret not offered
+            with self._mu:
+                self._dynamic = doc
+            if reseal:
+                self._persist()
+            return

@@ -6,12 +6,13 @@ requests: ``info`` (uptime aside, drives by number), ``config`` on the
 keys the port registers, the refusals of unknown subsystems and keys,
 ``heal`` of an unversioned bucket after the same damage, ``heal-status``
 after the same sweep, and ``storageinfo`` (free and used bytes aside).
-A request without the root credential gets AccessDenied; the scrape
-answers GET only, without auth.  The admin heal route restores every
+A request without an identity allowed ``admin:*`` gets AccessDenied;
+the scrape answers GET only, without auth.  The admin heal route restores every
 version of a versioned key (the bodies are the oracle: ``minio_tpu``'s
 route heals only the latest, ROADMAP Queue 3 item 18).  Then each
 registered key is set through the admin client on the live port server
-and its effect checked, and the ``service`` route stops a server (and,
+and its effect checked (the ``api`` keys' in ``test_torch_limits.py``),
+and the ``service`` route stops a server (and,
 in a subprocess, restarts ``python -m minio_tpu_torch``).  Module order
 matters: the servers are shared."""
 
@@ -37,7 +38,7 @@ from minio_tpu_torch.storage.xl_storage import SYS_DIR
 from ._torch_control import AK, BS, PER, SK, both, client, drive_no, servers
 from ._torch_versions import body
 
-PORT_SUBSYS = ("commit", "drive", "heal", "pipeline")
+PORT_SUBSYS = ("api", "commit", "drive", "heal", "pipeline")
 
 
 @pytest.fixture(scope="module")
@@ -129,25 +130,26 @@ def test_a_wrong_method_on_config_is_refused(pair, method, route):
 
 
 def test_only_the_root_credential_is_admitted(pair, monkeypatch):
+    """Anonymous requests and IAM users without ``admin:*`` are refused
+    alike (an identity with ``consoleAdmin`` is admitted: see
+    ``test_torch_iam.py``); an admin route neither serves answers
+    NotImplemented on the port."""
     ref, port, _ = pair
     # anonymous
     r, p = both(ref, port, "GET", "/minio-tpu/admin/v1/info", sign=False)
     assert p.status == r.status == 403
     assert p.xml().findtext("Code") == r.xml().findtext("Code") == \
         "AccessDenied"
-    # an identity that authenticates but is not root: the reference's
-    # IAM user, a second key on the port's server
-    ref_admin(ref).add_user("someone", "someone-secret", ["readwrite"])
-    monkeypatch.setattr(port, "lookup_secret",
-                        lambda k: {AK: SK, "someone": "someone-secret"}.get(k))
+    # an identity that authenticates but may not administer
     for srv in (ref, port):
+        ref_admin(srv).add_user("someone", "someone-secret", ["readwrite"])
         out = client(srv, "someone", "someone-secret").request(
             "GET", "/minio-tpu/admin/v1/info", expect=())
         assert out.status == 403
         assert out.xml().findtext("Code") == "AccessDenied"
     # an admin route the port does not serve
-    out = client(port).request("POST", "/minio-tpu/admin/v1/add-user",
-                               body=b"{}", expect=())
+    out = client(port).request("GET", "/minio-tpu/admin/v1/top-locks",
+                               expect=())
     assert out.status == 501
     assert out.xml().findtext("Code") == "NotImplemented"
 

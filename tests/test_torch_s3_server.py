@@ -673,7 +673,7 @@ def _tree(root) -> dict:
 
 @pytest.mark.parametrize("method,path,query,headers", [
     ("GET", f"/{B}", "tagging", {}),
-    ("PUT", f"/{B}", "policy", {}),
+    ("PUT", f"/{B}", "encryption", {}),
     ("GET", f"/{B}", "lifecycle", {}),
     ("GET", f"/{B}", "object-lock", {}),
     ("GET", f"/{B}/rt/packed", "retention", {}),
@@ -687,7 +687,7 @@ def _tree(root) -> dict:
     ("PUT", f"/{B}/k", "", {"x-amz-server-side-encryption": "AES256"}),
     ("PUT", f"/{B}/k", "", {"x-amz-storage-class": "REDUCED_REDUNDANCY"}),
     ("PUT", "/locked", "", {"x-amz-bucket-object-lock-enabled": "true"}),
-    ("POST", "/", "", {}),
+    ("GET", f"/{B}", "replication", {}),
     ("GET", "/minio-tpu/admin/v3/info", "", {}),
     ("GET", f"/{B}", "notification", {}),
 ])
@@ -704,8 +704,9 @@ def test_unserved_answers_not_implemented(pair, method, path, query,
 
 def test_sigv2_and_unknown_methods(pair):
     url = f"http://127.0.0.1:{pair.port.port}/{B}/rt/packed"
-    r = raw_send("GET", url, headers={"Authorization": "AWS k:sig"})
-    assert r.status == 501 and b"NotImplemented" in r.body
+    r = raw_send("GET", url, headers={"Authorization": "AWS k:sig",
+                                      "Date": "Sat, 17 Oct 2026 10:00:00 GMT"})
+    assert r.status == 403 and b"<Code>InvalidAccessKeyId</Code>" in r.body
     _, hdrs, _ = signed("v4", "PATCH", url, b"", {},
                         datetime.datetime.now(datetime.timezone.utc))
     r = raw_send("PATCH", url, b"", hdrs)
