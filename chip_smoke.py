@@ -141,7 +141,26 @@
    ``config.json`` are sealed; ``stop()`` drains a GET in flight; a new
    ``build_server`` on the drives admits the user and the service
    account and keeps the ``api`` knobs.  No plain version runs.
-12. One JSON line of readings, one describing each kernel, the card line,
+12. Listing and usage, on phase 9's server after phase 10 and before its
+   stop: ListObjectsV2 of ``sets`` in pages of 25 cold (every set's
+   listing snapshot dropped first: one walk per set), warm within the
+   15 s TTL (every page a hit of every set's snapshot) and after one PUT
+   (a walk per set: the layer invalidated one, the tracker's mark made
+   the other stale), each equal to the keys phases 9 and 10 left; the
+   first page of a cold walk under cProfile in this process, its top 10
+   functions printed; one crawler cycle, whose ``datausageinfo`` counts
+   and bytes for ``sets`` equal those of the objects phases 9 and 10
+   wrote, as does ``mt_bucket_usage_total_bytes`` in the scrape; in a
+   new bucket 8 objects under ``exp/`` and 2 beside them, a lifecycle
+   ``Expiration`` dated in the past on ``exp/``, one cycle: the 8 gone
+   from the listing and the drives, the 2 kept; a hard quota of 32 MiB:
+   two 16 MiB PUTs reach it, the third answers 403
+   ``XMinioAdminBucketQuotaExceeded`` with no launch and no codec op.
+   The listings, the cycles and the expiry launch nothing; the PUTs
+   launch Kernels A and B; no plain version.  ``MT_CRAWL_INTERVAL_S`` is
+   a day for the whole script, so no cycle lands inside an earlier
+   phase's readings.
+13. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -1458,6 +1477,7 @@ def phase_sets(bodies: dict, card: str, gen, single: dict):
         lap("burst")
         everything = objs + alone + [("big", big), ("mp", mp_body)] + burst
         names = sorted(k for k, _ in everything)
+        sizes = {k: len(b) for k, b in everything}
         readings["objects_per_set"] = [
             sum(layer.get_hashed_set_index(k) == i for k, _ in objs)
             for i in range(2)]
@@ -1617,7 +1637,10 @@ def phase_sets(bodies: dict, card: str, gen, single: dict):
               "the foreign drive was admitted or written")
         out_after = bufpool.GLOBAL.checked_out
         lap("foreign")
-        control = phase_control(srv, root, card, gen)
+        control = phase_control(
+            srv, root, card, gen,
+            lambda more: phase_listing(srv, root, card, gen,
+                                       {**sizes, **more}))
         check(bufpool.GLOBAL.checked_out == 0, "pooled buffers checked out "
               "after phase 10")
     finally:
@@ -1730,12 +1753,14 @@ def version_shards(disk, bucket: str, key: str) -> dict:
         for fi in disk.list_versions(bucket, key)}
 
 
-def phase_control(srv, root: str, card: str, gen):
+def phase_control(srv, root: str, card: str, gen, before_stop):
     """Phase 10 on phase 9's running server: the scrape reconciled with
     the phase's requests, the codec ops and the kernel launches; a live
     ``pipeline depth`` change; both versions of a key healed onto a drive
     through the admin route; ``storageinfo``, ``heal-status``; then
-    ``service?action=stop``.  Returns the launches and the readings."""
+    ``before_stop({key: size})`` with the objects this phase left in
+    ``sets`` (phase 12), and ``service?action=stop``.  Returns the
+    launches, the readings and what ``before_stop`` returned."""
     from collections import Counter
     from minio_tpu_torch.admin.client import AdminClient
     from minio_tpu_torch.objectlayer.metadata import hash_order
@@ -1905,6 +1930,9 @@ def phase_control(srv, root: str, card: str, gen):
           "writer stats of every drive")
     for kernel, (_, plain) in launches.items():
         check(plain == 0, f"control plane: {kernel} plain version ran")
+    t_after = time.perf_counter()
+    after_phase = before_stop({f"depth{d}": CTL_OBJ for d in put_s})
+    after_s = time.perf_counter() - t_after
     # stop through the admin route: serve_forever ends
     adm.service_stop()
     check(srv.shutdown.wait(60), "service?action=stop did not stop")
@@ -1917,7 +1945,7 @@ def phase_control(srv, root: str, card: str, gen):
         sweep_s=sweep_s, sweep_versions=srv.healer.stats.objects_scanned,
         codec_ops=ops, heal_codec_ops=heal_ops, get_codec_ops=get_ops,
         key=key, key_set=si, requests=dict(made),
-        phase_s=time.perf_counter() - t_phase,
+        phase_s=time.perf_counter() - t_phase - after_s,
         launches={"depth_puts": {k: v[0] for k, v in
                                  delta(s0, s_depth).items()},
                   "version_puts": {k: v[0] for k, v in
@@ -1931,7 +1959,223 @@ def phase_control(srv, root: str, card: str, gen):
           f"({readings['admin_heal_gib_s']:.3f} GiB/s); sweep of "
           f"{st.objects_scanned} versions {sweep_s:.3f} s; codec ops {ops}, "
           f"Kernel A {a}, Kernel B {b} launches")
-    return {k: v[0] for k, v in launches.items()}, readings
+    return {k: v[0] for k, v in launches.items()}, readings, after_phase
+
+LIST_PAGE = 25                                       # phase 12
+ILM_BUCKET, QUOTA_BUCKET = "ilm", "quota"
+QUOTA_LIMIT, QUOTA_OBJ = 32 << 20, 16 << 20
+ILM_OBJ = 64 * 1024
+EXPIRE_PAST = (b'<LifecycleConfiguration><Rule><ID>exp</ID><Status>Enabled'
+               b'</Status><Filter><Prefix>exp/</Prefix></Filter><Expiration>'
+               b'<Date>2020-01-01T00:00:00Z</Date></Expiration></Rule>'
+               b'</LifecycleConfiguration>')
+
+
+def list_pages(client, bucket: str) -> tuple:
+    """ListObjectsV2 in pages of ``LIST_PAGE``: (keys, seconds to the
+    first page, seconds in all, pages)."""
+    keys, token, pages, first = [], "", 0, None
+    t0 = time.perf_counter()
+    while True:
+        page = client.list_objects(bucket, max_keys=LIST_PAGE,
+                                   continuation_token=token)
+        if first is None:
+            first = time.perf_counter() - t0
+        keys += [o["key"] for o in page["objects"]]
+        pages += 1
+        if not page["is_truncated"]:
+            return keys, first, time.perf_counter() - t0, pages
+        token = page["next_token"]
+
+
+def top_functions(prof, n: int = 10, own: bool = False) -> list:
+    """The ``n`` functions of a cProfile with the most cumulative (or,
+    with ``own``, own) time: [where, calls, cumulative s, own s]."""
+    import pstats
+    here = os.getcwd() + os.sep
+
+    def where(f: str) -> str:
+        return f[len(here):] if f.startswith(here) else os.path.basename(f)
+    st = pstats.Stats(prof).stats
+    rows = sorted(st.items(), key=lambda kv: -kv[1][2 if own else 3])[:n]
+    return [[f"{where(f)}:{ln}({fn})", nc, round(ct, 4), round(tt, 4)]
+            for (f, ln, fn), (_, nc, tt, ct, _) in rows]
+
+
+def phase_listing(srv, root: str, card: str, gen, expected: dict):
+    """Phase 12 on phase 9's server, after phase 10 and before the stop:
+    the listing metacache (cold, warm, after a PUT, a profile of the cold
+    walk), one crawler cycle's usage against what phases 9 and 10 left in
+    ``sets`` (``expected``: key -> size), lifecycle expiry and a hard
+    quota.  Returns the launches and the readings."""
+    import cProfile
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.objectlayer.metacache import managers_of
+    from minio_tpu_torch.s3.client import S3Client
+    layer = srv.layer
+    client = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    caches = managers_of(layer)
+    nsets = len(caches)
+    expected = dict(expected)
+
+    def hits_misses():
+        st = [mc.stats() for mc in caches]
+        return (sum(x["hits"] for x in st), sum(x["misses"] for x in st))
+
+    def launched(a, b) -> int:
+        return sum(v[0] + v[1] for v in delta(a, b).values())
+
+    readings: dict = {}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    s0 = snapshot()
+    names = sorted(expected)
+    # cold: phase 10's PUTs invalidated the bucket, phase 9's listing
+    # left its blocks on the drives; drop both, so every set walks
+    for mc in caches:
+        mc.invalidate(SETS_BUCKET)
+    hm0 = hits_misses()
+    keys, cold_first, cold_s, pages = list_pages(client, SETS_BUCKET)
+    check(keys == names, f"cold listing: {len(keys)} keys, want "
+          f"{len(names)}")
+    hm1 = hits_misses()
+    check(hm1[1] - hm0[1] == nsets, f"cold listing: {hm1[1] - hm0[1]} "
+          f"walks for {nsets} sets")
+    keys, warm_first, warm_s, _ = list_pages(client, SETS_BUCKET)
+    check(keys == names, "warm listing")
+    hm2 = hits_misses()
+    check(hm2[1] == hm1[1] and hm2[0] - hm1[0] == pages * nsets,
+          f"warm listing: {hm2[0] - hm1[0]} hits, {hm2[1] - hm1[1]} misses "
+          f"over {pages} pages")
+    check(cold_s + warm_s < 15.0, "the warm listing ran past the TTL")
+    s_list = snapshot()
+    check(launched(s0, s_list) == 0, "a listing launched a kernel")
+    client.put_object(SETS_BUCKET, "zz-after", b"z" * 1000)
+    expected["zz-after"] = 1000
+    names = sorted(expected)
+    hm3 = hits_misses()
+    keys, after_first, after_s, _ = list_pages(client, SETS_BUCKET)
+    check(keys == names, "listing after a PUT")
+    hm4 = hits_misses()
+    # the set the PUT landed in invalidated its snapshot, and the
+    # tracker's mark of the bucket made every other set's stale
+    check(hm4[1] - hm3[1] == nsets, f"listing after a PUT: "
+          f"{hm4[1] - hm3[1]} walks for {nsets} sets")
+    # the cold walk under cProfile, in this process (host side)
+    for mc in caches:
+        mc.invalidate(SETS_BUCKET)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    page = layer.list_objects(SETS_BUCKET, max_keys=LIST_PAGE)
+    prof.disable()
+    profiled_s = time.perf_counter() - t0
+    check([o.name for o in page.objects] == names[:LIST_PAGE],
+          "profiled first page")
+    top, top_own = top_functions(prof), top_functions(prof, own=True)
+    print("cold listing profile, top 10 by cumulative seconds "
+          "[function, calls, cumulative s, own s]: " + json.dumps(top))
+    print("cold listing profile, top 10 by own seconds: "
+          + json.dumps(top_own))
+    # one crawler cycle: the usage of ``sets``
+    s_crawl0 = snapshot()
+    t0 = time.perf_counter()
+    srv.crawler.run_cycle()
+    cycle_s = time.perf_counter() - t0
+    check(launched(s_crawl0, snapshot()) == 0, "a crawl launched a kernel")
+    usage = adm.data_usage_info()["bucketsUsageInfo"][SETS_BUCKET]
+    want = {"objectsCount": len(expected), "versionsCount": len(expected),
+            "size": sum(expected.values())}
+    check({k: usage[k] for k in want} == want,
+          f"usage of {SETS_BUCKET} {usage}, want {want}")
+    scraped = parse_scrape(adm.metrics())[
+        ("mt_bucket_usage_total_bytes", (("bucket", SETS_BUCKET),))]
+    check(scraped == want["size"], f"scrape says {scraped} B in "
+          f"{SETS_BUCKET}, want {want['size']}")
+    # lifecycle: 8 objects under exp/ expire, 2 beside them stay
+    client.make_bucket(ILM_BUCKET)
+    small = rand_bytes((10, ILM_OBJ), gen).cpu().numpy()
+    exp_keys = [f"exp/{i}" for i in range(8)]
+    keep_keys = [f"keep/{i}" for i in range(2)]
+    for i, key in enumerate(exp_keys + keep_keys):
+        client.put_object(ILM_BUCKET, key, small[i].tobytes())
+    client.set_bucket_lifecycle(ILM_BUCKET, EXPIRE_PAST)
+    s_ilm0 = snapshot()
+    t0 = time.perf_counter()
+    res = srv.crawler.run_cycle()
+    ilm_cycle_s = time.perf_counter() - t0
+    check(launched(s_ilm0, snapshot()) == 0, "an expiry launched a kernel")
+    gone = sorted(k for b, k, _ in res.expired if b == ILM_BUCKET)
+    check(gone == exp_keys, f"expired {gone}")
+    check([o["key"] for o in client.list_objects(ILM_BUCKET)["objects"]]
+          == keep_keys, "listing after the expiry")
+    on_drives = [f"d{d}/{ILM_BUCKET}/{k}" for d in range(2 * (K + M))
+                 for k in exp_keys + keep_keys
+                 if os.path.exists(f"{root}/d{d}/{ILM_BUCKET}/{k}/xl.meta")]
+    check(sorted({p.split("/", 1)[1] for p in on_drives}) ==
+          [f"{ILM_BUCKET}/{k}" for k in keep_keys],
+          f"after the expiry the drives hold {sorted(set(on_drives))[:4]}")
+    # a hard quota of 32 MiB: two 16 MiB PUTs reach it (the limit is
+    # inclusive), the third is refused before its body is read
+    client.make_bucket(QUOTA_BUCKET)
+    adm.set_config_kv("quota", "enable", "on")
+    adm.set_bucket_quota(QUOTA_BUCKET, QUOTA_LIMIT)
+    qbody = rand_bytes((QUOTA_OBJ,), gen).cpu().numpy().tobytes()
+    for i in range(2):
+        client.put_object(QUOTA_BUCKET, f"q{i}", qbody)
+    check(srv.usage.bucket_size(QUOTA_BUCKET) == 2 * QUOTA_OBJ,
+          f"quota view {srv.usage.bucket_size(QUOTA_BUCKET)} B")
+    torch.cuda.synchronize()
+    ops0 = by_label(parse_scrape(adm.metrics()), "mt_tpu_ops_total", "op")
+    s_q0 = snapshot()
+    t0 = time.perf_counter()
+    r = client.request("PUT", f"/{QUOTA_BUCKET}/q2", body=qbody,
+                       expect=(403,))
+    refuse_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    s_q1 = snapshot()
+    ops1 = by_label(parse_scrape(adm.metrics()), "mt_tpu_ops_total", "op")
+    check(r.xml().findtext("Code") == "XMinioAdminBucketQuotaExceeded",
+          f"quota refusal {r.status} {r.body[:200]}")
+    refused = delta(s_q0, s_q1)
+    check(refused["gf8_apply"][0] == refused["hh256"][0] == 0
+          and launched(s_q0, s_q1) == 0, f"refused PUT launched {refused}")
+    check(ops1 == ops0, f"refused PUT ran codec ops {ops0} -> {ops1}")
+    client.request("HEAD", f"/{QUOTA_BUCKET}/q2", expect=(404,))
+    total = delta(s0, snapshot())
+    for kernel, (_, plain) in total.items():
+        check(plain == 0, f"listing path: {kernel} plain version ran")
+    check(total["gf8_apply"][0] > 0 and total["hh256"][0] > 0,
+          "the phase's PUTs launched no kernel")
+    readings.update(
+        keys=len(names), pages=pages, sets=nsets,
+        cold_first_page_s=cold_first, cold_s=cold_s,
+        warm_first_page_s=warm_first, warm_s=warm_s,
+        after_put_first_page_s=after_first, after_put_s=after_s,
+        warm_hits=hm2[0] - hm1[0], warm_misses=hm2[1] - hm1[1],
+        after_put_misses=hm4[1] - hm3[1],
+        profiled_first_page_s=profiled_s, profile_top=top,
+        profile_top_own=top_own,
+        crawl_cycle_s=cycle_s, usage=want, ilm_cycle_s=ilm_cycle_s,
+        expired=len(gone), quota_refusal_ms=refuse_ms,
+        refused_launches={k: v[0] for k, v in refused.items()},
+        phase_s=time.perf_counter() - t_phase,
+        launches={k: v[0] for k, v in total.items()})
+    print(f"listing and usage on {card}: {len(names)} keys in {pages} "
+          f"pages of {LIST_PAGE} over {nsets} sets: cold {cold_s:.3f} s "
+          f"(first page {cold_first:.3f} s), warm {warm_s:.3f} s "
+          f"({hm2[0] - hm1[0]} hits, {hm2[1] - hm1[1]} misses), after a "
+          f"PUT {after_s:.3f} s ({hm4[1] - hm3[1]} walk); profiled cold "
+          f"first page {profiled_s:.3f} s; crawler cycle {cycle_s:.3f} s "
+          f"({want['objectsCount']} objects, {want['size']} B in "
+          f"{SETS_BUCKET}); expiry cycle {ilm_cycle_s:.3f} s, {len(gone)} "
+          f"expired; quota refusal {refuse_ms:.2f} ms, launches "
+          f"{readings['refused_launches']}; phase "
+          f"{readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in total.items()}, readings
+
 
 ID_OBJ, ID_POST = 16 << 20, 1 << 20                 # phase 11
 ALPHA_RW = {"Version": "2012-10-17", "Statement": [{
@@ -2238,6 +2482,8 @@ def main() -> int:
         return 1
     from minio_tpu_torch.device import card_name_and_power_limit
     from minio_tpu_torch.ops import _build
+    # no crawler cycle lands inside a reading: phase 12 runs its own
+    os.environ["MT_CRAWL_INTERVAL_S"] = str(24 * 3600)
     card = card_name_and_power_limit()
     kind = torch.cuda.get_device_name(0)
     clock = sm_clock_mhz()
@@ -2256,8 +2502,9 @@ def main() -> int:
     mesh_path, mesh_readings = phase_mesh_path(bodies, card, shards)
     s3_path, s3_readings = phase_s3(bodies, card, path_readings)
     mp_path, mp_readings = phase_multipart(card, gen)
-    sets_path, sets_readings, (ctl_path, ctl_readings) = phase_sets(
-        bodies, card, gen, s3_readings)
+    sets_path, sets_readings, (ctl_path, ctl_readings, (
+        list_path, list_readings)) = phase_sets(bodies, card, gen,
+                                                s3_readings)
     id_path, id_readings = phase_identity(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
@@ -2265,6 +2512,7 @@ def main() -> int:
                    "multipart_path": mp_path[k["name"]],
                    "sets_path": sets_path[k["name"]],
                    "control_path": ctl_path[k["name"]],
+                   "listing_path": list_path[k["name"]],
                    "identity_path": id_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
@@ -2273,6 +2521,7 @@ def main() -> int:
                       "multipart_path": mp_readings,
                       "sets_path": sets_readings,
                       "control_path": ctl_readings,
+                      "listing_path": list_readings,
                       "identity_path": id_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,6 +7,8 @@ the metrics scrape.
     adm.heal("bucket")
     adm.add_policy("alpha-rw", {"Statement": [...]})
     adm.add_user("u1", "u1-secret", ["alpha-rw"])
+    adm.set_bucket_quota("bucket", 1 << 30)
+    usage = adm.data_usage_info()
     text = adm.metrics()
 """
 
@@ -147,6 +149,25 @@ class AdminClient:
 
     def heal_status(self) -> dict:
         return self._call("GET", "heal-status")
+
+    # -- usage and quotas ------------------------------------------------------
+
+    def data_usage_info(self) -> dict:
+        """The crawler's last persisted usage (AdminError 404 before the
+        first cycle)."""
+        return self._call("GET", "datausageinfo")
+
+    def get_bucket_quota(self, bucket: str) -> dict:
+        return self._call("GET", "get-bucket-quota", f"bucket={bucket}")
+
+    def set_bucket_quota(self, bucket: str, quota: int,
+                         quota_type: str = "hard") -> None:
+        self._call("POST", "set-bucket-quota", f"bucket={bucket}",
+                   json.dumps({"quota": quota,
+                               "quotatype": quota_type}).encode())
+
+    def clear_bucket_quota(self, bucket: str) -> None:
+        self._call("POST", "clear-bucket-quota", f"bucket={bucket}")
 
     def service_stop(self) -> dict:
         return self._call("POST", "service", "action=stop")

@@ -31,6 +31,16 @@ AccessDenied.  They answer JSON:
   POST set-group-policy         {"group", "policies"}
   GET  policy                   the policy names
   GET|PUT|DELETE policy/<name>  one policy document
+  GET  datausageinfo            the crawler's last persisted usage (404
+                                before the first cycle)
+  GET  data-usage               that usage and the hard quota's view of it
+                                (snapshot plus the writes since)
+  GET  get-bucket-quota?bucket=
+  POST set-bucket-quota?bucket= {"quota": bytes, "quotatype": "hard"}
+  POST clear-bucket-quota?bucket=
+  GET  background-status        the heal sweep's and the crawler's
+                                progress (replication, mrf and rebalance
+                                null: the port has none)
 
 An unknown user or policy answers 404, another IAM refusal 400, a
 malformed request 400.  Every other admin route answers the S3
@@ -48,9 +58,12 @@ import sys
 import threading
 import time
 
+from ..background.crawler import load_usage
 from ..background.heal import iter_versions
+from ..bucket.quota import Quota
 from ..iam import policy as iampol
 from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
+from ..objectlayer import interface as ol
 from . import metrics
 
 ADMIN_PREFIX = "/minio-tpu/admin/v1"
@@ -63,7 +76,8 @@ _START = time.time()
 _RELOADS = {"api": "reload_api_config",
             "pipeline": "reload_pipeline_config",
             "commit": "reload_commit_config",
-            "heal": "reload_background_config"}
+            "heal": "reload_background_config",
+            "scanner": "reload_background_config"}
 
 
 def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
@@ -73,7 +87,8 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
     from ..s3.server import S3Error
     if path == METRICS_PATH:
         body = metrics.render(srv.layer, healer=srv.healer,
-                              config=srv.config, api_stats=srv.api_stats)
+                              config=srv.config, api_stats=srv.api_stats,
+                              crawler=srv.crawler)
         h._send(200, body.encode(),
                 content_type="text/plain; version=0.0.4")
         return True
@@ -103,6 +118,23 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
             return _heal(srv, route, q1, send_json)
         if route == "storageinfo" and h.command == "GET":
             return send_json(_storage_info(srv))
+        if route == "datausageinfo" and h.command == "GET":
+            info = load_usage(srv.layer)
+            if info is None:
+                return send_json({"error": "no usage data yet"}, 404)
+            return send_json(json.loads(info.to_json()))
+        if route == "data-usage" and h.command == "GET":
+            info = load_usage(srv.layer)
+            return send_json({
+                "persisted": json.loads(info.to_json())
+                if info is not None else None,
+                "cache": srv.usage.snapshot_doc()})
+        if route == "background-status" and h.command == "GET":
+            return send_json({**background_status(srv),
+                              "node": srv.api_stats.label})
+        quota_route = _QUOTA_ROUTES.get((h.command, route))
+        if quota_route is not None:
+            return quota_route(srv, q1, payload, send_json)
         if route == "service" and h.command == "POST":
             return _service(srv, q1, send_json)
         if route.startswith("policy"):
@@ -214,6 +246,60 @@ _IAM_ROUTES = {
     ("POST", "add-user-to-group"): _add_user_to_group,
     ("POST", "set-group-policy"): _set_group_policy,
 }
+
+
+# -- bucket quotas (cmd/admin-bucket-handlers.go) ------------------------------
+
+def _get_bucket_quota(srv, q1, payload, send_json) -> bool:
+    raw = srv.bucket_meta.get_config(q1["bucket"], "quota")
+    return send_json(json.loads(raw) if raw else {})
+
+
+def _set_bucket_quota(srv, q1, payload, send_json) -> bool:
+    """madmin SetBucketQuota; a malformed document is refused here, not
+    on every later PUT."""
+    bucket = q1.get("bucket", "")
+    try:
+        srv.layer.get_bucket_info(bucket)
+        Quota.parse(payload)
+    except (ol.ObjectLayerError, ValueError) as e:
+        return send_json({"error": str(e)}, 400)
+    srv.bucket_meta.set_config(bucket, "quota", payload.decode())
+    return _ok(send_json)
+
+
+def _clear_bucket_quota(srv, q1, payload, send_json) -> bool:
+    bucket = q1.get("bucket", "")
+    try:
+        srv.layer.get_bucket_info(bucket)
+    except ol.ObjectLayerError as e:
+        return send_json({"error": str(e)}, 400)
+    srv.bucket_meta.set_config(bucket, "quota", None)
+    return _ok(send_json)
+
+
+_QUOTA_ROUTES = {
+    ("GET", "get-bucket-quota"): _get_bucket_quota,
+    ("POST", "set-bucket-quota"): _set_bucket_quota,
+    ("POST", "clear-bucket-quota"): _clear_bucket_quota,
+}
+
+
+def background_status(srv) -> dict:
+    """The background loops' live progress (madmin BgHealState, ``mc
+    admin scanner status``)."""
+    healer, crawler = srv.healer, srv.crawler
+    return {
+        "healing": {"progress": healer.progress.snapshot(),
+                    "stats": healer.stats.to_dict()}
+        if healer is not None else None,
+        "scanner": {"progress": crawler.progress.snapshot(),
+                    "cycles": crawler.cycles}
+        if crawler is not None else None,
+        "replication": None,
+        "mrf": None,
+        "rebalance": None,
+    }
 
 
 def _policy(h, srv, route: str, payload: bytes, send_json) -> bool:

@@ -14,11 +14,15 @@ families computed at scrape time from the live server:
                           errors (``ops/codec.py``); the ``backend`` label
                           is ``cuda``, ``cpu`` or ``mesh``
   mt_drive_op_seconds     commit phases (``storage/xl_storage.py``)
-  mt_cluster_*            drives online and offline, raw capacity
+  mt_cluster_*            drives online and offline, raw capacity, and
+                          the crawler's usage totals
+  mt_bucket_*             per-bucket usage and size distribution, from
+                          the crawler's persisted usage
   mt_node_disk_*          per-drive last-minute latency and the slow flag
   mt_put_pipeline_*       writer queues and the last streaming PUT's
                           overlap
   mt_heal_*               the heal sweep's counters and rates
+  mt_scanner_*            the crawler's cycles, objects and rates
   mt_mem_*                the memory governor (``utils/memgov.py``):
                           watermark, bytes in use per kind, peak, sheds
 
@@ -126,10 +130,12 @@ def _memgov_gauges() -> list[str]:
     return lines
 
 
-def render(layer=None, healer=None, config=None, api_stats=None) -> str:
+def render(layer=None, healer=None, config=None, api_stats=None,
+           crawler=None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
-    is the server's last-minute per-API ``OpWindows``.  Codec ops whose
+    is the server's last-minute per-API ``OpWindows``; ``crawler`` the
+    server's crawler.  Codec ops whose
     device time is still being measured are settled first (those whose
     kernels have finished)."""
     from ..ops import codec
@@ -174,6 +180,7 @@ def render(layer=None, healer=None, config=None, api_stats=None) -> str:
     sources = []
     if layer is not None:
         sources += [lambda: _cluster_gauges(layer),
+                    lambda: _bucket_usage_gauges(layer),
                     lambda: _disk_lastminute_gauges(layer, config),
                     lambda: _put_pipeline_gauges(layer)]
     if api_stats is not None:
@@ -182,6 +189,8 @@ def render(layer=None, healer=None, config=None, api_stats=None) -> str:
     if healer is not None:
         sources += [lambda: _heal_counters(healer),
                     lambda: _progress_gauges("mt_heal", healer.progress)]
+    if crawler is not None:
+        sources.append(lambda: _scanner_gauges(crawler))
     for fam in sources:
         try:
             lines += fam()
@@ -226,6 +235,50 @@ def _cluster_gauges(layer) -> list[str]:
         "# TYPE mt_cluster_capacity_raw_free_bytes gauge",
         f"mt_cluster_capacity_raw_free_bytes {free}",
     ]
+
+
+def _bucket_usage_gauges(layer) -> list[str]:
+    """The usage the crawler persisted: the scanner computes, the scrape
+    reads (bucketUsageTotalBytes, bucketObjectSizeDistribution, ...)."""
+    from ..background.crawler import load_usage
+    usage = load_usage(layer)
+    if usage is None:
+        return []
+    lines = [
+        "# TYPE mt_cluster_usage_last_update_timestamp_seconds gauge",
+        "mt_cluster_usage_last_update_timestamp_seconds "
+        f"{usage.last_update_ns / 1e9:.3f}",
+        "# TYPE mt_cluster_usage_object_total gauge",
+        f"mt_cluster_usage_object_total {usage.objects_total_count}",
+        "# TYPE mt_cluster_usage_total_bytes gauge",
+        f"mt_cluster_usage_total_bytes {usage.objects_total_size}",
+        "# TYPE mt_bucket_usage_total_bytes gauge",
+        "# TYPE mt_bucket_usage_object_total gauge",
+        "# TYPE mt_bucket_usage_version_total gauge",
+        "# TYPE mt_bucket_objects_size_distribution gauge",
+    ]
+    for b in sorted(usage.bucket_usage):
+        u = usage.bucket_usage[b]
+        lines.append(f'mt_bucket_usage_total_bytes{{bucket="{b}"}} {u.size}')
+        lines.append(f'mt_bucket_usage_object_total{{bucket="{b}"}}'
+                     f" {u.objects_count}")
+        lines.append(f'mt_bucket_usage_version_total{{bucket="{b}"}}'
+                     f" {u.versions_count}")
+        for rng in sorted(u.histogram):
+            lines.append("mt_bucket_objects_size_distribution"
+                         f'{{bucket="{b}",range="{rng}"}} {u.histogram[rng]}')
+    return lines
+
+
+def _scanner_gauges(crawler) -> list[str]:
+    prog = crawler.progress
+    n_objects = prog.objects if prog.active else prog.last.get("objects", 0)
+    return [
+        "# TYPE mt_scanner_cycles_total counter",
+        f"mt_scanner_cycles_total {crawler.cycles}",
+        "# TYPE mt_scanner_cycle_objects gauge",
+        f"mt_scanner_cycle_objects {n_objects}",
+    ] + _progress_gauges("mt_scanner", prog)
 
 
 def _heal_counters(healer) -> list[str]:

@@ -1,12 +1,14 @@
 """Per-cycle progress of a background loop (``minio_tpu/background/progress.py``):
 the madmin BgHealState "currentObject" / "objectsHealed" role.
 
-The heal sweep owns one :class:`CycleProgress` and calls ``begin()``,
-``update()`` once per version, then ``end()`` (or ``abort()`` for a cycle
-cut short).  ``rates()`` feeds the ``mt_heal_objects_per_second`` /
-``mt_heal_bytes_per_second`` / ``mt_heal_cycle_active`` gauges at scrape
-time: live rates while a cycle runs, else the last completed cycle's.
-Updates are attribute writes under one small lock, once per version.
+The heal sweep and the crawler each own one :class:`CycleProgress` and
+call ``begin()``, ``update()`` once per version (the crawler once per
+bucket), then ``end()`` (or ``abort()`` for a cycle cut short).
+``rates()`` feeds the ``mt_heal_*`` and ``mt_scanner_*`` rate gauges at
+scrape time: live rates while a cycle runs, else the last completed
+cycle's; ``snapshot()`` is the admin ``background-status`` route's view,
+with an ETA at the last cycle's pace.  Updates are attribute writes
+under one small lock.
 """
 
 from __future__ import annotations
@@ -86,3 +88,29 @@ class CycleProgress:
                 return (self.last["objectsPerSecond"],
                         self.last["bytesPerSecond"])
             return (0.0, 0.0)
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            out = {
+                "name": self.name,
+                "active": self.active,
+                "cycles": self.cycles,
+                "currentBucket": self.bucket,
+                "currentObject": self.object,
+                "objects": self.objects,
+                "bytes": self.nbytes,
+                "lastCycle": dict(self.last),
+            }
+            if self.active and self.started_ns:
+                secs = max(
+                    (time.monotonic_ns() - self.started_ns) / 1e9, 1e-9)
+                out["elapsedSeconds"] = round(secs, 3)
+                out["objectsPerSecond"] = round(self.objects / secs, 3)
+                out["bytesPerSecond"] = round(self.nbytes / secs, 1)
+                # what is left of the last cycle's count, at its rate
+                rate = self.last.get("objectsPerSecond", 0)
+                total = self.last.get("objects", 0)
+                if rate > 0 and total > self.objects:
+                    out["etaSeconds"] = round(
+                        (total - self.objects) / rate, 1)
+            return out

@@ -1,1 +1,2 @@
-"""Bucket configuration documents (the bucket policy)."""
+"""Bucket configuration documents: the bucket policy, the lifecycle
+configuration and the quota."""

@@ -1,21 +1,22 @@
-"""A bucket's versioning state and policy
-(``minio_tpu/objectlayer/bucket_meta.py``, cmd/bucket-metadata-sys.go).
+"""A bucket's versioning state and configs: the policy, the lifecycle
+and the quota (``minio_tpu/objectlayer/bucket_meta.py``,
+cmd/bucket-metadata-sys.go).
 
 The document is the reference's: JSON in every drive's system volume at
 ``.mt.sys/buckets/<bucket>/bucket-meta.json``, written with quorum,
 ``{"versioning": {"status": "Enabled" | "Suspended"}, "policy": "<raw
-JSON>", "_rev": n}``.  A read takes the copy with the highest ``_rev``,
-so a drive that missed the last write cannot roll the state back.
-Either package serving the drives sees the same state.  Over several
-sets the document lives on set 0's drives, as the reference's
-``ErasureSets._fanout`` keeps it.  The other configs the reference keeps
-in the same document (lifecycle, tagging, ...) are carried through, not
-read (ROADMAP Queue 1 item 16.5).  Every S3 request looks up its bucket's
-policy, and every PUT its versioning, so a bucket found without a
-document is remembered as such (up to ``ABSENT_CAP`` names, so probes of
-random names cannot grow it) until this process writes one: a request on
-such a bucket reads no drive.  The reference rereads every drive each
-time.
+JSON>", "lifecycle": "<raw XML>", "quota": "<raw JSON>", "_rev": n}``.
+A read takes the copy with the highest ``_rev``, so a drive that missed
+the last write cannot roll the state back.  Either package serving the
+drives sees the same state.  Over several sets the document lives on set
+0's drives, as the reference's ``ErasureSets._fanout`` keeps it.  The
+other configs the reference keeps in the same document (tagging, ...)
+are carried through, not read (ROADMAP Queue 1 item 16.5).  Every S3
+request looks up its bucket's policy, and every PUT its versioning, so a
+bucket found without a document is remembered as such (up to
+``ABSENT_CAP`` names, so probes of random names cannot grow it) until
+this process writes one: a request on such a bucket reads no drive.  The
+reference rereads every drive each time.
 """
 
 from __future__ import annotations
@@ -117,22 +118,25 @@ class BucketMetadataSys:
     def set_config(self, bucket: str, name: str, raw: Optional[str]) -> None:
         self.update(bucket, name, raw)
 
-    def get_bucket_policy(self, bucket: str):
-        """The bucket's parsed policy, or None; parsed once for each
-        stored document, not on every request."""
-        from ..bucket.policy import BucketPolicy
-        raw = self.get_config(bucket, "policy")
+    def get_parsed(self, bucket: str, name: str, parser):
+        """A stored config parsed by ``parser(raw bytes)``, or None;
+        parsed once for each stored document, not on every request."""
+        raw = self.get_config(bucket, name)
         if raw is None:
             return None
-        key = (bucket, "policy")
+        key = (bucket, name)
         with self._mu:
             cached = self._parsed.get(key)
             if cached is not None and cached[0] == raw:
                 return cached[1]
-        parsed = BucketPolicy.parse(raw.encode())
+        parsed = parser(raw.encode())
         with self._mu:
             self._parsed[key] = (raw, parsed)
         return parsed
+
+    def get_bucket_policy(self, bucket: str):
+        from ..bucket.policy import BucketPolicy
+        return self.get_parsed(bucket, "policy", BucketPolicy.parse)
 
     def versioning_enabled(self, bucket: str) -> bool:
         return self.get(bucket).get("versioning", {}).get(

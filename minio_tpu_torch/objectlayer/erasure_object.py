@@ -37,14 +37,17 @@ writes on a per-drive writer plane.
   * Multipart uploads: the ``MultipartOps`` mixin (``multipart.py``).
   * heal: ``healing.heal_object``, one version, every part.
   * buckets and listing: bucket info, list and delete over every drive's
-    volumes; ``list_objects`` k-way merges the drives' sorted walks and
-    resolves each entry by quorum (the reference's walk without its
-    metacache), then ``metacache.paginate``.
+    volumes; ``list_objects`` pages a snapshot of the listing metacache
+    (``metacache.py``), built by k-way merging the drives' sorted walks
+    and resolving each entry by quorum; every mutation invalidates the
+    bucket's snapshots, and so does ``delete_bucket``, which the
+    reference's does not (ROADMAP Queue 3).  ``list_object_versions``
+    walks afresh, as the reference's does.
 
 The ETag is the body's MD5 (the reference's strict-compat mode).  No
-caches and no MRF queue.  The pipeline's knobs (the ``pipeline`` kvconfig
-subsystem: batches in flight per stream, per-drive queue depth) are read
-at construction from the environment and reloaded live by
+hot-read cache and no MRF queue.  The pipeline's knobs (the ``pipeline``
+kvconfig subsystem: batches in flight per stream, per-drive queue depth)
+are read at construction from the environment and reloaded live by
 ``reload_pipeline_config``; depth 0 takes the serial fan-out.
 ``pipe_stats`` holds the last streaming PUT's stage seconds and overlap
 efficiency (the ``mt_put_pipeline_*`` scrape reads it).  Several sets on
@@ -94,7 +97,8 @@ from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
                         ObjectInfo, ObjectNotFound,
                         ObjectOptions, PutObjectOptions, ReadQuorumError,
                         VersionNotFound, WriteQuorumError)
-from .metacache import paginate, paginate_versions
+from .metacache import (MetacacheManager, SnapshotGone, paginate,
+                        paginate_versions)
 from .multipart import MultipartOps
 
 # blockSizeV1 (cmd/object-api-common.go:32)
@@ -176,6 +180,10 @@ class ErasureObjects(MultipartOps):
         # seconds each device-to-host copy of a framed batch waited on its
         # event (the stream is shared with every other set on the card)
         self.d2h_waits: collections.deque = collections.deque(maxlen=4096)
+        # the listing cache, persisted in the drives' system volume
+        self.metacache = MetacacheManager(
+            disks=[d for d in self.disks if d is not None],
+            sys_volume=SYS_DIR)
 
     def close(self) -> None:
         """Join the writer threads and the fan-out pool, and close the
@@ -349,15 +357,31 @@ class ErasureObjects(MultipartOps):
         if not force and any(isinstance(e, serrors.VolumeNotEmpty)
                              for e in errs):
             raise BucketNotEmpty(bucket)
+        self.metacache.invalidate(bucket)
 
-    # -- LIST (cmd/metacache-set.go listPath, without the cache) -----------
+    # -- LIST (cmd/metacache-server-pool.go listPath) ----------------------
 
     def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
                      delimiter: str = "", max_keys: int = 1000
                      ) -> ListObjectsInfo:
+        """A page of the (bucket, prefix) snapshot from ``marker`` on; a
+        snapshot whose block vanished is forgotten and walked again, and
+        after a second loss the page comes off a fresh walk."""
         self._check_bucket(bucket)
+        for _ in range(2):
+            snap = self.listing_snapshot(bucket, prefix)
+            try:
+                return paginate(snap.iter_from(marker), prefix, marker,
+                                delimiter, max_keys)
+            except SnapshotGone:
+                self.metacache.forget(bucket, prefix)
         return paginate(self._gather_listing_iter(bucket, prefix, marker),
                         prefix, marker, delimiter, max_keys)
+
+    def listing_snapshot(self, bucket: str, prefix: str):
+        """The metacache snapshot of (bucket, prefix), walked on a miss."""
+        return self.metacache.list_path_stream(
+            bucket, prefix, lambda: self._gather_listing_iter(bucket, prefix))
 
     def _walk_merged(self, bucket: str, prefix: str, versions: bool,
                      after: str = ""):
@@ -398,7 +422,11 @@ class ErasureObjects(MultipartOps):
             except ReadQuorumError:
                 continue
             if not fi.deleted:
-                yield self._to_object_info(fi)
+                oi = self._to_object_info(fi)
+                # the reference's walk does not count versions: its
+                # metacache blocks hold 0, and so do these
+                oi.num_versions = 0
+                yield oi
 
     # -- encode ------------------------------------------------------------
 
@@ -569,6 +597,7 @@ class ErasureObjects(MultipartOps):
 
         self._reduce_write(self._commit_fanout(write_one, shuffled, buf,
                                                framed.nbytes), fi)
+        self.metacache.invalidate(bucket)
 
     def _commit_put_overlapped(self, fi: FileInfo, framed: np.ndarray,
                                shuffled: list, etag_future,
@@ -606,6 +635,7 @@ class ErasureObjects(MultipartOps):
                                        framed.nbytes)
             resolver.result()
             self._reduce_write(errs, fi)
+            self.metacache.invalidate(fi.volume)
         finally:
             gate.set()          # never leave a drive writer waiting
 
@@ -730,6 +760,7 @@ class ErasureObjects(MultipartOps):
             sw.submit_batch(commit_one)
             sw.drain()
             self._reduce_write(list(sw.errs), fi)
+            self.metacache.invalidate(fi.volume)
             wall = time.perf_counter() - t_wall
             write_s = sw.max_busy_s()
             # the slowest stage over the wall: 1.0 when the pipeline hid
@@ -803,6 +834,7 @@ class ErasureObjects(MultipartOps):
 
             _, cerrs = self._fanout(commit_one, list(range(n)))
             self._reduce_write(cerrs, fi)
+            self.metacache.invalidate(fi.volume)
         finally:
             if readahead_body:
                 src.close()
@@ -1023,6 +1055,7 @@ class ErasureObjects(MultipartOps):
                                                force_del_marker=True),
                     self.disks)
                 self._reduce_quorum(errs, wq)
+                self.metacache.invalidate(bucket)
                 return ObjectInfo(bucket=bucket, name=object_name,
                                   version_id=dm.version_id,
                                   delete_marker=True, mod_time=mod_time)
@@ -1038,6 +1071,7 @@ class ErasureObjects(MultipartOps):
                 meta.reduce_errs(
                     [None if isinstance(e, missing) else e for e in errs],
                     wq, WriteQuorumError)
+                self.metacache.invalidate(bucket)
             return ObjectInfo(bucket=bucket, name=object_name,
                               version_id=vid)
         finally:

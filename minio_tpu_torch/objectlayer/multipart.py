@@ -438,6 +438,7 @@ class MultipartOps:
         finally:
             lk.unlock()
         fi.is_latest = True
+        self.metacache.invalidate(bucket)
         return self._to_object_info(fi)
 
 

@@ -7,8 +7,9 @@ deployment id (sipHashMod, cmd/erasure-sets.go:629; the legacy CRC mode,
 crcHashMod :638, for formats that name it).  Every bucket exists on
 every set.  Object, multipart and heal calls go to the object's set;
 bucket calls fan out to every set; listings merge the sets' sorted
-streams before they are paged, so a page is the one a single set holding
-every key would give.  The bucket metadata (versioning) lives on set 0's
+streams, each from the set's own listing snapshot (``metacache.py``),
+before they are paged, so a page is the one a single set holding every
+key would give.  The bucket metadata (versioning) lives on set 0's
 drives, as the reference keeps it.
 """
 
@@ -25,7 +26,7 @@ from ..storage.xl_storage import XLStorage
 from .erasure_object import ErasureObjects
 from .interface import (BucketInfo, BucketNotFound, ListObjectsInfo,
                         ListObjectVersionsInfo, MultipartInfo, ObjectInfo)
-from .metacache import paginate, paginate_versions
+from .metacache import SnapshotGone, paginate, paginate_versions
 
 DISTRIBUTION_ALGO_CRC = "CRCMOD"
 
@@ -220,7 +221,20 @@ class ErasureSets:
     def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
                      delimiter: str = "", max_keys: int = 1000
                      ) -> ListObjectsInfo:
+        """One page of the sets' snapshots merged from ``marker`` on
+        (each set's metacache); a lost block is handled as one set's
+        ``list_objects`` handles it."""
         self._check_bucket(bucket)
+        for _ in range(2):
+            snaps = [s.listing_snapshot(bucket, prefix) for s in self.sets]
+            try:
+                return paginate(
+                    heapq.merge(*(snap.iter_from(marker) for snap in snaps),
+                                key=lambda o: o.name),
+                    prefix, marker, delimiter, max_keys)
+            except SnapshotGone:
+                for s in self.sets:
+                    s.metacache.forget(bucket, prefix)
         merged = heapq.merge(*(s._gather_listing_iter(bucket, prefix, marker)
                                for s in self.sets), key=lambda o: o.name)
         return paginate(merged, prefix, marker, delimiter, max_keys)

@@ -217,7 +217,7 @@ class S3Client:
                         "size": int(v.findtext(f"{S3_NS}Size") or 0)})
         return out
 
-    # -- bucket policy, STS, POST policy -----------------------------------
+    # -- bucket policy and lifecycle, STS, POST policy ----------------------
 
     def set_bucket_policy(self, bucket: str, policy: dict) -> None:
         self.request("PUT", f"/{bucket}", "policy",
@@ -228,6 +228,9 @@ class S3Client:
 
     def delete_bucket_policy(self, bucket: str) -> None:
         self.request("DELETE", f"/{bucket}", "policy")
+
+    def set_bucket_lifecycle(self, bucket: str, xml: bytes) -> None:
+        self.request("PUT", f"/{bucket}", "lifecycle", xml)
 
     def assume_role(self, duration_s: int = 3600,
                     policy: dict | None = None) -> "S3Client":

@@ -65,6 +65,8 @@ _ERRORS = {e.code: e for e in (
     APIError("NoSuchBucket", "The specified bucket does not exist", 404),
     APIError("NoSuchBucketPolicy", "The bucket policy does not exist", 404),
     APIError("NoSuchKey", "The specified key does not exist.", 404),
+    APIError("NoSuchLifecycleConfiguration",
+             "The lifecycle configuration does not exist", 404),
     APIError("NoSuchUpload", "The specified multipart upload does not exist. "
              "The upload ID may be invalid, or the upload may have been "
              "aborted or completed.", 404),
@@ -83,6 +85,10 @@ _ERRORS = {e.code: e for e in (
     APIError("SlowDown", "Resource requested is unreadable, please reduce "
              "your request rate", 503),
 )}
+# a hard quota's refusal, raised by the reference's name for it
+_ERRORS["AdminBucketQuotaExceeded"] = APIError(
+    "XMinioAdminBucketQuotaExceeded",
+    "Bucket quota may be exceeded with this request.", 403)
 
 
 def get(code: str) -> APIError:

@@ -1,13 +1,15 @@
 """S3 bucket handlers (``minio_tpu/s3/handlers_bucket.py``,
 cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket, GET
 ``?location``, PUT and GET ``?versioning``, PUT, GET and DELETE
-``?policy`` (the bucket policy, ``bucket/policy.py``), ListObjects V1
-and V2, ListObjectVersions (``?versions``), ListMultipartUploads
-(``?uploads``), DeleteObjects, with version ids, and the browser
-POST-policy upload.  Each authorises the reference's S3 action on the
-bucket (on ``bucket/key`` for a key) before it touches the layer.
-``_make_handler`` (server.py) attaches them to the request handler;
-``self`` is the handler and ``self.srv`` its server.
+``?policy`` (the bucket policy, ``bucket/policy.py``), PUT, GET and
+DELETE ``?lifecycle`` (``bucket/lifecycle.py``), PUT and GET ``?quota``
+(``bucket/quota.py``), ListObjects V1 and V2, ListObjectVersions
+(``?versions``), ListMultipartUploads (``?uploads``), DeleteObjects,
+with version ids, and the browser POST-policy upload.  Each authorises
+the reference's S3 action on the bucket (on ``bucket/key`` for a key)
+before it touches the layer.  ``_make_handler`` (server.py) attaches
+them to the request handler; ``self`` is the handler and ``self.srv``
+its server.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from __future__ import annotations
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket.lifecycle import Lifecycle
 from ..bucket.policy import BucketPolicy
+from ..bucket.quota import Quota
 from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer import metacache
@@ -27,9 +31,9 @@ from .server import MAX_PUT_SIZE, S3_NS, S3Error, _iso_date, _xml
 # bucket subresources the port does not serve (the other configs, ACLs,
 # event listening: ROADMAP Queue 1 item 16)
 UNSERVED = frozenset((
-    "lifecycle", "encryption", "replication", "notification",
-    "object-lock", "tagging", "quota", "acl", "cors", "website",
-    "accelerate", "requestPayment", "logging", "events"))
+    "encryption", "replication", "notification", "object-lock", "tagging",
+    "acl", "cors", "website", "accelerate", "requestPayment", "logging",
+    "events"))
 
 
 def _list_buckets(self):
@@ -50,8 +54,11 @@ def _list_buckets(self):
 
 def _bucket_api(self, bucket, query, payload):
     cmd = self.command
-    if "policy" in query:
-        return self._bucket_policy(bucket, payload)
+    for name in CONFIGS:
+        if name in query:
+            return self._bucket_config(bucket, name, payload)
+    if "quota" in query:
+        return self._bucket_quota(bucket, payload)
     if "versioning" in query:
         if cmd == "PUT":
             self._allow(iampol.PUT_BUCKET_VERSIONING, bucket)
@@ -103,34 +110,68 @@ def _bucket_api(self, bucket, query, payload):
     raise S3Error("MethodNotAllowed")
 
 
-def _bucket_policy(self, bucket, payload):
-    """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go):
-    authorised before the bucket's existence is checked, so a caller
-    cannot tell a missing bucket from a refused one.  The stored document
-    is the parsed policy written back as JSON."""
+# the configs served as whole documents: (GET action, PUT and DELETE
+# action, parse of a PUT body into the stored text, the code of a body
+# that does not parse, the code of a GET without one, content type)
+CONFIGS = {
+    "policy": (iampol.GET_BUCKET_POLICY, iampol.PUT_BUCKET_POLICY,
+               lambda body, b: BucketPolicy.parse(body, b).to_json(),
+               "MalformedPolicy", "NoSuchBucketPolicy", "application/json"),
+    "lifecycle": (iampol.GET_LIFECYCLE, iampol.PUT_LIFECYCLE,
+                  lambda body, b: Lifecycle.parse(body).to_xml(),
+                  "MalformedXML", "NoSuchLifecycleConfiguration",
+                  "application/xml"),
+}
+
+
+def _bucket_config(self, bucket, name, payload):
+    """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go) and
+    ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go): authorised before
+    the bucket's existence is checked, so a caller cannot tell a missing
+    bucket from a refused one.  The stored document is the parsed one
+    written back."""
+    get_act, put_act, parse, bad, missing, ctype = CONFIGS[name]
     cmd = self.command
+    if cmd not in ("PUT", "GET", "DELETE"):
+        raise S3Error("MethodNotAllowed")
+    self._allow(get_act if cmd == "GET" else put_act, bucket)
+    self.srv.layer.get_bucket_info(bucket)
     if cmd == "PUT":
-        self._allow(iampol.PUT_BUCKET_POLICY, bucket)
-        self.srv.layer.get_bucket_info(bucket)
         try:
-            doc = BucketPolicy.parse(payload, bucket).to_json().decode()
+            doc = parse(payload, bucket).decode()
         except (ValueError, KeyError) as e:
-            raise S3Error(getattr(e, "code", "MalformedPolicy")) from e
-        self.srv.bucket_meta.set_config(bucket, "policy", doc)
+            raise S3Error(getattr(e, "code", bad)) from e
+        self.srv.bucket_meta.set_config(bucket, name, doc)
         return self._send(200)
     if cmd == "GET":
-        self._allow(iampol.GET_BUCKET_POLICY, bucket)
-        self.srv.layer.get_bucket_info(bucket)
-        raw = self.srv.bucket_meta.get_config(bucket, "policy")
+        raw = self.srv.bucket_meta.get_config(bucket, name)
         if raw is None:
-            raise S3Error("NoSuchBucketPolicy")
-        return self._send(200, raw.encode(),
-                          content_type="application/json")
-    if cmd == "DELETE":
-        self._allow(iampol.PUT_BUCKET_POLICY, bucket)
+            raise S3Error(missing)
+        return self._send(200, raw.encode(), content_type=ctype)
+    self.srv.bucket_meta.set_config(bucket, name, None)
+    return self._send(204)
+
+
+def _bucket_quota(self, bucket, payload):
+    """PUT and GET ``?quota``, for identities allowed ``admin:*`` (the
+    admin routes set it too)."""
+    cmd = self.command
+    if cmd == "PUT":
+        self._allow(iampol.ADMIN_ALL, bucket)
         self.srv.layer.get_bucket_info(bucket)
-        self.srv.bucket_meta.set_config(bucket, "policy", None)
-        return self._send(204)
+        try:
+            q = Quota.parse(payload)
+        except ValueError as e:
+            raise S3Error(getattr(e, "code", "MalformedXML")) from e
+        self.srv.bucket_meta.set_config(bucket, "quota",
+                                        q.to_json().decode())
+        return self._send(200)
+    if cmd == "GET":
+        self._allow(iampol.ADMIN_ALL, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        raw = self.srv.bucket_meta.get_config(bucket, "quota") \
+            or '{"quota": 0, "quotatype": "hard"}'
+        return self._send(200, raw.encode(), content_type="application/json")
     raise S3Error("MethodNotAllowed")
 
 
@@ -161,6 +202,7 @@ def _post_policy_upload(self, bucket, payload):
         raise S3Error("NotImplemented")     # object tagging, item 16.2
     if len(file_data) > MAX_PUT_SIZE:
         raise S3Error("EntityTooLarge")
+    self._check_quota(bucket, len(file_data))
     user_defined = {}
     if fields.get("content-type"):
         user_defined["content-type"] = fields["content-type"]
@@ -171,6 +213,8 @@ def _post_policy_upload(self, bucket, payload):
         bucket, key, file_data, PutObjectOptions(
             user_defined=user_defined,
             versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+    self._charge_quota_usage(bucket, oi.size)
+    self.srv.mark_changed(bucket, oi)
     hdrs = {"ETag": f'"{oi.etag}"'}
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
@@ -396,7 +440,8 @@ def _delete_objects(self, bucket, payload):
 
 
 # the methods _make_handler attaches to the request handler
-HANDLERS = ["_list_buckets", "_bucket_api", "_bucket_policy",
+HANDLERS = ["_list_buckets", "_bucket_api", "_bucket_config",
+            "_bucket_quota",
             "_post_policy_upload", "_put_versioning",
             "_get_versioning", "_list_object_versions", "_list_uploads",
             "_encoding_type", "_list_objects", "_delete_objects"]

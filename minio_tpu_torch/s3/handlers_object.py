@@ -8,10 +8,14 @@ CreateMultipartUpload, ListParts, CompleteMultipartUpload and
 AbortMultipartUpload.  Each authorises the reference's S3 action on
 ``bucket/key`` (``_allow``) before it reads a body or reaches the layer;
 CompleteMultipartUpload charges its largest part to the memory governor
-(``multipart``).  A bucket's versioning state comes from
-``self.srv.bucket_meta``.  ``_make_handler`` (server.py) attaches them to
-the request handler; ``self`` is the handler and ``self.srv`` its
-server.
+(``multipart``).  A write to a bucket with a hard quota is refused
+(403 ``XMinioAdminBucketQuotaExceeded``) before its body is read when it
+would take the bucket past the limit, and a committed write is charged
+to the server's usage view (``_check_quota``, ``_charge_quota_usage``);
+PUT, CompleteMultipartUpload and DELETE mark the data-update tracker.
+A bucket's versioning state comes from ``self.srv.bucket_meta``.
+``_make_handler`` (server.py) attaches them to the request handler;
+``self`` is the handler and ``self.srv`` its server.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import hashlib
 import xml.etree.ElementTree as ET
 
 from ..admin import metrics as _metrics
+from ..bucket.quota import Quota
 from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer.interface import ObjectOptions, PutObjectOptions
@@ -122,12 +127,33 @@ def _put_object(self, bucket, key, payload):
     want = self._content_md5()
     if want is not None and hashlib.md5(payload).digest() != want:
         raise S3Error("BadDigest")
+    self._check_quota(bucket, len(payload))
     oi = self.srv.layer.put_object(
         bucket, key, payload,
         PutObjectOptions(user_defined=self._user_defined(),
                          versioned=self.srv.bucket_meta.versioning_enabled(
                              bucket)))
+    self._charge_quota_usage(bucket, oi.size)
+    self.srv.mark_changed(bucket, oi)
     self._send(200, headers=_put_headers(oi))
+
+
+def _check_quota(self, bucket: str, nbytes: int) -> None:
+    """Hard-quota admission (cmd/bucket-quota.go enforceBucketQuotaHard):
+    the crawler's usage plus the writes since, before any drive is
+    written.  The quota document is read first, so a bucket without one
+    pays nothing; ``quota.enable=off`` stops the enforcement."""
+    quota = self.srv.bucket_meta.get_parsed(bucket, "quota", Quota.parse)
+    if quota is None or self.srv.config.get("quota", "enable") != "on":
+        return
+    if not quota.allows(self.srv.usage.bucket_size(bucket), nbytes):
+        raise S3Error("AdminBucketQuotaExceeded")
+
+
+def _charge_quota_usage(self, bucket: str, nbytes: int) -> None:
+    """A committed write's bytes, seen by the next quota check until a
+    crawler cycle counts them."""
+    self.srv.usage.add_pending(bucket, nbytes)
 
 
 def _put_headers(oi) -> dict:
@@ -163,9 +189,11 @@ def _upload_part(self, bucket, key, query, payload):
     uid = query["uploadId"][0]
     part_num = _part_number(query)
     want = self._content_md5()
+    self._check_quota(bucket, len(payload))
     pi = self.srv.layer.put_object_part(
         bucket, key, uid, part_num, payload,
         content_md5=want.hex() if want is not None else None)
+    self._charge_quota_usage(bucket, pi.size)
     self._send(200, headers={"ETag": f'"{pi.etag}"'})
 
 
@@ -192,9 +220,13 @@ def _complete_multipart(self, bucket, key, query, payload):
             bucket, key, uid)), default=0)
     except Exception:  # noqa: BLE001 — an unknown upload: the layer call
         staged = 0     # below raises its S3 error
+    # the parts were charged as they came: this refuses only the seal of
+    # a bucket already past its quota
+    self._check_quota(bucket, 0)
     with GOVERNOR.charge(staged, "multipart"):
         oi = self.srv.layer.complete_multipart_upload(bucket, key, uid,
                                                       parts)
+    self.srv.mark_changed(bucket, oi)
     out = ET.Element("CompleteMultipartUploadResult", xmlns=S3_NS)
     ET.SubElement(out, "Location").text = \
         f"{self.srv.endpoint}/{bucket}/{key}"
@@ -230,6 +262,7 @@ def _delete_object(self, bucket, key, query):
         bucket, key, ObjectOptions(
             version_id=_version_id(query),
             versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+    self.srv.mark_changed(bucket, res)
     hdrs = {}
     if res.delete_marker:
         hdrs["x-amz-delete-marker"] = "true"
@@ -274,6 +307,7 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
         _metrics.GLOBAL.inc("mt_s3_rx_bytes_total", value=cl)
         # before a byte of the body is read or encoded
         self._allow(iampol.PUT_OBJECT, f"{bucket}/{key}")
+        self._check_quota(bucket, cl)
         # the layer checks Content-MD5 against the MD5 it takes for the
         # ETag, before it commits: one pass over the body, not two
         md5_hex = want_md5.hex() if want_md5 is not None else None
@@ -281,6 +315,7 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
             pi = self.srv.layer.put_object_part(
                 bucket, key, query["uploadId"][0], _part_number(query),
                 reader, content_md5=md5_hex)
+            self._charge_quota_usage(bucket, pi.size)
             self._send(200, headers={"ETag": f'"{pi.etag}"'})
         else:
             oi = self.srv.layer.put_object(
@@ -289,6 +324,8 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
                     versioned=self.srv.bucket_meta.versioning_enabled(
                         bucket),
                     content_md5=md5_hex))
+            self._charge_quota_usage(bucket, oi.size)
+            self.srv.mark_changed(bucket, oi)
             self._send(200, headers=_put_headers(oi))
     except Exception as e:  # noqa: BLE001 — XML, as in dispatch
         self._fail(e, path)
@@ -453,6 +490,7 @@ def _preconditions_304(self, oi) -> bool:
 
 # the methods _make_handler attaches to the request handler
 HANDLERS = ["_object_api", "_user_defined", "_content_md5", "_put_object",
+            "_check_quota", "_charge_quota_usage",
             "_create_multipart", "_upload_part", "_complete_multipart",
             "_list_parts", "_delete_object", "_try_stream_put",
             "_auth_stream", "_get_object", "_preconditions_304"]

@@ -39,15 +39,22 @@ The control plane: ``/minio-tpu/metrics`` (Prometheus, GET only, no
 auth) and the admin API under ``/minio-tpu/admin/v1/`` (identities
 allowed ``admin:*``), both in ``admin/handlers.py``; ``config`` is the
 live kvconfig, sealed at rest in ``.mt.sys/config/config.json``, whose
-``api``, ``pipeline``, ``commit`` and ``heal`` changes the ``reload_*``
-hooks push into the request plane, the layer, the commit plane and the
-heal sweep.  Every response counts into ``mt_s3_requests_total`` and
-``mt_s3_tx_bytes_total``, every request body into
-``mt_s3_rx_bytes_total``; S3 API requests (not the ``/minio-tpu/`` and
-``/minio/`` paths) also count per API name into
+``api``, ``pipeline``, ``commit``, ``heal`` and ``scanner`` changes the
+``reload_*`` hooks push into the request plane, the layer, the commit
+plane, the heal sweep and the crawler.  Every response counts into
+``mt_s3_requests_total`` and ``mt_s3_tx_bytes_total``, every request
+body into ``mt_s3_rx_bytes_total``; S3 API requests (not the
+``/minio-tpu/`` and ``/minio/`` paths) also count per API name into
 ``mt_s3_requests_api_total``, ``mt_s3_requests_errors_total``,
-``mt_s3_ttfb_seconds`` and the last-minute ``api_stats`` windows.  The
-heal sweep (``healer``) starts and stops with the server.
+``mt_s3_ttfb_seconds`` and the last-minute ``api_stats`` windows.
+
+The background plane (``attach_background``): the heal sweep
+(``healer``) and the crawler (``crawler``) start and stop with the
+server.  ``usage`` is the hard quota's view of bucket usage, refreshed
+by every crawler cycle; ``tracker`` (``attach_tracker``) is the
+data-update tracker, marked by ``mark_changed`` where an S3 call changed
+an object (the reference's event points, for mutations only) and read
+by the crawler and the listing metacache.
 """
 
 from __future__ import annotations
@@ -67,10 +74,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..admin import handlers as admin_handlers
 from ..admin import metrics as _metrics
+from ..background.crawler import UsageCache
 from ..iam import sts as _sts
 from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
+from ..objectlayer.metacache import managers_of
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..storage import commit as _commit
@@ -296,10 +305,16 @@ class S3Server:
         self.api_stats = OpWindows(f"{host}:{self.port}")
         # set once the server has stopped (admin service?action=stop)
         self.shutdown = threading.Event()
-        # the background heal sweep (initBackgroundHealing,
-        # cmd/server-main.go): its life follows the server's
+        # the background plane (initBackgroundHealing, initDataCrawler,
+        # cmd/server-main.go): lives follow the server's
+        self._background: list = []
         self.healer = None
+        self.crawler = None
+        self.tracker = None
         self._deep_every_before_bitrot: int | None = None
+        # the hard quota's usage view: the last persisted crawler
+        # snapshot plus the writes since
+        self.usage = UsageCache(layer)
 
     def reload_api_config(self) -> None:
         """Take the request plane's knobs from the ``api`` subsystem:
@@ -359,25 +374,57 @@ class S3Server:
         _commit.CONFIG.load(self.config)
 
     def reload_background_config(self) -> None:
-        """Push the ``heal`` knobs into the heal sweep: ``max_sleep`` is
-        its pace; ``bitrotscan=on`` makes every sweep deep, and ``off``
-        gives back the sweep's own cadence."""
-        healer = self.healer
-        if healer is None:
-            return
+        """Push the ``heal`` and ``scanner`` knobs into the attached
+        background loops: ``heal.max_sleep`` is the sweep's pace and
+        ``heal.bitrotscan=on`` makes every sweep deep (``off`` gives back
+        the sweep's own cadence); ``scanner.delay`` and
+        ``scanner.max_wait`` pace the crawler."""
+        cfg = self.config
         try:
-            bitrot = self.config.get("heal", "bitrotscan") == "on"
-            pace = parse_duration(self.config.get("heal", "max_sleep")
-                                  or "1s", 1.0)
-        except KeyError:
+            bitrot = cfg.get("heal", "bitrotscan") == "on"
+            pace = parse_duration(cfg.get("heal", "max_sleep") or "1s", 1.0)
+            delay = float(cfg.get("scanner", "delay") or 0)
+            max_wait = parse_duration(cfg.get("scanner", "max_wait")
+                                      or "15s", 15.0)
+        except (KeyError, ValueError):
             return
-        healer.pace_s = pace
-        if bitrot and self._deep_every_before_bitrot is None:
-            self._deep_every_before_bitrot = healer.deep_every
-            healer.deep_every = 1
-        elif not bitrot and self._deep_every_before_bitrot is not None:
-            healer.deep_every = self._deep_every_before_bitrot
-            self._deep_every_before_bitrot = None
+        for svc in self._background:
+            if hasattr(svc, "pace_s"):
+                svc.pace_s = pace
+                if bitrot and self._deep_every_before_bitrot is None:
+                    self._deep_every_before_bitrot = svc.deep_every
+                    svc.deep_every = 1
+                elif not bitrot and \
+                        self._deep_every_before_bitrot is not None:
+                    svc.deep_every = self._deep_every_before_bitrot
+                    self._deep_every_before_bitrot = None
+            if hasattr(svc, "delay_mult"):
+                svc.delay_mult = delay
+                svc.max_wait_s = max_wait
+
+    def attach_tracker(self, tracker) -> None:
+        """The data-update tracker: marked on mutations, and consulted by
+        every listing metacache of the layer, so a change drops a cached
+        listing before its TTL (cmd/metacache-bucket.go)."""
+        self.tracker = tracker
+        for mc in managers_of(self.layer):
+            mc.tracker = tracker
+
+    def attach_background(self, *services) -> None:
+        """Background loops (the crawler, the heal sweep) started by
+        ``start()`` and stopped by ``stop()``; a crawler refreshes
+        ``usage`` at the end of every cycle.  The loops take the
+        ``heal`` and ``scanner`` knobs at once."""
+        self._background.extend(services)
+        for svc in services:
+            if hasattr(svc, "usage_cache"):
+                svc.usage_cache = self.usage
+        self.reload_background_config()
+
+    def mark_changed(self, bucket: str, oi) -> None:
+        """An S3 call changed ``bucket/oi.name``: mark the tracker."""
+        if self.tracker is not None and oi is not None:
+            self.tracker.mark(bucket, getattr(oi, "name", ""))
 
     def lookup_secret(self, access_key: str) -> str | None:
         return self.iam.lookup_secret(access_key)
@@ -388,15 +435,18 @@ class S3Server:
         self.httpd.serve_forever()
 
     def start(self) -> None:
-        """Serve on a thread, and start the heal sweep."""
+        """Serve on a thread, and start the background loops."""
         self._thread = threading.Thread(target=self.serve_forever,
                                         daemon=True, name="mt-s3-server")
         self._thread.start()
-        if self.healer is not None:
-            self.healer.start()
+        self.start_background()
+
+    def start_background(self) -> None:
+        for svc in self._background:
+            svc.start()
 
     def stop(self) -> None:
-        """Stop the heal sweep and listening, let in-flight requests
+        """Stop the background loops and listening, let in-flight requests
         finish for ``shutdown_drain_s`` (idle keep-alive connections are
         cut at once), cut the rest, and close the layer (its drive
         monitor stops, its writer threads join; cmd/server-main.go's
@@ -406,8 +456,8 @@ class S3Server:
             if self._stopping:
                 return
             self._stopping = True
-        if self.healer is not None:
-            self.healer.stop()
+        for svc in self._background:
+            svc.stop()
         if self._serving:
             self.httpd.shutdown()       # ends serve_forever, on any thread
         if self._thread is not None:

@@ -6,16 +6,17 @@ the N drives as the reference lays them out: sets of the largest size in
 4..16 that divides N (or ``--set-drive-count``), every drive's
 format.json loaded or written, each drive behind a health proxy, a drive
 monitor that reconnects returning drives and heals their set, the
-background heal sweep, the request plane's limits and deadlines, IAM
-(users, service accounts, STS sessions, policies) loaded from the
-drives, and the control plane: the live kvconfig (``MT_<SUBSYS>_<KEY>``
-environment overrides), the admin API and the Prometheus scrape.
-``config.json`` and ``iam.json`` are sealed at rest under the root
-secret, with AES-GCM from the system libcrypto; without it the server
-does not start.  Erasure coding and bitrot hashing run on the card
-(``--device cuda``, the default, which raises without one) or, when
-asked, on the CPU through the kernels' plain versions (``--device
-cpu``).  The reference's crawler, LDAP and OpenID identities, gateway
+background heal sweep, the crawler (data usage, lifecycle expiry, the
+hard quotas' usage) with its data-update tracker, the request plane's
+limits and deadlines, IAM (users, service accounts, STS sessions,
+policies) loaded from the drives, and the control plane: the live
+kvconfig (``MT_<SUBSYS>_<KEY>`` environment overrides), the admin API
+and the Prometheus scrape.  ``config.json`` and ``iam.json`` are sealed
+at rest under the root secret, with AES-GCM from the system libcrypto;
+without it the server does not start.  Erasure coding and bitrot hashing
+run on the card (``--device cuda``, the default, which raises without
+one) or, when asked, on the CPU through the kernels' plain versions
+(``--device cpu``).  The reference's LDAP and OpenID identities, gateway
 and node subcommands are not served.
 """
 
@@ -25,7 +26,9 @@ import argparse
 import os
 import sys
 
+from .background.crawler import Crawler
 from .background.heal import BackgroundHealer
+from .background.tracker import DataUpdateTracker
 from .device import resolve
 from .objectlayer.erasure_object import DEFAULT_BLOCK_SIZE
 from .objectlayer.sets import ErasureSets
@@ -62,11 +65,13 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
                  set_drive_count: int | None = None) -> S3Server:
     """``ErasureSets`` over ``dirs`` (parity by set size) with its drive
     monitor running, behind an S3Server bound to ``address`` with IAM
-    and the kvconfig read from the drives, the heal sweep attached
-    (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``) and the kvconfig's
-    api, pipeline, commit and heal knobs applied; not started.  Raises
-    RuntimeError when libcrypto cannot be bound (nothing is sealed in
-    the clear)."""
+    and the kvconfig read from the drives, the crawler
+    (``MT_CRAWL_INTERVAL_S``, default 60 s) and the heal sweep
+    (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``) attached, a
+    data-update tracker shared by the crawler and the listing caches,
+    and the kvconfig's api, pipeline, commit, heal and scanner knobs
+    applied; not started.  Raises RuntimeError when libcrypto cannot be
+    bound (nothing is sealed in the clear)."""
     access_key = access_key or os.environ.get("MT_ROOT_USER", "minioadmin")
     secret_key = secret_key or os.environ.get("MT_ROOT_PASSWORD",
                                               "minioadmin")
@@ -93,12 +98,18 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
             srv.httpd.server_close()
         layer.close()
         raise
+    tracker = DataUpdateTracker()
+    srv.attach_tracker(tracker)
+    srv.crawler = Crawler(
+        layer, bucket_meta=srv.bucket_meta,
+        interval_s=float(os.environ.get("MT_CRAWL_INTERVAL_S", "60")),
+        tracker=tracker)
     srv.healer = BackgroundHealer(
         layer, interval_s=float(os.environ.get("MT_HEAL_INTERVAL_S", "3600")),
         deep_every=int(os.environ.get("MT_HEAL_DEEP_EVERY", "8")))
+    srv.attach_background(srv.crawler, srv.healer)
     srv.reload_pipeline_config()
     srv.reload_commit_config()
-    srv.reload_background_config()
     return srv
 
 
@@ -140,7 +151,7 @@ def main(argv: list[str] | None = None) -> int:
         print("S3 endpoint: http://"
               f"{args.address.rpartition(':')[0] or '0.0.0.0'}:{srv.port}",
               flush=True)
-        srv.healer.start()
+        srv.start_background()
         srv.serve_forever()         # until ^C or admin service?action=stop
     except KeyboardInterrupt:
         pass

@@ -78,6 +78,17 @@ register_subsys("heal", {
     "bitrotscan": "off",
     "max_sleep": "1s",
 })
+register_subsys("scanner", {
+    # the crawler's pacing (background/crawler.py): after a cycle it also
+    # waits ``delay`` x that cycle's seconds, at most ``max_wait``
+    "delay": "10",
+    "max_wait": "15s",
+})
+register_subsys("quota", {
+    # hard bucket quotas (s3/handlers_object.py _check_quota): off stops
+    # enforcing the limits, which stay stored; read on every write
+    "enable": "on",
+})
 register_subsys("drive", {
     # slow-drive detection over the drives' last-minute latency windows
     # (storage/health.py slow_drives), read at every scrape and

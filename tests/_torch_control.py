@@ -4,7 +4,9 @@ built by its own package's ``build_server`` over two sets of four drives
 (4 KiB blocks, parity 2), with both packages' clocks, uuid draws and
 formats pinned (``_torch_versions.pin``), so placement, version ids and
 drive ids agree.  The reference's hot-read cache is off (the port has
-none) and its crawler never runs in a test's time."""
+none) and its crawler never runs in a test's time.  On exit the
+reference's drive monitor and fan-out pools are stopped too, which its
+``stop()`` leaves running."""
 
 import contextlib
 import os
@@ -62,6 +64,11 @@ def servers(root, mp: pytest.MonkeyPatch):
     finally:
         port.stop()
         ref.stop()
+        # the reference's stop leaves its drive monitor polling and its
+        # sets' fan-out pools alive; later tests count threads
+        ref.layer.monitor.stop()
+        for s in ref.layer.sets:
+            s._pool.shutdown(wait=True)
         ref_hotread.CONFIG.__dict__.update(saved[0])
         ref_commit.CONFIG.__dict__.update(saved[1])
         port_commit.CONFIG.__dict__.update(saved[2])

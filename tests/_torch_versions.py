@@ -2,7 +2,11 @@
 through ``minio_tpu`` (``backend="numpy"``) and the port (``device="cpu"``
 or a 1 x 1 CPU mesh), with the clocks and uuid draws of both packages'
 object layers pinned to counters, so their drives can be compared byte
-for byte, data-dir, version and upload ids included."""
+for byte, data-dir, version and upload ids included.  The listing
+metacache modules draw their manager and snapshot ids from a counter of
+their own and read a fixed wall clock, so a listing leaves the same
+``.mt.sys/metacache/`` tree in either package without moving the object
+layers' counters."""
 
 import itertools
 import os
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 import minio_tpu.objectlayer.erasure_object as ref_eo
+import minio_tpu.objectlayer.metacache as ref_mc
 import minio_tpu.objectlayer.multipart as ref_mp
 import minio_tpu.storage.format as ref_fmt
 from minio_tpu.objectlayer import interface as ref_ol
@@ -20,6 +25,7 @@ from minio_tpu.storage.writers import close_write_planes
 from minio_tpu.storage.xl_storage import XLStorage as RefStorage
 from minio_tpu_torch.objectlayer import erasure_object as port_eo
 from minio_tpu_torch.objectlayer import interface as port_ol
+from minio_tpu_torch.objectlayer import metacache as port_mc
 from minio_tpu_torch.objectlayer import multipart as port_mp
 from minio_tpu_torch.parallel.mesh import make_mesh
 from minio_tpu_torch.storage import format as port_fmt
@@ -51,19 +57,27 @@ class Pins:
         return next(self._t)
 
 
+# the metacache's wall clock under ``pin``: snapshots never expire
+PINNED_TIME = types.SimpleNamespace(time=lambda: T0 / 1e9)
+
+
 def pin(monkeypatch, shared: bool = False, batch: int = BATCH) -> None:
     """One counter pair per package, or with ``shared`` one for both (a
     sequence that hops between packages); stream batches of ``batch``
     bytes.  The format modules draw the deployment and drive ids from
-    the same uuid counter."""
-    ref = Pins()
-    port = ref if shared else Pins()
-    for pins, mods, fmt in ((ref, (ref_eo, ref_mp), ref_fmt),
-                            (port, (port_eo, port_mp), port_fmt)):
+    the same uuid counter, the metacache modules from one of their own
+    (``PINNED_TIME`` their clock)."""
+    ref, ref_ids = Pins(), Pins()
+    port, port_ids = (ref, ref_ids) if shared else (Pins(), Pins())
+    for pins, ids, mods, fmt, mc in (
+            (ref, ref_ids, (ref_eo, ref_mp), ref_fmt, ref_mc),
+            (port, port_ids, (port_eo, port_mp), port_fmt, port_mc)):
         for mod in mods:
             monkeypatch.setattr(mod, "now_ns", pins.now_ns)
             monkeypatch.setattr(mod, "uuid", pins.uuid)
         monkeypatch.setattr(fmt, "uuid", pins.uuid)
+        monkeypatch.setattr(mc, "uuid", ids.uuid)
+        monkeypatch.setattr(mc, "time", PINNED_TIME)
     for mod in (ref_eo, port_eo):
         monkeypatch.setattr(mod, "STREAM_BATCH_BYTES", batch)
 

@@ -17,7 +17,9 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "heal": ["bitrotscan", "max_sleep"],
              "drive": ["slow_latency_multiple", "slow_min_samples"],
              "pipeline": ["depth", "queue_depth"],
-             "commit": ["max_batch", "pack_threshold", "segment_max_bytes"]}
+             "commit": ["max_batch", "pack_threshold", "segment_max_bytes"],
+             "scanner": ["delay", "max_wait"],
+             "quota": ["enable"]}
 
 
 def test_registers_only_the_keys_the_port_reads():

@@ -674,7 +674,7 @@ def _tree(root) -> dict:
 @pytest.mark.parametrize("method,path,query,headers", [
     ("GET", f"/{B}", "tagging", {}),
     ("PUT", f"/{B}", "encryption", {}),
-    ("GET", f"/{B}", "lifecycle", {}),
+    ("GET", f"/{B}", "cors", {}),
     ("GET", f"/{B}", "object-lock", {}),
     ("GET", f"/{B}/rt/packed", "retention", {}),
     ("POST", f"/{B}/k", "restore", {}),
