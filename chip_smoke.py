@@ -160,7 +160,32 @@
    launch Kernels A and B; no plain version.  ``MT_CRAWL_INTERVAL_S`` is
    a day for the whole script, so no cycle lands inside an earlier
    phase's readings.
-13. One JSON line of readings, one describing each kernel, the card line,
+13. Server pools, on their own server: ``ErasureServerPools`` over one
+   16-drive pool (12 + 4, 10 MiB blocks, on the card) behind an
+   S3Server with the tracker, the crawler and a rebalancer (0.25 s,
+   threshold 0.05) attached, as ``minio_tpu/soak/chaos.py`` builds a
+   pooled node.  Over HTTP: 16 x 16 MiB, 16 x 512 KiB (packed) and a
+   3-part upload of 3 x 16 MiB into ``pools``, two versions of a key and
+   a delete marker over another in versioned ``poolsv``; ``pool-add``
+   twice (16 drives each; ``pool-status`` three active); 32 x 16 MiB more,
+   each new pool receiving some; two versions and a marked key placed on
+   pool 1, and an upload pinned to pool 1; a shard of one object per pool
+   removed; every 16 MiB object read back (Kernel A rebuilds the lost
+   shards).  ``pool-decommission`` pool 1, then its upload completed and
+   its last key overwritten and read back at once (the new body); pool 1
+   retired within 120 s, ``rebalance-status``'s moves equal to the
+   scrape's ``mt_rebalance_moved_*_total``, no object file left on its
+   drives, every key, version and marker read back with its ETag,
+   version id and Last-Modified.  One crawler cycle: ``mt_pool_usage_bytes``
+   of the two pools left sums to the bytes written, ``pool-status`` carries
+   the usage.  Stopped, rebuilt from pool 0's drives alone and its
+   manifest (pools 0 and 2 back), every key read again; no
+   ``mt-rebalance`` thread outlives a stop.  Kernels A and B launch in
+   the one-pool PUT, the three-pool PUT, the GET and the drain; no plain
+   version.  PUT GiB/s on one pool and on three (each PUT probes every
+   pool), GET GiB/s, the drain's seconds, objects and GiB/s, the
+   restart's seconds.
+14. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -2466,6 +2491,317 @@ def phase_identity(card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+POOLS_OBJ, POOLS_SMALL = 16 << 20, 512 * 1024           # phase 13
+POOLS_FIRST, POOLS_MORE, POOLS_THREADS = 16, 32, 4
+POOLS_DRAIN_LIMIT_S = 120.0
+
+
+def pools_pool(dirs: list):
+    """One pool of phase 13: one 12 + 4 set with 10 MiB blocks on the
+    card (``soak/chaos.py``'s layer 0)."""
+    from minio_tpu_torch.objectlayer.sets import ErasureSets
+    return ErasureSets.from_dirs(dirs, 1, K + M, block_size=BLOCK,
+                                 device="cuda")
+
+
+def pools_server(dirs0: list, load: bool = False):
+    """Pool 0 under ``ErasureServerPools`` behind an S3Server, with the
+    tracker, the crawler and a rebalancer (0.25 s, threshold 0.05)
+    attached, as ``minio_tpu/soak/chaos.py`` builds a pooled node; with
+    ``load`` the manifest brings back the pools recorded on pool 0."""
+    from minio_tpu_torch.background.crawler import Crawler
+    from minio_tpu_torch.background.rebalance import Rebalancer
+    from minio_tpu_torch.background.tracker import DataUpdateTracker
+    from minio_tpu_torch.objectlayer.pools import ErasureServerPools
+    from minio_tpu_torch.s3.server import S3Server
+    layer = ErasureServerPools([pools_pool(dirs0)], secret=S3_SECRET)
+    if load:
+        check(layer.load_manifest(), "no pool manifest on pool 0")
+    srv = S3Server(layer, access_key=S3_KEY, secret_key=S3_SECRET,
+                   host="127.0.0.1", port=0)
+    srv.iam.load()
+    tracker = DataUpdateTracker()
+    srv.attach_tracker(tracker)
+    srv.crawler = Crawler(layer, bucket_meta=srv.bucket_meta,
+                          interval_s=24 * 3600.0, tracker=tracker)
+    srv.attach_background(srv.crawler, rebalancer=Rebalancer(
+        layer, interval_s=0.25, threshold=0.05))
+    srv.reload_pipeline_config()
+    srv.reload_commit_config()
+    srv.start()
+    return srv
+
+
+def pools_identity(client, bucket: str, key: str, vid=None) -> tuple:
+    """(ETag, version id, Last-Modified) a HEAD answers."""
+    h = {k.lower(): v for k, v in
+         client.head_object(bucket, key, version_id=vid).headers.items()}
+    return (h.get("etag"), h.get("x-amz-version-id"), h.get("last-modified"))
+
+
+def rebalance_threads() -> list:
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("mt-rebalance")]
+
+
+def phase_pools(card: str, gen):
+    """Phase 13: a 16-drive pool grown by two more over HTTP, the middle
+    one decommissioned under traffic and retired, usage per pool, and a
+    restart from pool 0's manifest; every body, ETag, version id and
+    Last-Modified checked across it.  Returns the launches and the
+    readings."""
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.s3.client import S3Client, multipart_etag
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-pools-")
+    dirs = [[f"{root}/p{j}/d{i}" for i in range(K + M)] for j in range(3)]
+    for d in (d for ds in dirs for d in ds):
+        os.makedirs(d)
+    blob = rand_bytes((POOLS_FIRST + POOLS_MORE + 4, POOLS_OBJ), gen) \
+        .cpu().numpy()
+    big = [blob[i].tobytes() for i in range(len(blob))]
+    small = rand_bytes((16, POOLS_SMALL), gen).cpu().numpy()
+    readings: dict = {}
+    want: dict = {}          # (bucket, key, vid or None) -> body
+    srv = pools_server(dirs[0])
+    try:
+        layer = srv.layer
+        c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+        for b in ("pools", "poolsv"):
+            c.make_bucket(b)
+        c.set_bucket_versioning("poolsv", True)
+        first = [(f"n{i:03d}", big[i]) for i in range(POOLS_FIRST)]
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        # 1: one pool
+        t = put_many(srv.endpoint, "pools", first, POOLS_THREADS)
+        torch.cuda.synchronize()
+        s_put1 = snapshot()
+        readings["put_1pool_gibps"] = len(first) * POOLS_OBJ / t / 2**30
+        put_many(srv.endpoint, "pools", [(f"s{i:02d}", small[i].tobytes())
+                                         for i in range(len(small))],
+                 POOLS_THREADS)
+        mp_body = b"".join(big[POOLS_FIRST + POOLS_MORE:][:3])
+        uid, parts, _ = c.upload_parts("pools", "mp", mp_body, POOLS_OBJ,
+                                       POOLS_THREADS)
+        r = c.complete_multipart_upload("pools", "mp", uid, parts)
+        etag = r.xml().findtext(
+            "{http://s3.amazonaws.com/doc/2006-03-01/}ETag").strip('"')
+        check(etag == multipart_etag([e for _, e in parts]) and
+              etag.endswith("-3"), f"multipart ETag {etag}")
+        want.update({("pools", k, None): v for k, v in first})
+        want.update({("pools", f"s{i:02d}", None): small[i].tobytes()
+                     for i in range(len(small))})
+        want[("pools", "mp", None)] = mp_body
+
+        def versions(key, bodies, marker=False):
+            """Versions of ``key`` in ``poolsv``, then a delete marker."""
+            for body in bodies:
+                h = {k.lower(): v for k, v in c.put_object(
+                    "poolsv", key, body).headers.items()}
+                want[("poolsv", key, h["x-amz-version-id"])] = body
+            if marker:
+                c.delete_object("poolsv", key)
+        versions("ver", [small[0].tobytes(), small[1].tobytes()])
+        versions("gone", [small[2].tobytes()], marker=True)
+        # 2: grow by two pools
+        for j in (1, 2):
+            check(adm.pool_add(dirs[j], 1, K + M, block_size=BLOCK) ==
+                  {"status": "ok", "pool": j}, f"pool-add {j}")
+        st = adm.pool_status()["pools"]
+        check([p["status"] for p in st] == ["active"] * 3,
+              f"pool-status after the adds: {st}")
+        ids = [p["id"] for p in st]
+        # what a PUT of a new name now pays first: a probe of each pool
+        t0 = time.perf_counter()
+        for i in range(20):
+            check(layer.get_pool_idx("pools", f"probe{i}") in (0, 1, 2),
+                  "placement")
+        readings["probe_3pools_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        more = [(f"n{i:03d}", big[i])
+                for i in range(POOLS_FIRST, POOLS_FIRST + POOLS_MORE)]
+        torch.cuda.synchronize()
+        s_put3a = snapshot()
+        t = put_many(srv.endpoint, "pools", more, POOLS_THREADS)
+        torch.cuda.synchronize()
+        s_put3 = snapshot()
+        readings["put_3pools_gibps"] = len(more) * POOLS_OBJ / t / 2**30
+        want.update({("pools", k, None): v for k, v in more})
+        held = {j: sorted(o.name for o in layer.pools[j].list_objects(
+            "pools", "n", max_keys=1000).objects) for j in range(3)}
+        readings["new_keys_per_pool"] = [
+            len([k for k, _ in more if k in held[j]]) for j in range(3)]
+        check(all(readings["new_keys_per_pool"]),
+              f"a pool received none of the new keys: {held}")
+        # versions and a delete marker placed on pool 1
+        on1 = [k for k in (f"v{i:03d}" for i in range(200))
+               if layer.get_pool_idx("poolsv", k) == 1][:2]
+        versions(on1[0], [small[5].tobytes(), small[6].tobytes()])
+        versions(on1[1], [small[7].tobytes()], marker=True)
+        # an upload pinned to pool 1
+        up = next(k for k in (f"up{i:03d}" for i in range(200))
+                  if layer.get_pool_idx("pools", k) == 1)
+        up_uid = c.create_multipart_upload("pools", up)
+        up_parts = [(1, c.upload_part("pools", up, up_uid, 1,
+                                      big[-1]))]
+        # a shard lost in each pool: the GET rebuilds it (Kernel A)
+        for j in range(3):
+            key = held[j][0]
+            er = layer.pools[j].get_hashed_set(key)
+            fi, _ = er._read_quorum_fileinfo("pools", key)
+            d = fi.erasure.distribution.index(1)
+            os.remove(f"{dirs[j][d]}/pools/{key}/{fi.data_dir}/part.1")
+        items = [(k, v) for (b, k, vid), v in want.items()
+                 if b == "pools" and len(v) == POOLS_OBJ]
+        torch.cuda.synchronize()
+        s_get3a = snapshot()
+        t = get_many(srv.endpoint, "pools", items, POOLS_THREADS)
+        torch.cuda.synchronize()
+        s_get3 = snapshot()
+        readings["get_3pools_gibps"] = len(items) * POOLS_OBJ / t / 2**30
+        ident = {k: pools_identity(c, b, key, vid)
+                 for k in want for (b, key, vid) in [k]}
+        listing_v = c.list_object_versions("poolsv")
+        # 3: decommission pool 1 under traffic; each move timed
+        from minio_tpu_torch.background import rebalance as rb_mod
+        moves: list = []
+        real_move = rb_mod.move_version
+
+        def timed_move(*a, **kw):
+            t0 = time.perf_counter()
+            n = real_move(*a, **kw)
+            moves.append((time.perf_counter() - t0, n))
+            return n
+
+        rb_mod.move_version = timed_move
+        moved0 = dict(srv.rebalancer.stats.to_dict())
+        torch.cuda.synchronize()
+        s_dr0 = snapshot()
+        t_dr = time.perf_counter()
+        check(adm.pool_decommission(1) == {"status": "draining", "pool": 1},
+              "pool-decommission")
+        up_parts.append((2, c.upload_part("pools", up, up_uid, 2,
+                                          small[8].tobytes())))
+        c.complete_multipart_upload("pools", up, up_uid, up_parts)
+        up_body = big[-1] + small[8].tobytes()
+        want[("pools", up, None)] = up_body
+        # an overwrite of pool 1's last key, placed on an active pool
+        victim = held[1][-1]
+        new_body = small[9].tobytes()
+        c.put_object("pools", victim, new_body)
+        now = layer.pools
+        readings["stale_copy_beside_overwrite"] = len(now) == 3 and any(
+            o.name == victim for o in now[1].list_objects(
+                "pools", victim).objects)
+        check(c.get_object("pools", victim).body == new_body,
+              "GET after an overwrite beside the draining copy")
+        want[("pools", victim, None)] = new_body
+        while len(adm.pool_status()["pools"]) == 3:
+            check(time.perf_counter() - t_dr < POOLS_DRAIN_LIMIT_S,
+                  "pool 1 not retired within the limit")
+            time.sleep(0.1)
+        drain_s = time.perf_counter() - t_dr
+        rb_mod.move_version = real_move
+        torch.cuda.synchronize()
+        s_dr = snapshot()
+        st = adm.pool_status()["pools"]
+        check([p["id"] for p in st] == [ids[0], ids[2]],
+              f"pool-status after the drain: {st}")
+        rs = adm.rebalance_status()["stats"]
+        scrape = parse_scrape(adm.metrics())
+        moved = (rs["movedObjects"] - moved0["movedObjects"],
+                 rs["movedBytes"] - moved0["movedBytes"])
+        check(moved[0] > 0 and (rs["movedObjects"], rs["movedBytes"]) == (
+            scrape[("mt_rebalance_moved_objects_total", ())],
+            scrape[("mt_rebalance_moved_bytes_total", ())]),
+            f"rebalance-status {rs} against the scrape")
+        check(rs["failed"] == 0, f"failed moves: {rs}")
+        readings.update(
+            drain_s=drain_s, drain_moved_objects=moved[0],
+            drain_moved_bytes=moved[1],
+            drain_gibps=moved[1] / drain_s / 2**30,
+            drain_cycles=rs["cycles"] - moved0["cycles"],
+            drain_moves=len(moves),
+            drain_in_moves_s=sum(t for t, _ in moves),
+            move_16mib_s=[round(t, 4) for t, n in moves
+                          if n == POOLS_OBJ])
+        # nothing of an object left on pool 1: no file outside the
+        # system volume, no staged part
+        left = [p for d in dirs[1] for dp, _, fs in os.walk(d) for f in fs
+                for p in [os.path.relpath(os.path.join(dp, f), d)]
+                if not p.startswith(".mt.sys/")
+                or p.startswith(".mt.sys/multipart/")]
+        check(left == [], f"pool 1's drives hold object data: {left[:4]}")
+        # every key, version and marker, as before
+        for (b, key, vid), body in want.items():
+            got = c.get_object(b, key, version_id=vid).body
+            check(got == body, f"{b}/{key}@{vid} body after the drain")
+            if (b, key, vid) in ident and key not in (victim,):
+                check(pools_identity(c, b, key, vid) ==
+                      ident[(b, key, vid)], f"{b}/{key}@{vid} identity")
+        check(c.list_object_versions("poolsv") == listing_v,
+              "the versions listing after the drain")
+        check(ident[("pools", "mp", None)][0].strip('"').endswith("-3"),
+              "multipart ETag")
+        # 4: usage per pool
+        srv.crawler.run_cycle()
+        scrape = parse_scrape(adm.metrics())
+        usage = by_label(scrape, "mt_pool_usage_bytes", "pool")
+        written = sum(len(v) for v in want.values())
+        check(sorted(usage) == sorted([ids[0], ids[2]]) and
+              sum(usage.values()) == written,
+              f"mt_pool_usage_bytes {usage} against {written} written")
+        st = adm.pool_status()["pools"]
+        check(all("usedBytes" in p and "objects" in p for p in st),
+              f"pool-status without usage: {st}")
+        readings["pool_usage_bytes"] = [int(usage[i]) for i in
+                                        (ids[0], ids[2])]
+    finally:
+        srv.stop()
+    check(rebalance_threads() == [], "a rebalance thread outlived stop()")
+    # 5: a restart from pool 0's drives alone
+    t0 = time.perf_counter()
+    srv = pools_server(dirs[0], load=True)
+    try:
+        readings["restart_s"] = time.perf_counter() - t0
+        check([sp.pool_id for sp in srv.layer.specs] == [ids[0], ids[2]],
+              "the pools after the restart")
+        c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        for (b, key, vid), body in want.items():
+            check(c.get_object(b, key, version_id=vid).body == body,
+                  f"{b}/{key}@{vid} after the restart")
+        torch.cuda.synchronize()
+        s_end = snapshot()
+    finally:
+        srv.stop()
+    check(rebalance_threads() == [], "a rebalance thread outlived stop()")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = delta(s0, s_end)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"pools path: {kernel} plain version ran")
+    steps = {"put_1pool": delta(s0, s_put1), "put_3pools": delta(s_put3a,
+                                                                  s_put3),
+             "get_3pools": delta(s_get3a, s_get3), "drain": delta(s_dr0,
+                                                                   s_dr)}
+    for step, got in steps.items():
+        for kernel in ("gf8_apply", "hh256"):
+            check(got[kernel][0] > 0, f"{kernel} not launched in {step}")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    print(f"pools path on {card}: PUT {readings['put_1pool_gibps']:.3f} "
+          f"GiB/s on one pool, {readings['put_3pools_gibps']:.3f} on three;"
+          f" GET {readings['get_3pools_gibps']:.3f} GiB/s; drain "
+          f"{drain_s:.2f} s, {moved[0]} objects, "
+          f"{readings['drain_gibps']:.3f} GiB/s; restart "
+          f"{readings['restart_s']:.3f} s; phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -2506,6 +2842,7 @@ def main() -> int:
         list_path, list_readings)) = phase_sets(bodies, card, gen,
                                                 s3_readings)
     id_path, id_readings = phase_identity(card, gen)
+    pools_path, pools_readings = phase_pools(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -2513,7 +2850,8 @@ def main() -> int:
                    "sets_path": sets_path[k["name"]],
                    "control_path": ctl_path[k["name"]],
                    "listing_path": list_path[k["name"]],
-                   "identity_path": id_path[k["name"]]}
+                   "identity_path": id_path[k["name"]],
+                   "pools_path": pools_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -2522,7 +2860,8 @@ def main() -> int:
                       "sets_path": sets_readings,
                       "control_path": ctl_readings,
                       "listing_path": list_readings,
-                      "identity_path": id_readings}))
+                      "identity_path": id_readings,
+                      "pools_path": pools_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

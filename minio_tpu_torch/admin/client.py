@@ -9,6 +9,7 @@ the metrics scrape.
     adm.add_user("u1", "u1-secret", ["alpha-rw"])
     adm.set_bucket_quota("bucket", 1 << 30)
     usage = adm.data_usage_info()
+    adm.pool_add(dirs, 1, 16, parity=4)       # a pools layer only
     text = adm.metrics()
 """
 
@@ -168,6 +169,36 @@ class AdminClient:
 
     def clear_bucket_quota(self, bucket: str) -> None:
         self._call("POST", "clear-bucket-quota", f"bucket={bucket}")
+
+    # -- server pools --------------------------------------------------------
+
+    def pool_status(self) -> dict:
+        """Each pool's index, id, status, geometry and free bytes, with
+        the crawler's usage once a cycle ran."""
+        return self._call("GET", "pool-status")
+
+    def pool_add(self, dirs: list[str], set_count: int,
+                 set_drive_count: int, **kwargs) -> dict:
+        """Attach a pool (``kwargs``: parity, block_size, ...); the
+        manifest keeps it across restarts."""
+        doc = {"dirs": dirs, "setCount": set_count,
+               "setDriveCount": set_drive_count}
+        if kwargs:
+            doc["kwargs"] = kwargs
+        return self._call("POST", "pool-add", body=json.dumps(doc).encode())
+
+    def pool_decommission(self, pool) -> dict:
+        """Drain a pool (index or id): new names go elsewhere and the
+        rebalancer moves everything off."""
+        return self._call("POST", "pool-decommission", f"pool={pool}")
+
+    def pool_decommission_abort(self, pool) -> dict:
+        return self._call("POST", "pool-decommission-abort", f"pool={pool}")
+
+    def rebalance_status(self) -> dict | None:
+        """The rebalancer's state: enabled, draining pools, bandwidth,
+        counters, cycle progress."""
+        return self._call("GET", "rebalance-status")
 
     def service_stop(self) -> dict:
         return self._call("POST", "service", "action=stop")

@@ -16,7 +16,8 @@ AccessDenied.  They answer JSON:
                                 every object under the prefix
                                 (``?scan=deep``, ``?remove=true``)
   GET  heal-status              the heal sweep's counters
-  GET  storageinfo              per-drive capacity, state and slow flag
+  GET  storageinfo              per-drive capacity, state and slow flag;
+                                on a pools layer the pools' rows too
   POST service?action=stop|restart
   POST add-user                 {"accessKey", "secretKey", "policies"}
   GET  list-users
@@ -38,13 +39,22 @@ AccessDenied.  They answer JSON:
   GET  get-bucket-quota?bucket=
   POST set-bucket-quota?bucket= {"quota": bytes, "quotatype": "hard"}
   POST clear-bucket-quota?bucket=
-  GET  background-status        the heal sweep's and the crawler's
-                                progress (replication, mrf and rebalance
-                                null: the port has none)
+  GET  background-status        the heal sweep's, the crawler's and the
+                                rebalancer's progress (replication and
+                                mrf null: the port has none)
+  GET  pool-status              each pool's index, id, status, geometry,
+                                free bytes and, after a crawler cycle, its
+                                usedBytes and objects
+  POST pool-add                 {"dirs", "setCount", "setDriveCount",
+                                "kwargs"}: attach a pool
+  POST pool-decommission?pool=  drain a pool (by index or id)
+  POST pool-decommission-abort?pool=
+  GET  rebalance-status         the rebalancer's state and counters
 
 An unknown user or policy answers 404, another IAM refusal 400, a
-malformed request 400.  Every other admin route answers the S3
-NotImplemented error.  The reference's heal route lists only latest
+malformed request 400, a pool route on a layer without pools 400 "not a
+pooled deployment", a refused pool change 400.  Every other admin route
+answers the S3 NotImplemented error.  The reference's heal route lists only latest
 versions and stops at 10,000 objects
 (``minio_tpu/admin/handlers.py:1427-1454``); this one pages and heals
 every version, as the heal sweep does.
@@ -64,6 +74,7 @@ from ..bucket.quota import Quota
 from ..iam import policy as iampol
 from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
 from ..objectlayer import interface as ol
+from ..objectlayer.pools import is_pooled
 from . import metrics
 
 ADMIN_PREFIX = "/minio-tpu/admin/v1"
@@ -77,7 +88,8 @@ _RELOADS = {"api": "reload_api_config",
             "pipeline": "reload_pipeline_config",
             "commit": "reload_commit_config",
             "heal": "reload_background_config",
-            "scanner": "reload_background_config"}
+            "scanner": "reload_background_config",
+            "rebalance": "reload_background_config"}
 
 
 def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
@@ -88,7 +100,8 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
     if path == METRICS_PATH:
         body = metrics.render(srv.layer, healer=srv.healer,
                               config=srv.config, api_stats=srv.api_stats,
-                              crawler=srv.crawler)
+                              crawler=srv.crawler,
+                              rebalancer=srv.rebalancer)
         h._send(200, body.encode(),
                 content_type="text/plain; version=0.0.4")
         return True
@@ -132,6 +145,9 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
         if route == "background-status" and h.command == "GET":
             return send_json({**background_status(srv),
                               "node": srv.api_stats.label})
+        pool_route = _POOL_ROUTES.get((h.command, route))
+        if pool_route is not None:
+            return pool_route(srv, q1, payload, send_json)
         quota_route = _QUOTA_ROUTES.get((h.command, route))
         if quota_route is not None:
             return quota_route(srv, q1, payload, send_json)
@@ -285,10 +301,100 @@ _QUOTA_ROUTES = {
 }
 
 
+# -- server pools (cmd/admin-handlers-pools.go) -------------------------------
+
+def _not_pooled(send_json) -> bool:
+    return send_json({"error": "not a pooled deployment"}, 400)
+
+
+def _pool_arg(q1: dict):
+    """``?pool=``: an index (all digits) or a pool id (a uuid)."""
+    p = q1["pool"]
+    return int(p) if p.isdigit() else p
+
+
+def _merge_pool_usage(srv, pools: list) -> None:
+    """The crawler's per-pool usage into pool-status rows, by pool id;
+    a deployment that never ran a cycle has none."""
+    try:
+        info = load_usage(srv.layer)
+    except Exception:  # noqa: BLE001 — a system volume below quorum
+        return
+    pu = info.pools_usage if info is not None else None
+    if not pu:
+        return
+    for row in pools:
+        u = pu.get(row.get("id", ""))
+        if u:
+            row["usedBytes"] = u.get("bytes", 0)
+            row["objects"] = u.get("objects", 0)
+
+
+def _pool_status(srv, q1, payload, send_json) -> bool:
+    if not is_pooled(srv.layer):
+        return _not_pooled(send_json)
+    pools = srv.layer.pool_status()
+    _merge_pool_usage(srv, pools)
+    return send_json({"pools": pools})
+
+
+def _pool_add(srv, q1, payload, send_json) -> bool:
+    """Attach a pool under traffic; the rebalancer is woken."""
+    if not is_pooled(srv.layer):
+        return _not_pooled(send_json)
+    doc = json.loads(payload)
+    try:
+        idx = srv.layer.attach_pool(doc["dirs"], int(doc["setCount"]),
+                                    int(doc["setDriveCount"]),
+                                    **doc.get("kwargs", {}))
+    except ValueError as e:
+        return send_json({"error": str(e)}, 400)
+    if srv.rebalancer is not None:
+        srv.rebalancer.kick()
+    return send_json({"status": "ok", "pool": idx})
+
+
+def _pool_decommission(srv, q1, payload, send_json) -> bool:
+    """Mark a pool draining and wake the rebalancer to drain it."""
+    if not is_pooled(srv.layer):
+        return _not_pooled(send_json)
+    try:
+        idx = srv.layer.start_decommission(_pool_arg(q1))
+    except ValueError as e:
+        return send_json({"error": str(e)}, 400)
+    if srv.rebalancer is not None:
+        srv.rebalancer.kick()
+    return send_json({"status": "draining", "pool": idx})
+
+
+def _pool_decommission_abort(srv, q1, payload, send_json) -> bool:
+    if not is_pooled(srv.layer):
+        return _not_pooled(send_json)
+    try:
+        idx = srv.layer.abort_decommission(_pool_arg(q1))
+    except ValueError as e:
+        return send_json({"error": str(e)}, 400)
+    return send_json({"status": "active", "pool": idx})
+
+
+def _rebalance_status(srv, q1, payload, send_json) -> bool:
+    rb = srv.rebalancer
+    return send_json(rb.status() if rb is not None else None)
+
+
+_POOL_ROUTES = {
+    ("GET", "pool-status"): _pool_status,
+    ("POST", "pool-add"): _pool_add,
+    ("POST", "pool-decommission"): _pool_decommission,
+    ("POST", "pool-decommission-abort"): _pool_decommission_abort,
+    ("GET", "rebalance-status"): _rebalance_status,
+}
+
+
 def background_status(srv) -> dict:
     """The background loops' live progress (madmin BgHealState, ``mc
     admin scanner status``)."""
-    healer, crawler = srv.healer, srv.crawler
+    healer, crawler, rb = srv.healer, srv.crawler, srv.rebalancer
     return {
         "healing": {"progress": healer.progress.snapshot(),
                     "stats": healer.stats.to_dict()}
@@ -298,7 +404,7 @@ def background_status(srv) -> dict:
         if crawler is not None else None,
         "replication": None,
         "mrf": None,
-        "rebalance": None,
+        "rebalance": rb.status() if rb is not None else None,
     }
 
 
@@ -415,7 +521,12 @@ def _storage_info(srv) -> dict:
         if v is not None:
             entry["slow"] = v["slow"]
         disks.append(entry)
-    return {"disks": disks, "backend": "erasure-tpu"}
+    out = {"disks": disks, "backend": "erasure-tpu"}
+    if is_pooled(srv.layer):
+        pools = srv.layer.pool_status()
+        _merge_pool_usage(srv, pools)
+        out["pools"] = pools
+    return out
 
 
 def _service(srv, q1: dict, send_json) -> bool:

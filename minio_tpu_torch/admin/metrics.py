@@ -18,11 +18,15 @@ families computed at scrape time from the live server:
                           the crawler's usage totals
   mt_bucket_*             per-bucket usage and size distribution, from
                           the crawler's persisted usage
+  mt_pool_usage_*         per-pool bytes and objects, from the same usage
+                          on a pools layer
   mt_node_disk_*          per-drive last-minute latency and the slow flag
   mt_put_pipeline_*       writer queues and the last streaming PUT's
                           overlap
   mt_heal_*               the heal sweep's counters and rates
   mt_scanner_*            the crawler's cycles, objects and rates
+  mt_rebalance_*          the rebalancer's moves, failures, cycles and
+                          rates
   mt_mem_*                the memory governor (``utils/memgov.py``):
                           watermark, bytes in use per kind, peak, sheds
 
@@ -131,11 +135,11 @@ def _memgov_gauges() -> list[str]:
 
 
 def render(layer=None, healer=None, config=None, api_stats=None,
-           crawler=None) -> str:
+           crawler=None, rebalancer=None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
-    is the server's last-minute per-API ``OpWindows``; ``crawler`` the
-    server's crawler.  Codec ops whose
+    is the server's last-minute per-API ``OpWindows``; ``crawler`` and
+    ``rebalancer`` the server's loops.  Codec ops whose
     device time is still being measured are settled first (those whose
     kernels have finished)."""
     from ..ops import codec
@@ -191,6 +195,8 @@ def render(layer=None, healer=None, config=None, api_stats=None,
                     lambda: _progress_gauges("mt_heal", healer.progress)]
     if crawler is not None:
         sources.append(lambda: _scanner_gauges(crawler))
+    if rebalancer is not None:
+        sources.append(lambda: _rebalance_metrics(rebalancer))
     for fam in sources:
         try:
             lines += fam()
@@ -267,6 +273,15 @@ def _bucket_usage_gauges(layer) -> list[str]:
         for rng in sorted(u.histogram):
             lines.append("mt_bucket_objects_size_distribution"
                          f'{{bucket="{b}",range="{rng}"}} {u.histogram[rng]}')
+    if usage.pools_usage:
+        # a layer without pools writes no pools section: no family
+        lines += ["# TYPE mt_pool_usage_bytes gauge",
+                  "# TYPE mt_pool_usage_objects gauge"]
+        for pid in sorted(usage.pools_usage):
+            u = usage.pools_usage[pid]
+            pl = _fmt_labels((("pool", pid),))
+            lines.append(f"mt_pool_usage_bytes{pl} {u.get('bytes', 0)}")
+            lines.append(f"mt_pool_usage_objects{pl} {u.get('objects', 0)}")
     return lines
 
 
@@ -279,6 +294,21 @@ def _scanner_gauges(crawler) -> list[str]:
         "# TYPE mt_scanner_cycle_objects gauge",
         f"mt_scanner_cycle_objects {n_objects}",
     ] + _progress_gauges("mt_scanner", prog)
+
+
+def _rebalance_metrics(rebalancer) -> list[str]:
+    """The rebalancer's lifetime move counters and its cycle's rates."""
+    st = rebalancer.stats
+    return [
+        "# TYPE mt_rebalance_moved_objects_total counter",
+        f"mt_rebalance_moved_objects_total {st.moved_objects}",
+        "# TYPE mt_rebalance_moved_bytes_total counter",
+        f"mt_rebalance_moved_bytes_total {st.moved_bytes}",
+        "# TYPE mt_rebalance_failed_total counter",
+        f"mt_rebalance_failed_total {st.failed}",
+        "# TYPE mt_rebalance_cycles_total counter",
+        f"mt_rebalance_cycles_total {st.cycles}",
+    ] + _progress_gauges("mt_rebalance", rebalancer.progress)
 
 
 def _heal_counters(healer) -> list[str]:
@@ -366,7 +396,8 @@ def _put_pipeline_gauges(layer) -> list[str]:
     never carried an op renders nothing."""
     drives: list[tuple[str, dict]] = []
     effs: list[tuple[int, dict]] = []
-    for si, leaf in enumerate(getattr(layer, "sets", [layer])):
+    from ..objectlayer.metacache import leaf_layers_of
+    for si, leaf in enumerate(leaf_layers_of(layer)):
         plane = leaf._write_plane
         if not plane.used:
             continue

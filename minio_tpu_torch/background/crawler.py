@@ -5,8 +5,10 @@ cmd/bucket-lifecycle.go).
 
 A cycle lists every version of every bucket through the object layer and
 sums a ``DataUsageInfo``: per bucket the objects, versions, bytes and a
-size histogram.  Where the bucket has a lifecycle configuration and the
-data-update tracker saw it change since the last cycle, each version's
+size histogram, and on a pools layer each pool's bytes and objects
+(``poolsUsageInfo``, from the same listing pass).  Where the bucket has
+a lifecycle configuration and the data-update tracker saw it change
+since the last cycle, each version's
 due action is computed and the expiries are carried out (current
 versions, noncurrent versions dated from their successor's write, delete
 markers that are their object's only version).  A Transition rule takes
@@ -18,6 +20,7 @@ scrape and the hard quota (``UsageCache``) read it.
 
 from __future__ import annotations
 
+import heapq
 import json
 import threading
 import time
@@ -26,6 +29,7 @@ from dataclasses import dataclass, field
 
 from ..bucket.lifecycle import Action, Lifecycle, ObjectOpts
 from ..objectlayer import interface as ol
+from ..objectlayer.pools import is_pooled, merge_versions
 from ..storage.datatypes import now_ns
 from .progress import CycleProgress
 from .tracker import DataUpdateTracker
@@ -59,9 +63,11 @@ class DataUsageInfo:
     objects_total_count: int = 0
     objects_total_size: int = 0
     bucket_usage: dict[str, BucketUsage] = field(default_factory=dict)
+    # pool id -> {"bytes", "objects"} on a pools layer
+    pools_usage: dict[str, dict] = field(default_factory=dict)
 
     def to_json(self) -> bytes:
-        return json.dumps({
+        doc = {
             "lastUpdate": self.last_update_ns,
             "bucketsCount": self.buckets_count,
             "objectsCount": self.objects_total_count,
@@ -72,12 +78,13 @@ class DataUsageInfo:
                     "size": u.size,
                     "objectsSizesHistogram": u.histogram}
                 for b, u in self.bucket_usage.items()},
-        }).encode()
+        }
+        if self.pools_usage:        # a layer without pools: no section
+            doc["poolsUsageInfo"] = self.pools_usage
+        return json.dumps(doc).encode()
 
     @classmethod
     def from_json(cls, blob: bytes) -> "DataUsageInfo":
-        """Also a pooled reference deployment's document, whose per-pool
-        section is left out."""
         doc = json.loads(blob)
         out = cls(last_update_ns=doc.get("lastUpdate", 0),
                   buckets_count=doc.get("bucketsCount", 0),
@@ -87,7 +94,29 @@ class DataUsageInfo:
             out.bucket_usage[b] = BucketUsage(
                 u.get("objectsCount", 0), u.get("versionsCount", 0),
                 u.get("size", 0), u.get("objectsSizesHistogram", {}))
+        out.pools_usage = doc.get("poolsUsageInfo", {})
         return out
+
+
+def _list_versions_with_pools(layer, bucket: str):
+    """(every version of the bucket, per-pool usage or None) in one
+    listing pass: on a pools layer each pool is listed once, counted,
+    and the lists merged as the layer's own version listing merges
+    them."""
+    if not is_pooled(layer):
+        return layer.list_object_versions(bucket).objects, None
+    per_pool: dict[str, dict] = {}
+    lists = []
+    for pool, spec in zip(*layer.topology()):
+        acc = per_pool.setdefault(spec.pool_id, {"bytes": 0, "objects": 0})
+        versions = pool.list_object_versions(bucket).objects
+        for oi in versions:
+            if not oi.delete_marker:
+                acc["bytes"] += oi.size
+                acc["objects"] += 1
+        lists.append(versions)
+    return list(merge_versions(heapq.merge(*lists, key=lambda o: o.name))
+                ), per_pool
 
 
 def _histogram_bucket(size: int) -> str:
@@ -126,7 +155,11 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
                 lc = None
         skip_ilm = (tracker is not None and since_cycle is not None
                     and not tracker.changed_since(since_cycle, b.name))
-        versions = layer.list_object_versions(b.name).objects
+        versions, per_pool = _list_versions_with_pools(layer, b.name)
+        for pid, acc in (per_pool or {}).items():
+            pu = info.pools_usage.setdefault(pid, {"bytes": 0, "objects": 0})
+            pu["bytes"] += acc["bytes"]
+            pu["objects"] += acc["objects"]
         # a noncurrent version became noncurrent when the version that
         # directly superseded it was written, not when the latest was
         succ_mod: dict[tuple, int] = {}

@@ -516,10 +516,13 @@ class ErasureObjects(MultipartOps):
                opts: PutObjectOptions) -> None:
         """Size, ETag and parts into ``fi``, once the body's MD5 is known
         and before anything commits; BadDigest when the client's
-        Content-MD5 differs (the reference layer's ``_stamp_etag``)."""
+        Content-MD5 differs (the reference layer's ``_stamp_etag``).  A
+        move's ``preserve_etag`` replaces the MD5 after that check."""
         if opts.content_md5 and etag != opts.content_md5.lower():
             raise BadDigest(f"{fi.volume}/{fi.name}: Content-MD5 "
                             f"{opts.content_md5} but the body's is {etag}")
+        if opts.preserve_etag is not None:
+            etag = opts.preserve_etag
         fi.size = size
         fi.metadata = {ETAG_KEY: etag, **opts.user_defined}
         fi.parts = [ObjectPartInfo(1, size, size, etag, fi.mod_time)]

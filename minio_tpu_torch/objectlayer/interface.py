@@ -114,6 +114,9 @@ class PutObjectOptions:
     # the client's Content-MD5 as hex: the body must hash to it, checked
     # against the layer's own MD5 before the commit
     content_md5: Optional[str] = None
+    # a pool move: the ETag stamped verbatim, the source version's (a
+    # Content-MD5 is still checked when both are set: the move's verify)
+    preserve_etag: Optional[str] = None
 
 
 @dataclass

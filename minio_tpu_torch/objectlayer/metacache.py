@@ -186,7 +186,8 @@ def _entries_from(doc: list) -> List[ObjectInfo]:
 
 
 def leaf_layers_of(layer) -> list:
-    """Every erasure set under a layer (a sets layer nests its sets)."""
+    """Every erasure set under a layer (a sets layer's, or every pool's
+    of a pools layer)."""
     if hasattr(layer, "sets"):
         return [x for s in layer.sets for x in leaf_layers_of(s)]
     return [layer]

@@ -16,6 +16,7 @@ drives, as the reference keeps it.
 from __future__ import annotations
 
 import heapq
+import itertools
 import zlib
 from typing import Optional
 
@@ -41,6 +42,34 @@ def aggregate_health(children: list, maintenance: bool) -> dict:
         "healing_drives": sum(r["healing_drives"] for r in results),
         "online_drives": sum(r["online_drives"] for r in results),
     }
+
+
+def _newest_per_name(entries):
+    """One entry per name of a name-sorted stream: the latest written
+    (a name two pools hold while it moves)."""
+    for _, group in itertools.groupby(entries, key=lambda o: o.name):
+        yield max(group, key=lambda o: o.mod_time)
+
+
+def list_leaves(leaves: list, bucket: str, prefix: str, marker: str,
+                delimiter: str, max_keys: int) -> ListObjectsInfo:
+    """One page of the erasure sets' listing snapshots merged into one
+    sorted stream from ``marker`` on, a name held twice listed once; a
+    snapshot whose block vanished is forgotten and walked again, and
+    after a second loss the page comes off fresh walks."""
+    for _ in range(2):
+        snaps = [s.listing_snapshot(bucket, prefix) for s in leaves]
+        try:
+            return paginate(_newest_per_name(heapq.merge(
+                *(snap.iter_from(marker) for snap in snaps),
+                key=lambda o: o.name)), prefix, marker, delimiter, max_keys)
+        except SnapshotGone:
+            for s in leaves:
+                s.metacache.forget(bucket, prefix)
+    merged = heapq.merge(*(s._gather_listing_iter(bucket, prefix, marker)
+                           for s in leaves), key=lambda o: o.name)
+    return paginate(_newest_per_name(merged), prefix, marker, delimiter,
+                    max_keys)
 
 
 class ErasureSets:
@@ -225,19 +254,8 @@ class ErasureSets:
         (each set's metacache); a lost block is handled as one set's
         ``list_objects`` handles it."""
         self._check_bucket(bucket)
-        for _ in range(2):
-            snaps = [s.listing_snapshot(bucket, prefix) for s in self.sets]
-            try:
-                return paginate(
-                    heapq.merge(*(snap.iter_from(marker) for snap in snaps),
-                                key=lambda o: o.name),
-                    prefix, marker, delimiter, max_keys)
-            except SnapshotGone:
-                for s in self.sets:
-                    s.metacache.forget(bucket, prefix)
-        merged = heapq.merge(*(s._gather_listing_iter(bucket, prefix, marker)
-                               for s in self.sets), key=lambda o: o.name)
-        return paginate(merged, prefix, marker, delimiter, max_keys)
+        return list_leaves(self.sets, bucket, prefix, marker, delimiter,
+                           max_keys)
 
     def list_object_versions(self, bucket: str, prefix: str = "",
                              key_marker: str = "",

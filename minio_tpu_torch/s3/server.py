@@ -49,8 +49,9 @@ body into ``mt_s3_rx_bytes_total``; S3 API requests (not the
 ``mt_s3_ttfb_seconds`` and the last-minute ``api_stats`` windows.
 
 The background plane (``attach_background``): the heal sweep
-(``healer``) and the crawler (``crawler``) start and stop with the
-server.  ``usage`` is the hard quota's view of bucket usage, refreshed
+(``healer``), the crawler (``crawler``) and, over a pools layer, the
+rebalancer (``rebalancer``) start and stop with the server.  ``usage``
+is the hard quota's view of bucket usage, refreshed
 by every crawler cycle; ``tracker`` (``attach_tracker``) is the
 data-update tracker, marked by ``mark_changed`` where an S3 call changed
 an object (the reference's event points, for mutations only) and read
@@ -79,7 +80,7 @@ from ..iam import sts as _sts
 from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
-from ..objectlayer.metacache import managers_of
+from ..objectlayer.metacache import leaf_layers_of, managers_of
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..storage import commit as _commit
@@ -310,6 +311,7 @@ class S3Server:
         self._background: list = []
         self.healer = None
         self.crawler = None
+        self.rebalancer = None
         self.tracker = None
         self._deep_every_before_bitrot: int | None = None
         # the hard quota's usage view: the last persisted crawler
@@ -366,7 +368,7 @@ class S3Server:
 
     def reload_pipeline_config(self) -> None:
         """Push the ``pipeline`` knobs into every erasure set."""
-        for s in getattr(self.layer, "sets", [self.layer]):
+        for s in leaf_layers_of(self.layer):
             s.reload_pipeline_config(self.config)
 
     def reload_commit_config(self) -> None:
@@ -374,11 +376,12 @@ class S3Server:
         _commit.CONFIG.load(self.config)
 
     def reload_background_config(self) -> None:
-        """Push the ``heal`` and ``scanner`` knobs into the attached
-        background loops: ``heal.max_sleep`` is the sweep's pace and
-        ``heal.bitrotscan=on`` makes every sweep deep (``off`` gives back
-        the sweep's own cadence); ``scanner.delay`` and
-        ``scanner.max_wait`` pace the crawler."""
+        """Push the ``heal``, ``scanner`` and ``rebalance`` knobs into the
+        attached background loops: ``heal.max_sleep`` is the sweep's and
+        the rebalancer's pace and ``heal.bitrotscan=on`` makes every sweep
+        deep (``off`` gives back the sweep's own cadence);
+        ``scanner.delay`` and ``scanner.max_wait`` pace the crawler; the
+        rebalancer takes ``enable``, ``max_workers`` and ``bandwidth``."""
         cfg = self.config
         try:
             bitrot = cfg.get("heal", "bitrotscan") == "on"
@@ -389,6 +392,9 @@ class S3Server:
         except (KeyError, ValueError):
             return
         for svc in self._background:
+            if svc is self.rebalancer:
+                svc.reload(cfg, pace)
+                continue
             if hasattr(svc, "pace_s"):
                 svc.pace_s = pace
                 if bitrot and self._deep_every_before_bitrot is None:
@@ -410,11 +416,15 @@ class S3Server:
         for mc in managers_of(self.layer):
             mc.tracker = tracker
 
-    def attach_background(self, *services) -> None:
-        """Background loops (the crawler, the heal sweep) started by
-        ``start()`` and stopped by ``stop()``; a crawler refreshes
+    def attach_background(self, *services, rebalancer=None) -> None:
+        """Background loops (the crawler, the heal sweep, and a pools
+        layer's ``rebalancer``) started by ``start()`` and stopped
+        (their threads joined) by ``stop()``; a crawler refreshes
         ``usage`` at the end of every cycle.  The loops take the
-        ``heal`` and ``scanner`` knobs at once."""
+        ``heal``, ``scanner`` and ``rebalance`` knobs at once."""
+        if rebalancer is not None:
+            self.rebalancer = rebalancer
+            services += (rebalancer,)
         self._background.extend(services)
         for svc in services:
             if hasattr(svc, "usage_cache"):

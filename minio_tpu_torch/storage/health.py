@@ -90,8 +90,8 @@ def slow_drives(disks, multiple: float = 4.0, min_samples: int = 10
 
 
 def disks_by_set(layer) -> list[list]:
-    """The drives of each erasure set of ``layer`` (``ErasureSets`` or
-    one set)."""
+    """The drives of each erasure set of ``layer`` (server pools,
+    ``ErasureSets`` or one set)."""
     if hasattr(layer, "sets"):
         return [list(s.disks) for s in layer.sets]
     return [list(layer.disks)]

@@ -84,6 +84,15 @@ register_subsys("scanner", {
     "delay": "10",
     "max_wait": "15s",
 })
+register_subsys("rebalance", {
+    # the pool drain (background/rebalance.py): ``enable`` runs the
+    # threshold rebalance (a decommissioned pool drains either way),
+    # ``max_workers`` keys move at once, ``bandwidth`` caps the moved
+    # bytes/s (0: no cap); heal.max_sleep paces each move
+    "enable": "off",
+    "max_workers": "1",
+    "bandwidth": "0",
+})
 register_subsys("quota", {
     # hard bucket quotas (s3/handlers_object.py _check_quota): off stops
     # enforcing the limits, which stay stored; read on every write

@@ -39,7 +39,7 @@ from ._torch_control import AK, BS, PER, SK, both, client, drive_no, servers
 from ._torch_versions import body
 
 PORT_SUBSYS = ("api", "commit", "drive", "heal", "pipeline", "quota",
-               "scanner")
+               "rebalance", "scanner")
 
 
 @pytest.fixture(scope="module")

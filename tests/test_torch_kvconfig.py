@@ -19,7 +19,8 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "pipeline": ["depth", "queue_depth"],
              "commit": ["max_batch", "pack_threshold", "segment_max_bytes"],
              "scanner": ["delay", "max_wait"],
-             "quota": ["enable"]}
+             "quota": ["enable"],
+             "rebalance": ["enable", "max_workers", "bandwidth"]}
 
 
 def test_registers_only_the_keys_the_port_reads():
