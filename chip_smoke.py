@@ -185,7 +185,25 @@
    version.  PUT GiB/s on one pool and on three (each PUT probes every
    pool), GET GiB/s, the drain's seconds, objects and GiB/s, the
    restart's seconds.
-14. One JSON line of readings, one describing each kernel, the card line,
+14. Copy, tagging and object lock, on their own ``build_server`` of
+   phase 9's deployment (32 drives, 2 sets x 16, 12 + 4, 10 MiB blocks,
+   on the card), over HTTP: 8 x 16 MiB copied into a second bucket from
+   4 client threads (within a set and across the two), the 256 MiB body
+   copied once; a REPLACE copy of metadata and tags and a copy of a
+   version by id; a copy of a source whose four data-shard drives lost
+   it (Kernel A rebuilds them: more launches than a healthy copy); an
+   upload of three UploadPartCopy ranges of the 256 MiB body (100 + 100
+   + 56 MiB), completed and read back byte for byte; PUT, GET and DELETE
+   ``?tagging`` on 16 objects; a lock-enabled bucket with a 1-day
+   GOVERNANCE default and 4 x 16 MiB: a version DELETE refused
+   ``ObjectLocked`` without the bypass and allowed with it, a COMPLIANCE
+   version and one under legal hold refused even with it.  Every body
+   checked against its source.  Kernels A and B launch in the copies,
+   the degraded copy and the part copies; the tag calls and the
+   refusals launch nothing; no plain version.  Copy GiB/s, the 256 MiB
+   copy's and the part copies' seconds, the degraded copy's seconds,
+   the tag call's and each refusal's milliseconds.
+15. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -2802,6 +2820,265 @@ def phase_pools(card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+COPY_OBJ, COPY_N, COPY_THREADS = 16 << 20, 8, 4            # phase 14
+COPY_PARTS_MIB = (100, 100, 56)          # part ranges of the 256 MiB body
+LOCK_N, TAG_N = 4, 16
+
+
+def copy_many(endpoint: str, items: list, threads: int) -> float:
+    """CopyObject of (source bucket, source key, bucket, key, body) items
+    over HTTP from ``threads`` client threads, each ETag the body's MD5;
+    returns the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+    from minio_tpu_torch.s3.client import S3Client
+
+    def worker(t):
+        client = S3Client(endpoint, S3_KEY, S3_SECRET)
+        for sb, sk, b, k, data in items[t::threads]:
+            r = client.copy_object(b, k, sb, sk)
+            etag = r.xml().findtext(f"{S3_NS}ETag")
+            check(etag == f'"{hashlib.md5(data).hexdigest()}"',
+                  f"copy ETag {b}/{k}")
+
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(worker, range(threads)))
+        return time.perf_counter() - t0
+
+
+def s3_code(fn) -> str:
+    """The S3 error code ``fn()`` answers (it must fail)."""
+    from minio_tpu_torch.s3.client import S3ClientError
+    try:
+        fn()
+    except S3ClientError as e:
+        return e.code
+    raise AssertionError("the request was not refused")
+
+
+def phase_copy_lock(bodies: dict, card: str, gen):
+    """Phase 14: CopyObject and UploadPartCopy, tagging and object lock
+    on phase 9's deployment (``build_server`` on 32 drives: 2 sets of 16)
+    over HTTP.  Returns the launches and the readings."""
+    import datetime
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.server_main import build_server
+    t_phase = time.perf_counter()
+    n = 2 * (K + M)
+    root = tempfile.mkdtemp(prefix="chip-smoke-copy-")
+    srv = build_server([f"{root}/d{i}" for i in range(n)], "127.0.0.1:0",
+                       S3_KEY, S3_SECRET, BLOCK, device="cuda")
+    srv.start()
+    big = bodies["256MiB"]
+    blob = rand_bytes((COPY_N + LOCK_N + 2, COPY_OBJ), gen).cpu().numpy()
+    objs = [blob[i].tobytes() for i in range(len(blob))]
+    readings: dict = {}
+    steps: dict = {}
+    try:
+        layer = srv.layer
+        c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        for b in ("copys", "copyd", "copyv"):
+            c.make_bucket(b)
+        c.set_bucket_versioning("copyv", True)
+        srcs = [(f"src/{i}", objs[i]) for i in range(COPY_N)]
+        put_many(srv.endpoint, "copys", srcs, COPY_THREADS)
+        c.put_object_chunked("copys", "big", big, chunk_size=1 << 20)
+        dsts = [f"dst/{i}" for i in range(COPY_N)]
+        check({layer.get_hashed_set_index(k) != layer.get_hashed_set_index(
+            d) for (k, _), d in zip(srcs, dsts)} == {True, False},
+            "copies within a set and across the two")
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        # 1: CopyObject of 8 x 16 MiB from 4 threads, then 256 MiB
+        t = copy_many(srv.endpoint, [("copys", k, "copyd", d, v) for
+                                     (k, v), d in zip(srcs, dsts)],
+                      COPY_THREADS)
+        readings["copy_16mib_gibps"] = COPY_N * COPY_OBJ / t / 2**30
+        t0 = time.perf_counter()
+        c.copy_object("copyd", "big", "copys", "big")
+        torch.cuda.synchronize()
+        readings["copy_256mib_s"] = time.perf_counter() - t0
+        s_copy = snapshot()
+        steps["copy"] = delta(s0, s_copy)
+        for d, (_, v) in zip(dsts, srcs):
+            check(c.get_object("copyd", d).body == v, f"copy body {d}")
+        check(c.get_object("copyd", "big").body == big, "256 MiB copy body")
+        # 2: the directives: REPLACE, then a version copy
+        torch.cuda.synchronize()
+        s1 = snapshot()
+        c.copy_object("copyd", "replaced", "copys", srcs[0][0], headers={
+            "x-amz-metadata-directive": "REPLACE",
+            "x-amz-tagging-directive": "REPLACE",
+            "x-amz-meta-phase": "14", "x-amz-tagging": "phase=14&copy=1"})
+        torch.cuda.synchronize()
+        s_one = snapshot()
+        h = c.head_object("copyd", "replaced").headers
+        check(h.get("x-amz-meta-phase") == "14" and
+              h.get("x-amz-tagging-count") == "2", f"REPLACE copy: {h}")
+        check(c.get_object_tagging("copyd", "replaced") ==
+              {"phase": "14", "copy": "1"}, "REPLACE copy's tags")
+        vids = [c.put_object("copyv", "k", objs[COPY_N + LOCK_N + i])
+                .headers["x-amz-version-id"] for i in range(2)]
+        r = c.copy_object("copyd", "fromv", "copyv", "k", version_id=vids[0])
+        check(r.headers.get("x-amz-copy-source-version-id") == vids[0],
+              "x-amz-copy-source-version-id")
+        check(c.get_object("copyd", "fromv").body == objs[COPY_N + LOCK_N],
+              "version copy body")
+        torch.cuda.synchronize()
+        s_dir = snapshot()
+        steps["directives"] = delta(s1, s_dir)
+        # 3: a degraded source: its four data-shard drives lose it
+        key = srcs[1][0]
+        er = layer.get_hashed_set(key)
+        fi, _ = er._read_quorum_fileinfo("copys", key)
+        for d, shard in enumerate(fi.erasure.distribution):
+            if shard <= M:
+                shutil.rmtree(f"{er.disks[d].endpoint()}/copys/{key}")
+        torch.cuda.synchronize()
+        s2 = snapshot()
+        t0 = time.perf_counter()
+        c.copy_object("copyd", "degraded", "copys", key)
+        torch.cuda.synchronize()
+        readings["degraded_copy_s"] = time.perf_counter() - t0
+        s_deg = snapshot()
+        steps["degraded_copy"] = delta(s2, s_deg)
+        one_a = delta(s1, s_one)["gf8_apply"][0]
+        check(steps["degraded_copy"]["gf8_apply"][0] > one_a,
+              f"the degraded copy rebuilt nothing: Kernel A "
+              f"{steps['degraded_copy']['gf8_apply'][0]} launches against "
+              f"{one_a} for a healthy copy")
+        check(c.get_object("copyd", "degraded").body == srcs[1][1],
+              "degraded copy body")
+        # 4: UploadPartCopy of three ranges of the 256 MiB body
+        cuts = [0]
+        for mib in COPY_PARTS_MIB:
+            cuts.append(cuts[-1] + len(big) * mib // 256)
+        uid = c.create_multipart_upload("copyd", "parts")
+        torch.cuda.synchronize()
+        s3 = snapshot()
+        t0 = time.perf_counter()
+        parts = [(i + 1, c.upload_part_copy(
+            "copyd", "parts", uid, i + 1, "copys", "big",
+            byte_range=(cuts[i], cuts[i + 1] - 1)))
+            for i in range(len(COPY_PARTS_MIB))]
+        torch.cuda.synchronize()
+        readings["part_copy_s"] = time.perf_counter() - t0
+        s_parts = snapshot()
+        steps["part_copy"] = delta(s3, s_parts)
+        for (num, etag), a, b in zip(parts, cuts, cuts[1:]):
+            check(etag == hashlib.md5(big[a:b]).hexdigest(),
+                  f"part {num} ETag")
+        c.complete_multipart_upload("copyd", "parts", uid, parts)
+        check(c.get_object("copyd", "parts").body == big,
+              "UploadPartCopy object body")
+        # 4b: the 256 MiB body copied onto its own name (REPLACE): the
+        # source streams without its read lock, batch by batch
+        torch.cuda.synchronize()
+        s_self = snapshot()
+        t0 = time.perf_counter()
+        c.copy_object("copys", "big", "copys", "big", headers={
+            "x-amz-metadata-directive": "REPLACE", "x-amz-meta-phase": "14"})
+        torch.cuda.synchronize()
+        readings["self_copy_256mib_s"] = time.perf_counter() - t0
+        steps["self_copy"] = delta(s_self, snapshot())
+        check(c.head_object("copys", "big").headers.get("x-amz-meta-phase")
+              == "14", "the copy onto its own name: its metadata")
+        check(c.get_object("copys", "big").body == big,
+              "the copy onto its own name: its body")
+        # 5: tagging: PUT, GET and DELETE ?tagging on 16 objects
+        # the degraded source is left out: its set lacks it on four drives
+        tagged = [("copyd", d) for d in dsts + ["degraded"]] + \
+            [("copys", k) for k, _ in srcs if k != key]
+        check(len(tagged) == TAG_N, "the objects tagged")
+        torch.cuda.synchronize()
+        s4 = snapshot()
+        t0 = time.perf_counter()
+        for i, (b, k) in enumerate(tagged):
+            c.put_object_tagging(b, k, {"phase": "14", "n": str(i)})
+        for i, (b, k) in enumerate(tagged):
+            check(c.get_object_tagging(b, k) == {"phase": "14",
+                                                 "n": str(i)}, f"tags {k}")
+        for b, k in tagged:
+            c.delete_object_tagging(b, k)
+        readings["tag_call_ms"] = (time.perf_counter() - t0) \
+            / (3 * len(tagged)) * 1e3
+        torch.cuda.synchronize()
+        s_tag = snapshot()
+        steps["tagging"] = delta(s4, s_tag)
+        check(all(c.get_object_tagging(b, k) == {} for b, k in tagged),
+              "tags deleted")
+        # 6: object lock: a 1-day GOVERNANCE default, 4 x 16 MiB
+        c.make_bucket("copylock", object_lock=True)
+        c.put_object_lock_config("copylock", "GOVERNANCE", days=1)
+        until = datetime.datetime.now(datetime.timezone.utc) + \
+            datetime.timedelta(days=1)
+        lock_objs = objs[COPY_N:COPY_N + LOCK_N]
+        lvids = []
+        for i, v in enumerate(lock_objs):
+            hdrs = {"x-amz-object-lock-mode": "COMPLIANCE",
+                    "x-amz-object-lock-retain-until-date":
+                        until.strftime("%Y-%m-%dT%H:%M:%SZ")} \
+                if i == 1 else None
+            lvids.append(c.put_object("copylock", f"l{i}", v, hdrs)
+                         .headers["x-amz-version-id"])
+        check(c.get_object_retention("copylock", "l0", lvids[0])[0] ==
+              "GOVERNANCE", "the default retention")
+        c.put_object_legal_hold("copylock", "l2", True, lvids[2])
+        torch.cuda.synchronize()
+        s5 = snapshot()
+        refusals = []
+        for key, vid, bypass in (("l0", lvids[0], False),
+                                 ("l1", lvids[1], True),
+                                 ("l2", lvids[2], True)):
+            t0 = time.perf_counter()
+            got = s3_code(lambda: c.delete_object(
+                "copylock", key, vid, bypass_governance=bypass))
+            refusals.append(time.perf_counter() - t0)
+            check(got == "ObjectLocked", f"delete of {key}: {got}")
+        torch.cuda.synchronize()
+        s_ref = snapshot()
+        steps["refusals"] = delta(s5, s_ref)
+        readings["refusal_ms"] = [round(t * 1e3, 3) for t in refusals]
+        c.delete_object("copylock", "l0", lvids[0], bypass_governance=True)
+        check(s3_code(lambda: c.get_object("copylock", "l0", version_id=
+                                           lvids[0])) == "NoSuchKey",
+              "the bypassed delete")
+        for i in (1, 2, 3):
+            check(c.get_object("copylock", f"l{i}", version_id=lvids[i])
+                  .body == lock_objs[i], f"locked version l{i}")
+        torch.cuda.synchronize()
+        s_end = snapshot()
+    finally:
+        srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = delta(s0, s_end)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"copy and lock path: {kernel} plain version ran")
+    for step in ("copy", "directives", "degraded_copy", "part_copy",
+                 "self_copy"):
+        for kernel in ("gf8_apply", "hh256"):
+            check(steps[step][kernel][0] > 0,
+                  f"{kernel} not launched in the {step} step")
+    for step in ("tagging", "refusals"):
+        check(all(v == (0, 0) for v in steps[step].values()),
+              f"the {step} step launched a kernel: {steps[step]}")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    print(f"copy and lock path on {card}: copy 8 x 16 MiB "
+          f"{readings['copy_16mib_gibps']:.3f} GiB/s, 256 MiB "
+          f"{readings['copy_256mib_s']:.3f} s, degraded 16 MiB "
+          f"{readings['degraded_copy_s']:.3f} s, part copy "
+          f"{readings['part_copy_s']:.3f} s, 256 MiB onto its own name "
+          f"{readings['self_copy_256mib_s']:.3f} s; tag call "
+          f"{readings['tag_call_ms']:.2f} ms; refusals "
+          f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -2843,6 +3120,7 @@ def main() -> int:
                                                 s3_readings)
     id_path, id_readings = phase_identity(card, gen)
     pools_path, pools_readings = phase_pools(card, gen)
+    copy_path, copy_readings = phase_copy_lock(bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -2851,7 +3129,8 @@ def main() -> int:
                    "control_path": ctl_path[k["name"]],
                    "listing_path": list_path[k["name"]],
                    "identity_path": id_path[k["name"]],
-                   "pools_path": pools_path[k["name"]]}
+                   "pools_path": pools_path[k["name"]],
+                   "copy_lock_path": copy_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -2861,7 +3140,8 @@ def main() -> int:
                       "control_path": ctl_readings,
                       "listing_path": list_readings,
                       "identity_path": id_readings,
-                      "pools_path": pools_readings}))
+                      "pools_path": pools_readings,
+                      "copy_lock_path": copy_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ size histogram, and on a pools layer each pool's bytes and objects
 a lifecycle configuration and the data-update tracker saw it change
 since the last cycle, each version's
 due action is computed and the expiries are carried out (current
-versions, noncurrent versions dated from their successor's write, delete
-markers that are their object's only version).  A Transition rule takes
+versions, as a delete marker in a versioned bucket; noncurrent versions
+dated from their successor's write; delete markers that are their
+object's only version).  A version whose object lock refuses the delete
+(a legal hold, a retention not yet ended) is left.  A Transition rule takes
 no action: there are no tiers.  The usage is persisted at
 ``datausage/usage.json`` in the metadata set's system volume, the
 reference's bytes, where the admin ``datausageinfo`` route, the metrics
@@ -24,10 +26,10 @@ import heapq
 import json
 import threading
 import time
-import urllib.parse
 from dataclasses import dataclass, field
 
 from ..bucket.lifecycle import Action, Lifecycle, ObjectOpts
+from ..bucket.tags import TAG_KEY, TagError, parse_header
 from ..objectlayer import interface as ol
 from ..objectlayer.pools import is_pooled, merge_versions
 from ..storage.datatypes import now_ns
@@ -146,13 +148,15 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
     for b in layer.list_buckets():
         bu = BucketUsage()
         info.bucket_usage[b.name] = bu
-        lc = None
+        lc, versioned = None, False
         if apply_lifecycle and bucket_meta is not None:
             try:
                 lc = bucket_meta.get_parsed(b.name, "lifecycle",
                                             Lifecycle.parse)
             except Exception:  # noqa: BLE001 — unparseable: no lifecycle
                 lc = None
+            if lc is not None:
+                versioned = bucket_meta.versioning_enabled(b.name)
         skip_ilm = (tracker is not None and since_cycle is not None
                     and not tracker.changed_since(since_cycle, b.name))
         versions, per_pool = _list_versions_with_pools(layer, b.name)
@@ -189,7 +193,7 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
                 else succ_mod.get((oi.name, oi.version_id), 0)))
             if action in (Action.DELETE, Action.DELETE_VERSION,
                           Action.DELETE_MARKER_DELETE):
-                _expire(layer, b.name, oi, action, res)
+                _expire(layer, b.name, oi, action, res, versioned)
         info.buckets_count += 1
         info.objects_total_count += bu.objects_count
         info.objects_total_size += bu.size
@@ -200,31 +204,34 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
 
 
 def _tags_of(oi) -> dict[str, str]:
-    """The object's stored ``x-amz-tagging`` (``k1=v1&k2=v2``); {} when
-    absent or invalid (at most 10 tags, keys of 1-128 characters, values
-    up to 256, no key twice), as the reference's parse_header decides."""
-    raw = oi.user_defined.get("x-amz-tagging", "")
+    """The object's stored tags (``TAG_KEY``); {} when absent or invalid
+    (``bucket/tags.py parse_header``, the parser the front uses)."""
+    raw = oi.user_defined.get(TAG_KEY, "")
     if not raw:
         return {}
-    tags: dict[str, str] = {}
-    for k, v in urllib.parse.parse_qsl(raw, keep_blank_values=True):
-        if k in tags or not k or len(k) > 128 or len(v) > 256:
-            return {}
-        tags[k] = v
-    return tags if len(tags) <= 10 else {}
-
-
-def _expire(layer, bucket: str, oi, action: Action, res: ScanResult) -> None:
-    """Carry out one expiry: ``DELETE`` deletes the latest version as an
-    S3 DELETE without options does (the null version), the others delete
-    the version named.  A version a client removed first is passed."""
     try:
-        if action is Action.DELETE:
-            layer.delete_object(bucket, oi.name)
-        else:
-            layer.delete_object(
-                bucket, oi.name,
-                ol.ObjectOptions(version_id=oi.version_id or ""))
+        return parse_header(raw)
+    except TagError:
+        return {}
+
+
+def _expire(layer, bucket: str, oi, action: Action, res: ScanResult,
+            versioned: bool = False) -> None:
+    """Carry out one expiry: ``DELETE`` deletes the latest version as an
+    S3 DELETE without a version id does (a delete marker when the
+    bucket is ``versioned``), the others delete the version named.  The
+    layer refuses to remove a version its lock protects (``check_lock``,
+    no bypass: a legal hold, or a retention that has not ended), judged
+    on the version's metadata under the name's write lock, not on the
+    listing's; such a version is passed, and so is a version a client
+    removed first."""
+    if action is Action.DELETE:
+        opts = ol.ObjectOptions(versioned=versioned, check_lock=True)
+    else:
+        opts = ol.ObjectOptions(version_id=oi.version_id or "",
+                                check_lock=True)
+    try:
+        layer.delete_object(bucket, oi.name, opts)
         res.expired.append((bucket, oi.name, oi.version_id))
     except ol.ObjectLayerError:
         pass

@@ -19,14 +19,7 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Optional
 
-
-def strip_ns(root: ET.Element) -> None:
-    """Drop XML namespaces in place: a config parses with or without
-    the client's xmlns."""
-    for el in root.iter():
-        if "}" in el.tag:
-            el.tag = el.tag.split("}", 1)[1]
-
+from . import strip_ns
 
 ERR_MALFORMED = "malformed lifecycle XML"
 

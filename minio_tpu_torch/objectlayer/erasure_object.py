@@ -75,6 +75,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..bucket.objectlock import check_delete_allowed
 from ..hashing import bitrot
 from ..ops import gf8, rs_kernels
 from ..ops.codec import Erasure
@@ -94,7 +95,7 @@ from . import metadata as meta
 from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
                         BucketNotFound, InvalidRange, ListObjectsInfo,
                         ListObjectVersionsInfo, MethodNotAllowed,
-                        ObjectInfo, ObjectNotFound,
+                        ObjectInfo, ObjectLocked, ObjectNotFound,
                         ObjectOptions, PutObjectOptions, ReadQuorumError,
                         VersionNotFound, WriteQuorumError)
 from .metacache import (MetacacheManager, SnapshotGone, paginate,
@@ -904,7 +905,9 @@ class ErasureObjects(MultipartOps):
         and decoded ahead in a thread (None: one less than the pipeline
         depth, at least one), and is never joined.  The object's
         read lock is held until the iterator ends, fails or is closed or
-        dropped, advanced or not."""
+        dropped, advanced or not; with ``opts.no_lock`` only until the
+        version's metadata is read (the stream stays on that version's
+        data, and fails its bitrot check rather than serve another's)."""
         opts = opts or ObjectOptions()
         self._check_bucket(bucket)
         lk = self.ns_lock.new_lock(bucket, object_name)
@@ -927,10 +930,13 @@ class ErasureObjects(MultipartOps):
         except BaseException:
             lk.unlock()
             raise
-        if size == 0 or length == 0:
+        if size == 0 or length == 0 or opts.no_lock:
             lk.unlock()
+        if size == 0 or length == 0:
             return info, iter(())
-        chunks = _LockedStream(lk, self._read_range(fi, fis, offset, length))
+        chunks = self._read_range(fi, fis, offset, length)
+        if not opts.no_lock:
+            chunks = _LockedStream(lk, chunks)
         if readahead_depth is None:
             readahead_depth = max(1, self._pipe_depth - 1)
         if readahead_depth > 0:
@@ -1041,15 +1047,23 @@ class ErasureObjects(MultipartOps):
         version ``opts.version_id`` (the null version by default) goes
         from every drive, with its data dir unless another version
         shares it, or its packed extent; absent objects delete quietly
-        (S3 DELETE is idempotent)."""
+        (S3 DELETE is idempotent).  With ``opts.check_lock`` a version
+        its legal hold or retention protects is ObjectLocked, judged on
+        its quorum metadata under the write lock (a version that cannot
+        be read at quorum is not deleted)."""
         opts = opts or ObjectOptions()
         self._check_bucket(bucket)
-        mod_time = opts.mod_time or now_ns()
         wq = _write_quorum(self.data_blocks, self.parity)
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=True)
         try:
-            if opts.versioned and opts.version_id is None:
+            marker = opts.versioned and opts.version_id is None
+            vid = opts.version_id or ""
+            if opts.check_lock and not marker:
+                self._check_lock(bucket, object_name, vid,
+                                 opts.bypass_governance)
+            mod_time = opts.mod_time or now_ns()
+            if marker:
                 dm = FileInfo(volume=bucket, name=object_name,
                               version_id=str(uuid.uuid4()), deleted=True,
                               mod_time=mod_time)
@@ -1062,7 +1076,6 @@ class ErasureObjects(MultipartOps):
                 return ObjectInfo(bucket=bucket, name=object_name,
                                   version_id=dm.version_id,
                                   delete_marker=True, mod_time=mod_time)
-            vid = opts.version_id or ""
             fi = FileInfo(volume=bucket, name=object_name, version_id=vid,
                           mod_time=mod_time)
             _, errs = self._fanout(
@@ -1077,6 +1090,58 @@ class ErasureObjects(MultipartOps):
                 self.metacache.invalidate(bucket)
             return ObjectInfo(bucket=bucket, name=object_name,
                               version_id=vid)
+        finally:
+            lk.unlock()
+
+    def _check_lock(self, bucket: str, object_name: str, vid: str,
+                    bypass_governance: bool) -> None:
+        """ObjectLocked unless the version may be deleted
+        (``objectlock.check_delete_allowed``); absent passes."""
+        try:
+            fi, _ = self._read_quorum_fileinfo(bucket, object_name, vid)
+        except (ObjectNotFound, VersionNotFound):
+            return
+        if not fi.deleted and not check_delete_allowed(
+                fi.metadata, governance_bypass=bypass_governance):
+            raise ObjectLocked(f"{bucket}/{object_name}@{vid}")
+
+    def put_object_metadata(self, bucket: str, object_name: str,
+                            version_id: Optional[str],
+                            updates: dict[str, str],
+                            removes: tuple[str, ...] = ()) -> ObjectInfo:
+        """Set (``updates``) and drop (``removes``) metadata keys of one
+        version in place, the latest by default (cmd/erasure-object.go
+        PutObjectTags): each drive rewrites its own xl.meta entry, so
+        its shard index, inline data, packed extent and data dir stay as
+        they are; write quorum applies.  A delete marker is
+        MethodNotAllowed."""
+        self._check_bucket(bucket)
+        lk = self.ns_lock.new_lock(bucket, object_name)
+        lk.lock(write=True)
+        try:
+            fi, _ = self._read_quorum_fileinfo(bucket, object_name,
+                                               version_id)
+            if fi.deleted:
+                raise MethodNotAllowed(f"{bucket}/{object_name} is a "
+                                       "delete marker")
+            vid = fi.version_id if version_id is None else version_id
+
+            def update_one(disk):
+                dfi = disk.read_version(bucket, object_name, vid)
+                md = dict(dfi.metadata)
+                for k in removes:
+                    md.pop(k, None)
+                md.update(updates)
+                dfi.metadata = md
+                disk.write_metadata(bucket, object_name, dfi)
+
+            _, errs = self._fanout(update_one, self.disks)
+            self._reduce_write(errs, fi)
+            for k in removes:
+                fi.metadata.pop(k, None)
+            fi.metadata.update(updates)
+            self.metacache.invalidate(bucket)
+            return self._to_object_info(fi)
         finally:
             lk.unlock()
 

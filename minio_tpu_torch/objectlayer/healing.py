@@ -167,10 +167,12 @@ def heal_object(er: ErasureObjects, bucket: str, object_name: str,
         if remove_dangling and not dry_run:
             _purge(er, bucket, object_name, fi, res)
         return res
-    if not healable or dry_run:
-        return res
     shuffled = meta.shuffle_disks(er.disks, fi.erasure.distribution)
     s_fis = meta.shuffle_parts_metadata(fis, fi.erasure.distribution)
+    if not dry_run:
+        _heal_stale_metadata(er, fi, shuffled, s_fis, states, res)
+    if not healable or dry_run:
+        return res
     ok_idx = [i for i, s in enumerate(states) if s == OK]
     targets = [shuffled[i] for i in healable]
     for disk in targets:                    # healBucket first
@@ -198,11 +200,32 @@ def heal_object(er: ErasureObjects, bucket: str, object_name: str,
     for pos, e in enumerate(herrs):
         if e is None:
             res.healed_disks.append(targets[pos].endpoint())
-    res.after_ok = res.before_ok + len(res.healed_disks)
+            res.after_ok += 1
     first = next((e for e in herrs if e is not None), None)
     if first is not None:
         raise first
     return res
+
+
+def _heal_stale_metadata(er: ErasureObjects, fi, shuffled: list,
+                         s_fis: list, states: list[str],
+                         res: HealResult) -> None:
+    """A drive that holds the version whole but missed a metadata update
+    in place (``put_object_metadata``: tags, retention, legal hold) gets
+    the quorum's metadata merged into its own entry, which keeps its
+    shard index, inline data, packed extent and data dir.  The
+    reference never heals such a drive (ROADMAP Queue 3)."""
+    stale = [i for i, s in enumerate(states)
+             if s == OK and s_fis[i].metadata != fi.metadata]
+
+    def write_one(i):
+        dfi = s_fis[i]
+        dfi.metadata = dict(fi.metadata)
+        shuffled[i].write_metadata(fi.volume, fi.name, dfi)
+
+    _, errs = er._fanout(write_one, stale)
+    res.healed_disks += [shuffled[i].endpoint()
+                         for i, e in zip(stale, errs) if e is None]
 
 
 def _purge(er: ErasureObjects, bucket: str, object_name: str, fi,

@@ -46,6 +46,10 @@ class MethodNotAllowed(ObjectLayerError):
     """e.g. GET of a delete marker."""
 
 
+class ObjectLocked(ObjectLayerError):
+    """A delete of a version its legal hold or retention protects."""
+
+
 class InvalidUploadID(ObjectLayerError):
     pass
 
@@ -122,10 +126,18 @@ class PutObjectOptions:
 @dataclass
 class ObjectOptions:
     """GET, HEAD and DELETE options: ``version_id`` None is the latest
-    version, "" the null version."""
+    version, "" the null version.  ``check_lock``: a DELETE that removes
+    a version refuses (ObjectLocked) when its legal hold or retention
+    forbids it, judged under the name's write lock; GOVERNANCE yields to
+    ``bypass_governance``.  ``no_lock``: a reader holds the name's read
+    lock only while it reads the version's metadata, not while its body
+    streams (a copy, whose PUT may take the same name's write lock)."""
     version_id: Optional[str] = None
     versioned: bool = False
     mod_time: int = 0            # a delete marker's; 0: now
+    check_lock: bool = False
+    bypass_governance: bool = False
+    no_lock: bool = False
 
 
 @dataclass

@@ -35,7 +35,12 @@ def find_file_info_in_quorum(fis: list[FileInfo | None],
                              quorum: int) -> FileInfo:
     """The FileInfo that >= quorum drives agree on: the most common
     mod-time (ties to the later), then a majority over a hash of parts,
-    distribution and data dir (cmd/erasure-metadata.go:229)."""
+    distribution and data dir (cmd/erasure-metadata.go:229).  Among the
+    drives of that majority, the first whose metadata most of them hold:
+    an update in place (tags, retention, legal hold) keeps the mod time
+    and the data, so a drive that missed one still counts for the
+    quorum but does not speak for the metadata unless it ties; the
+    reference takes the first drive's (ROADMAP Queue 3)."""
     times = Counter(fi.mod_time for fi in fis if fi is not None)
     if not times:
         raise ReadQuorumError("no valid metadata")
@@ -45,7 +50,14 @@ def find_file_info_in_quorum(fis: list[FileInfo | None],
     best, count = Counter(h for h in hashes if h).most_common(1)[0]
     if count < quorum:
         raise ReadQuorumError(f"metadata agreement {count} < quorum {quorum}")
-    return fis[hashes.index(best)]
+    group = [fi for fi, h in zip(fis, hashes) if h == best]
+    metas = Counter(_metadata_key(fi) for fi in group)
+    top = max(metas.values())
+    return next(fi for fi in group if metas[_metadata_key(fi)] == top)
+
+
+def _metadata_key(fi: FileInfo) -> tuple:
+    return tuple(sorted(fi.metadata.items()))
 
 
 def same_version(dfi: FileInfo | None, fi: FileInfo) -> bool:

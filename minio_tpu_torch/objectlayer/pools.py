@@ -43,7 +43,8 @@ from ..secure import configcrypt
 from ..storage.xl_storage import SYS_DIR
 from .interface import (BucketInfo, InvalidUploadID, ListObjectsInfo,
                         ListObjectVersionsInfo, MultipartInfo, ObjectInfo,
-                        ObjectNotFound, ReadQuorumError, VersionNotFound)
+                        ObjectNotFound, ObjectOptions, ReadQuorumError,
+                        VersionNotFound)
 from .metacache import paginate_versions
 from .sets import ErasureSets, aggregate_health, list_leaves
 
@@ -590,6 +591,19 @@ class ErasureServerPools:
                 except (ObjectNotFound, VersionNotFound):
                     pass            # a version only some pools hold
             return result
+
+    def put_object_metadata(self, bucket, object_name, version_id, updates,
+                            removes=()) -> ObjectInfo:
+        """A metadata update of the pool that holds the version (its
+        latest copy without a version id), under the name lock, so a
+        move cannot copy the version before the update and delete it
+        after."""
+        self.get_bucket_info(bucket)
+        with self.name_lock(bucket, object_name):
+            return self._find_pool(
+                bucket, object_name, ObjectOptions(version_id=version_id)
+            ).put_object_metadata(bucket, object_name, version_id, updates,
+                                  removes)
 
     def heal_object(self, bucket, object_name, version_id=None, deep=False,
                     dry_run=False, remove_dangling=False):

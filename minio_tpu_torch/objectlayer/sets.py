@@ -240,6 +240,11 @@ class ErasureSets:
         return self.get_hashed_set(object_name).delete_object(
             bucket, object_name, opts)
 
+    def put_object_metadata(self, bucket, object_name, version_id, updates,
+                            removes=()) -> ObjectInfo:
+        return self.get_hashed_set(object_name).put_object_metadata(
+            bucket, object_name, version_id, updates, removes)
+
     def heal_object(self, bucket, object_name, version_id=None, deep=False,
                     dry_run=False, remove_dangling=False):
         return self.get_hashed_set(object_name).heal_object(

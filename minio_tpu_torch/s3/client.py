@@ -5,7 +5,10 @@ version id too; bucket versioning and ListObjectVersions; multipart
 uploads, with ``upload_parts`` sending the parts from worker threads as
 minio-go does; bucket policies; STS AssumeRole (``assume_role`` returns
 a client of the session, which sends its token on every request);
-SigV2 header-signed requests and presigned URLs; POST-policy uploads.
+SigV2 header-signed requests and presigned URLs; POST-policy uploads;
+CopyObject and UploadPartCopy; object and bucket tagging; object lock
+(lock-enabled buckets, their default retention, a version's retention
+and legal hold, and a delete that bypasses governance retention).
 ``send`` takes any request signed by ``sigv4`` or ``sigv2``.
 """
 
@@ -23,6 +26,7 @@ import uuid
 import xml.etree.ElementTree as ET
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from xml.sax.saxutils import escape
 
 from . import postpolicy, sigv2
 from .sigv4 import Credentials, sign_request, sign_request_streaming
@@ -137,8 +141,12 @@ class S3Client:
 
     # -- buckets -----------------------------------------------------------
 
-    def make_bucket(self, bucket: str) -> None:
-        self.request("PUT", f"/{bucket}")
+    def make_bucket(self, bucket: str, object_lock: bool = False) -> None:
+        """A bucket; with ``object_lock`` a lock-enabled (and versioned)
+        one."""
+        self.request("PUT", f"/{bucket}", headers={
+            "x-amz-bucket-object-lock-enabled": "true"}
+            if object_lock else None)
 
     def list_buckets(self) -> list[str]:
         r = self.request("GET", "/")
@@ -147,9 +155,13 @@ class S3Client:
 
     # -- objects -----------------------------------------------------------
 
-    def put_object(self, bucket: str, key: str, data: bytes) -> S3Response:
-        """Header-signed PUT (the body's SHA-256 in the signature)."""
-        return self.request("PUT", f"/{bucket}/{key}", body=data)
+    def put_object(self, bucket: str, key: str, data: bytes,
+                   headers: dict | None = None) -> S3Response:
+        """Header-signed PUT (the body's SHA-256 in the signature);
+        ``headers`` such as ``x-amz-tagging`` or the object lock's go
+        along."""
+        return self.request("PUT", f"/{bucket}/{key}", body=data,
+                            headers=headers)
 
     def put_object_chunked(self, bucket: str, key: str, data: bytes,
                            chunk_size: int = 64 * 1024,
@@ -184,8 +196,119 @@ class S3Client:
                             expect=expect)
 
     def delete_object(self, bucket: str, key: str,
-                      version_id: str | None = None) -> S3Response:
-        return self.request("DELETE", f"/{bucket}/{key}", _vid(version_id))
+                      version_id: str | None = None,
+                      bypass_governance: bool = False) -> S3Response:
+        return self.request("DELETE", f"/{bucket}/{key}", _vid(version_id),
+                            headers=_bypass(bypass_governance))
+
+    # -- copy ----------------------------------------------------------------
+
+    def copy_object(self, bucket: str, key: str, src_bucket: str,
+                    src_key: str, version_id: str | None = None,
+                    headers: dict | None = None) -> S3Response:
+        """CopyObject of ``src_bucket/src_key`` (of its ``version_id``);
+        ``headers`` carry the directives (``x-amz-metadata-directive``,
+        ``x-amz-tagging-directive``), the conditions
+        (``x-amz-copy-source-if-match``, ...) and the new metadata."""
+        return self.request("PUT", f"/{bucket}/{key}", headers={
+            "x-amz-copy-source": _copy_source(src_bucket, src_key,
+                                              version_id),
+            **(headers or {})})
+
+    def upload_part_copy(self, bucket: str, key: str, upload_id: str,
+                         part_number: int, src_bucket: str, src_key: str,
+                         byte_range: tuple[int, int] | None = None,
+                         version_id: str | None = None) -> str:
+        """UploadPartCopy of the source's bytes [first, last] (all
+        without ``byte_range``); returns the part's ETag."""
+        hdrs = {"x-amz-copy-source": _copy_source(src_bucket, src_key,
+                                                  version_id)}
+        if byte_range:
+            hdrs["x-amz-copy-source-range"] = \
+                f"bytes={byte_range[0]}-{byte_range[1]}"
+        r = self.request("PUT", f"/{bucket}/{key}",
+                         f"partNumber={part_number}&uploadId={upload_id}",
+                         headers=hdrs)
+        return r.xml().findtext(f"{S3_NS}ETag").strip('"')
+
+    # -- tagging, retention, legal hold, object lock -------------------------
+
+    def put_object_tagging(self, bucket: str, key: str, tags: dict,
+                           version_id: str | None = None) -> None:
+        self.request("PUT", f"/{bucket}/{key}", _sub("tagging", version_id),
+                     _tagging_xml(tags))
+
+    def get_object_tagging(self, bucket: str, key: str,
+                           version_id: str | None = None) -> dict:
+        return _tags_of(self.request("GET", f"/{bucket}/{key}",
+                                     _sub("tagging", version_id)))
+
+    def delete_object_tagging(self, bucket: str, key: str,
+                              version_id: str | None = None) -> None:
+        self.request("DELETE", f"/{bucket}/{key}",
+                     _sub("tagging", version_id))
+
+    def put_bucket_tagging(self, bucket: str, tags: dict) -> None:
+        self.request("PUT", f"/{bucket}", "tagging", _tagging_xml(tags))
+
+    def get_bucket_tagging(self, bucket: str) -> dict:
+        return _tags_of(self.request("GET", f"/{bucket}", "tagging"))
+
+    def delete_bucket_tagging(self, bucket: str) -> None:
+        self.request("DELETE", f"/{bucket}", "tagging")
+
+    def put_object_lock_config(self, bucket: str, mode: str = "",
+                               days: int = 0, years: int = 0) -> None:
+        """The bucket's default retention (``mode`` with ``days`` or
+        ``years``); none with an empty ``mode``."""
+        rule = ""
+        if mode:
+            period = f"<Days>{days}</Days>" if days \
+                else f"<Years>{years}</Years>"
+            rule = (f"<Rule><DefaultRetention><Mode>{mode}</Mode>{period}"
+                    "</DefaultRetention></Rule>")
+        self.request("PUT", f"/{bucket}", "object-lock", (
+            f'<ObjectLockConfiguration xmlns="{S3_NS[1:-1]}">'
+            f"<ObjectLockEnabled>Enabled</ObjectLockEnabled>{rule}"
+            "</ObjectLockConfiguration>").encode())
+
+    def get_object_lock_config(self, bucket: str) -> ET.Element:
+        return self.request("GET", f"/{bucket}", "object-lock").xml()
+
+    def put_object_retention(self, bucket: str, key: str, mode: str,
+                             until: datetime.datetime,
+                             version_id: str | None = None,
+                             bypass_governance: bool = False) -> None:
+        date = until.astimezone(datetime.timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%SZ")
+        self.request("PUT", f"/{bucket}/{key}",
+                     _sub("retention", version_id), (
+                         f'<Retention xmlns="{S3_NS[1:-1]}"><Mode>{mode}'
+                         f"</Mode><RetainUntilDate>{date}</RetainUntilDate>"
+                         "</Retention>").encode(),
+                     headers=_bypass(bypass_governance))
+
+    def get_object_retention(self, bucket: str, key: str,
+                             version_id: str | None = None) -> tuple:
+        """(mode, retain-until date as sent)."""
+        root = self.request("GET", f"/{bucket}/{key}",
+                            _sub("retention", version_id)).xml()
+        return (root.findtext(f"{S3_NS}Mode"),
+                root.findtext(f"{S3_NS}RetainUntilDate"))
+
+    def put_object_legal_hold(self, bucket: str, key: str, on: bool,
+                              version_id: str | None = None) -> None:
+        self.request("PUT", f"/{bucket}/{key}",
+                     _sub("legal-hold", version_id), (
+                         f'<LegalHold xmlns="{S3_NS[1:-1]}"><Status>'
+                         f'{"ON" if on else "OFF"}</Status></LegalHold>'
+                     ).encode())
+
+    def get_object_legal_hold(self, bucket: str, key: str,
+                              version_id: str | None = None) -> str:
+        return self.request("GET", f"/{bucket}/{key}",
+                            _sub("legal-hold", version_id)
+                            ).xml().findtext(f"{S3_NS}Status")
 
     # -- versioning --------------------------------------------------------
 
@@ -385,6 +508,32 @@ class S3Client:
 def _vid(version_id: str | None) -> str:
     return "" if version_id is None else \
         f"versionId={urllib.parse.quote(version_id or 'null')}"
+
+
+def _sub(subresource: str, version_id: str | None) -> str:
+    vid = _vid(version_id)
+    return f"{subresource}&{vid}" if vid else subresource
+
+
+def _bypass(on: bool) -> dict | None:
+    return {"x-amz-bypass-governance-retention": "true"} if on else None
+
+
+def _copy_source(bucket: str, key: str, version_id: str | None) -> str:
+    src = "/" + urllib.parse.quote(f"{bucket}/{key}")
+    return src if version_id is None else \
+        f"{src}?versionId={version_id or 'null'}"
+
+
+def _tagging_xml(tags: dict) -> bytes:
+    return (f'<Tagging xmlns="{S3_NS[1:-1]}"><TagSet>' + "".join(
+        f"<Tag><Key>{escape(k)}</Key><Value>{escape(v)}</Value></Tag>"
+        for k, v in tags.items()) + "</TagSet></Tagging>").encode()
+
+
+def _tags_of(resp: S3Response) -> dict:
+    return {t.findtext(f"{S3_NS}Key"): t.findtext(f"{S3_NS}Value") or ""
+            for t in resp.xml().iter(f"{S3_NS}Tag")}
 
 
 def multipart_etag(part_etags: list[str]) -> str:

@@ -1,6 +1,9 @@
 """S3 API errors and their XML (``minio_tpu/s3/errors.py``,
 cmd/api-errors.go): the codes the port's front can return, and
-``NotImplemented`` for what it does not serve.  A part below the minimum
+``NotImplemented`` for what it does not serve.  Some are raised by a
+name other than their code (``InvalidCopySource`` answers
+InvalidArgument, ``AdminBucketQuotaExceeded`` XMinioAdminBucketQuotaExceeded),
+as the reference raises them.  A part below the minimum
 size answers InvalidPart, as the reference does; EntityTooSmall is in
 the table for clients that look it up."""
 
@@ -84,8 +87,33 @@ _ERRORS = {e.code: e for e in (
              "signing method.", 403),
     APIError("SlowDown", "Resource requested is unreadable, please reduce "
              "your request rate", 503),
+    # tagging, copy and object lock
+    APIError("BadRequest", "400 BadRequest", 400),
+    APIError("InvalidBucketObjectLockConfiguration",
+             "Bucket is missing ObjectLockConfiguration", 400),
+    APIError("InvalidBucketState", "The request is not valid with the "
+             "current state of the bucket.", 409),
+    APIError("InvalidObjectState", "The operation is not valid for the "
+             "object's storage class", 403),
+    APIError("InvalidTag", "The tag provided was not a valid tag. A "
+             "provided tag key or value was invalid.", 400),
+    APIError("NoSuchObjectLockConfiguration", "The specified object does "
+             "not have an ObjectLock configuration", 404),
+    APIError("NoSuchTagSet", "The TagSet does not exist", 404),
+    APIError("ObjectLockConfigurationNotFoundError", "Object Lock "
+             "configuration does not exist for this bucket", 404),
+    APIError("ObjectLocked", "Object is WORM protected and cannot be "
+             "overwritten or deleted", 400),
 )}
-# a hard quota's refusal, raised by the reference's name for it
+# codes the reference answers under another code's name
+_ERRORS["InvalidCopySource"] = APIError(
+    "InvalidArgument", "Copy Source must mention the source bucket and "
+    "key: sourcebucket/sourcekey.", 400)
+_ERRORS["InvalidCopyDest"] = APIError(
+    "InvalidRequest", "This copy request is illegal because it is trying "
+    "to copy an object to itself without changing the object's metadata, "
+    "storage class, website redirect location or encryption attributes.",
+    400)
 _ERRORS["AdminBucketQuotaExceeded"] = APIError(
     "XMinioAdminBucketQuotaExceeded",
     "Bucket quota may be exceeded with this request.", 403)
@@ -108,6 +136,7 @@ _OBJECT_ERRORS = {
     ol.ObjectNotFound: "NoSuchKey",
     ol.VersionNotFound: "NoSuchVersion",
     ol.MethodNotAllowed: "MethodNotAllowed",
+    ol.ObjectLocked: "ObjectLocked",
     ol.ObjectNameInvalid: "InvalidArgument",
     ol.InvalidRange: "InvalidRange",
     ol.ReadQuorumError: "SlowDown",

@@ -1,15 +1,18 @@
 """S3 bucket handlers (``minio_tpu/s3/handlers_bucket.py``,
-cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket, GET
-``?location``, PUT and GET ``?versioning``, PUT, GET and DELETE
-``?policy`` (the bucket policy, ``bucket/policy.py``), PUT, GET and
-DELETE ``?lifecycle`` (``bucket/lifecycle.py``), PUT and GET ``?quota``
-(``bucket/quota.py``), ListObjects V1 and V2, ListObjectVersions
-(``?versions``), ListMultipartUploads (``?uploads``), DeleteObjects,
-with version ids, and the browser POST-policy upload.  Each authorises
-the reference's S3 action on the bucket (on ``bucket/key`` for a key)
-before it touches the layer.  ``_make_handler`` (server.py) attaches
-them to the request handler; ``self`` is the handler and ``self.srv``
-its server.
+cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket (a bucket
+created with ``x-amz-bucket-object-lock-enabled: true`` is versioned and
+lock-enabled), GET ``?location``, PUT and GET ``?versioning`` (a lock
+bucket cannot be suspended), PUT, GET and DELETE ``?policy`` (the bucket
+policy, ``bucket/policy.py``), ``?lifecycle`` (``bucket/lifecycle.py``)
+and ``?tagging`` (``bucket/tags.py``), PUT and GET ``?object-lock``
+(``bucket/objectlock.py``: the default retention of a lock bucket) and
+``?quota`` (``bucket/quota.py``), ListObjects V1 and V2,
+ListObjectVersions (``?versions``), ListMultipartUploads (``?uploads``),
+DeleteObjects, with version ids and each locked version refused, and
+the browser POST-policy upload.  Each authorises the reference's S3
+action on the bucket (on ``bucket/key`` for a key) before it touches
+the layer.  ``_make_handler`` (server.py) attaches them to the request
+handler; ``self`` is the handler and ``self.srv`` its server.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from __future__ import annotations
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket import tags as btags
 from ..bucket.lifecycle import Lifecycle
+from ..bucket.objectlock import LockConfig
 from ..bucket.policy import BucketPolicy
 from ..bucket.quota import Quota
 from ..iam import policy as iampol
@@ -26,14 +31,13 @@ from ..objectlayer import metacache
 from ..objectlayer.interface import PutObjectOptions
 from . import errors as s3err
 from . import postpolicy, sigv4
-from .server import MAX_PUT_SIZE, S3_NS, S3Error, _iso_date, _xml
+from .server import MAX_PUT_SIZE, S3_NS, S3Error, _iso_date, _try, _xml
 
 # bucket subresources the port does not serve (the other configs, ACLs,
-# event listening: ROADMAP Queue 1 item 16)
+# event listening: ROADMAP Queue 1 items 16.3, 16.5, 16.8)
 UNSERVED = frozenset((
-    "encryption", "replication", "notification", "object-lock", "tagging",
-    "acl", "cors", "website", "accelerate", "requestPayment", "logging",
-    "events"))
+    "encryption", "replication", "notification", "acl", "cors", "website",
+    "accelerate", "requestPayment", "logging", "events"))
 
 
 def _list_buckets(self):
@@ -59,6 +63,8 @@ def _bucket_api(self, bucket, query, payload):
             return self._bucket_config(bucket, name, payload)
     if "quota" in query:
         return self._bucket_quota(bucket, payload)
+    if "object-lock" in query:
+        return self._bucket_object_lock(bucket, payload)
     if "versioning" in query:
         if cmd == "PUT":
             self._allow(iampol.PUT_BUCKET_VERSIONING, bucket)
@@ -90,10 +96,14 @@ def _bucket_api(self, bucket, query, payload):
         raise S3Error("NotImplemented")     # the other configs
     if cmd == "PUT":
         self._allow(iampol.CREATE_BUCKET, bucket)
+        self.srv.layer.make_bucket(bucket)
         if self.headers.get("x-amz-bucket-object-lock-enabled",
                             "").lower() == "true":
-            raise S3Error("NotImplemented")
-        self.srv.layer.make_bucket(bucket)
+            # a lock bucket is versioned (PutBucketHandler)
+            self.srv.bucket_meta.set_versioning(bucket, True)
+            self.srv.bucket_meta.set_config(
+                bucket, "object-lock",
+                LockConfig(enabled=True).to_xml().decode())
         return self._send(200, headers={"Location": f"/{bucket}"})
     if cmd == "HEAD":
         self._allow(iampol.LIST_BUCKET, bucket)
@@ -121,12 +131,17 @@ CONFIGS = {
                   lambda body, b: Lifecycle.parse(body).to_xml(),
                   "MalformedXML", "NoSuchLifecycleConfiguration",
                   "application/xml"),
+    "tagging": (iampol.GET_BUCKET_TAGGING, iampol.PUT_BUCKET_TAGGING,
+                lambda body, b: btags.to_xml(btags.parse_xml(
+                    body, is_object=False)),
+                "MalformedXML", "NoSuchTagSet", "application/xml"),
 }
 
 
 def _bucket_config(self, bucket, name, payload):
-    """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go) and
-    ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go): authorised before
+    """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go),
+    ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go) and ``?tagging``
+    (cmd/bucket-handlers.go PutBucketTaggingHandler): authorised before
     the bucket's existence is checked, so a caller cannot tell a missing
     bucket from a refused one.  The stored document is the parsed one
     written back."""
@@ -150,6 +165,31 @@ def _bucket_config(self, bucket, name, payload):
         return self._send(200, raw.encode(), content_type=ctype)
     self.srv.bucket_meta.set_config(bucket, name, None)
     return self._send(204)
+
+
+def _bucket_object_lock(self, bucket, payload):
+    """PUT and GET ``?object-lock`` (cmd/bucket-object-lock.go): the
+    default retention of a bucket created lock-enabled; a bucket created
+    without is refused (InvalidBucketObjectLockConfiguration), as S3
+    allows object lock only at creation."""
+    cmd = self.command
+    if cmd == "PUT":
+        self._allow(iampol.PUT_BUCKET_OBJECT_LOCK, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        cfg = _try(lambda: LockConfig.parse(payload))
+        if self.srv.bucket_meta.get_config(bucket, "object-lock") is None:
+            raise S3Error("InvalidBucketObjectLockConfiguration")
+        self.srv.bucket_meta.set_config(bucket, "object-lock",
+                                        cfg.to_xml().decode())
+        return self._send(200)
+    if cmd == "GET":
+        self._allow(iampol.GET_BUCKET_OBJECT_LOCK, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        raw = self.srv.bucket_meta.get_config(bucket, "object-lock")
+        if raw is None:
+            raise S3Error("ObjectLockConfigurationNotFoundError")
+        return self._send(200, raw.encode())
+    raise S3Error("MethodNotAllowed")
 
 
 def _bucket_quota(self, bucket, payload):
@@ -198,17 +238,23 @@ def _post_policy_upload(self, bucket, payload):
         raise S3Error(e.code if s3err.has(e.code)
                       else "AccessDenied") from e
     self._allow(iampol.PUT_OBJECT, f"{bucket}/{key}")
-    if fields.get("tagging"):
-        raise S3Error("NotImplemented")     # object tagging, item 16.2
     if len(file_data) > MAX_PUT_SIZE:
         raise S3Error("EntityTooLarge")
-    self._check_quota(bucket, len(file_data))
     user_defined = {}
     if fields.get("content-type"):
         user_defined["content-type"] = fields["content-type"]
     for k, v in fields.items():
         if k.startswith("x-amz-meta-"):
             user_defined[k] = v
+    if fields.get("tagging"):
+        # the form's Tagging document, stored as the header form
+        try:
+            user_defined[btags.TAG_KEY] = btags.to_header(
+                btags.parse_xml(fields["tagging"].encode()))
+        except btags.TagError as e:
+            raise S3Error("InvalidTag") from e
+    user_defined.update(self._lock_headers(bucket, key))
+    self._check_quota(bucket, len(file_data))
     oi = self.srv.layer.put_object(
         bucket, key, file_data, PutObjectOptions(
             user_defined=user_defined,
@@ -245,6 +291,10 @@ def _put_versioning(self, bucket, payload):
             root.findtext("Status") or ""
     except ET.ParseError as e:
         raise S3Error("MalformedXML") from e
+    if status != "Enabled" and \
+            self.srv.bucket_meta.get_config(bucket, "object-lock") \
+            is not None:
+        raise S3Error("InvalidBucketState")     # a lock bucket stays versioned
     self.srv.bucket_meta.set_versioning(bucket, status == "Enabled")
     self._send(200)
 
@@ -399,8 +449,8 @@ def _list_objects(self, bucket, query):
 def _delete_objects(self, bucket, payload):
     """Multi-object delete (cmd/bucket-handlers.go:604): one Deleted or
     Error element per key, 200 whatever each key's fate.  An entry with
-    a VersionId deletes that version; one without, in a versioned
-    bucket, adds a delete marker."""
+    a VersionId deletes that version (ObjectLocked when its lock says
+    no); one without, in a versioned bucket, adds a delete marker."""
     try:
         root = ET.fromstring(payload)
     except ET.ParseError as e:
@@ -416,8 +466,7 @@ def _delete_objects(self, bucket, payload):
         try:
             self._allow(iampol.DELETE_OBJECT, f"{bucket}/{key}")
             res = self.srv.layer.delete_object(
-                bucket, key, ol.ObjectOptions(version_id=vid,
-                                              versioned=versioned))
+                bucket, key, self._delete_opts(bucket, key, vid, versioned))
             if not quiet:
                 d = ET.SubElement(out, "Deleted")
                 ET.SubElement(d, "Key").text = key
@@ -441,7 +490,7 @@ def _delete_objects(self, bucket, payload):
 
 # the methods _make_handler attaches to the request handler
 HANDLERS = ["_list_buckets", "_bucket_api", "_bucket_config",
-            "_bucket_quota",
+            "_bucket_object_lock", "_bucket_quota",
             "_post_policy_upload", "_put_versioning",
             "_get_versioning", "_list_object_versions", "_list_uploads",
             "_encoding_type", "_list_objects", "_delete_objects"]

@@ -11,12 +11,14 @@ accounts and STS sessions, whose session token is checked on every
 request), maps the route to one call of the object layer and renders S3
 XML; the erasure coding and bitrot hashing of the body run on the
 layer's device.  A request is authorised before its body is read or
-encoded.  Multipart uploads, versioned buckets, bucket policies
-(``?policy``), POST-policy uploads and STS AssumeRole are served.  What
-the port does not serve (the other bucket configs, tagging, object lock,
-copy, select, the LDAP and web-identity STS calls, the web UI, SSE, the
-admin routes of ``admin/handlers.py`` it lacks) answers the S3
-``NotImplemented`` error document.  The health probes are served:
+encoded.  Multipart uploads, versioned buckets, CopyObject and
+UploadPartCopy, object and bucket tagging, object lock (retention, legal
+hold, a bucket's default retention), bucket policies (``?policy``),
+lifecycle and quota, POST-policy uploads and STS AssumeRole are served.
+What the port does not serve (SSE and compression, ACLs, the other
+bucket configs, select, restore, the LDAP and web-identity STS calls,
+the web UI, the admin routes of ``admin/handlers.py`` it lacks) answers
+the S3 ``NotImplemented`` error document.  The health probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
@@ -261,6 +263,15 @@ def _parse_range(spec: str) -> tuple[int, int]:
     if end < start:
         raise S3Error("InvalidRange")
     return start, end - start + 1
+
+
+def _try(fn):
+    """Run a document's parser; its ValueError answers the S3 error its
+    ``code`` names, MalformedXML without one."""
+    try:
+        return fn()
+    except ValueError as e:
+        raise S3Error(getattr(e, "code", "MalformedXML")) from e
 
 
 class S3Server:

@@ -12,6 +12,8 @@ an older version, and that version becomes the object again.  Then the
 crawler's cycles, its tracker skip and pacing, and the hard quota's
 ``UsageCache``."""
 
+import json
+
 import pytest
 
 from minio_tpu.background import crawler as ref_cr
@@ -85,6 +87,11 @@ def pinned(monkeypatch):
 
 
 def test_scan_expires_and_accounts_alike(tmp_path, pinned):
+    """The same expiries, usage and drives but for ``vers/cur/v``: a
+    current version expired in a versioned bucket gets a delete marker
+    on the port, while the reference deletes the null version it does
+    not hold and leaves the object (ROADMAP Queue 3 item 31); the bodies
+    and the version list are the oracle there."""
     ref, port = ref_layer(tmp_path / "ref"), port_layer(tmp_path / "port")
     try:
         results = []
@@ -99,28 +106,94 @@ def test_scan_expires_and_accounts_alike(tmp_path, pinned):
         assert sorted(got.expired) == sorted(
             [("plain", f"cur/{i}", "") for i in range(3)]
             + [e for e in want.expired if e[0] == "vers"])
-        # "cur/v" is expired as an S3 DELETE without options: the null
-        # version, which a versioned bucket does not hold (no marker is
-        # written; both packages, ROADMAP Queue 3)
         assert {e[1] for e in want.expired if e[0] == "vers"} == \
             {"nc/0", "nc/1", "dm/alone", "cur/v"}
-        assert "cur/v" in [o.name for o in port.list_objects("vers").objects]
+        _assert_cur_v_marked(port)
+        assert "cur/v" in [o.name for o in ref.list_objects("vers").objects]
         assert got.usage.to_json() == want.usage.to_json()
         assert _usage_files(tmp_path / "port") == \
             _usage_files(tmp_path / "ref")
-        assert_trees_equal(tmp_path / "port", tmp_path / "ref")
+        assert_trees_equal(tmp_path / "port", tmp_path / "ref",
+                           skip={i: ["vers/cur/v"] for i in range(N)})
         u = got.usage.bucket_usage
         assert (u["keep"].objects_count, u["keep"].size) == (3, 3 * 70_000)
-        # a rescan after the expiries: what is left, counted alike
+        # a rescan after the expiries: the port expires nothing new (the
+        # reference expires "cur/v" again), and counts what is left as
+        # the reference does, "cur/v" now noncurrent
         again = [cr.scan_usage(er, _meta(er))
                  for er, cr in ((ref, ref_cr), (port, port_cr))]
-        assert again[1].expired == again[0].expired == \
+        assert again[0].expired == \
             [e for e in want.expired if e[1] == "cur/v"]
-        assert again[1].usage.to_json() == again[0].usage.to_json()
+        assert again[1].expired == []
+        _assert_cur_v_marked(port)
+        r, p = (json.loads(a.usage.to_json()) for a in again)
+        assert p["bucketsUsageInfo"]["vers"]["objectsCount"] == \
+            r["bucketsUsageInfo"]["vers"]["objectsCount"] - 1
+        assert p["objectsCount"] == r["objectsCount"] - 1
+        for doc in (r, p):
+            doc["bucketsUsageInfo"]["vers"].pop("objectsCount")
+            doc.pop("objectsCount")
+        assert p == r
         assert [o.name for o in port.list_objects("plain").objects] == \
             [f"other/{i}" for i in range(3)] + [f"tr/{i}" for i in range(3)]
     finally:
         close(ref, port)
+
+
+def _assert_cur_v_marked(port) -> None:
+    """``vers/cur/v``: a delete marker over its one version, whose body
+    still reads by its version id."""
+    assert "cur/v" not in [o.name for o in port.list_objects("vers").objects]
+    vs = [o for o in port.list_object_versions("vers", "cur/v").objects
+          if o.name == "cur/v"]
+    assert [(o.delete_marker, o.is_latest) for o in vs] == \
+        [(True, True), (False, False)]
+    _, data = port.get_object("vers", "cur/v",
+                              opts=obj_opts(port, version_id=vs[1].version_id))
+    assert data == b"z" * 10
+
+
+@pytest.mark.parametrize("name", ["ref", "port"])
+def test_versioned_expiry_writes_a_delete_marker(tmp_path, pinned, name):
+    """Queue 3 item 31: an Expiration rule on a current version in a
+    versioned bucket writes a delete marker (S3's expiry); the older
+    body stays readable by its version id and a second cycle expires
+    nothing.  The reference deletes the null version, which the bucket
+    does not hold: no marker, the version stays current, and the expiry
+    recurs every cycle."""
+    make, cr = (ref_layer, ref_cr) if name == "ref" else (port_layer,
+                                                           port_cr)
+    er = make(tmp_path / name)
+    try:
+        meta = _meta(er)
+        er.make_bucket("vers")
+        meta.set_versioning("vers", True)
+        vopt = put_opts(er, versioned=True)
+        old = er.put_object("vers", "cur/x", body(3000, 1), vopt)
+        new = er.put_object("vers", "cur/x", body(5000, 2), vopt)
+        meta.set_config("vers", "lifecycle", LIFECYCLE)
+        cycles = [cr.scan_usage(er, meta).expired for _ in range(2)]
+        listed = [o.name for o in er.list_objects("vers").objects]
+        out = er.list_object_versions("vers")
+        rows = [(o.version_id, o.delete_marker, o.is_latest)
+                for o in getattr(out, "objects", out)]
+        for oi, size, seed in ((old, 3000, 1), (new, 5000, 2)):
+            _, data = er.get_object(
+                "vers", "cur/x",
+                opts=obj_opts(er, version_id=oi.version_id))
+            assert data == body(size, seed)
+    finally:
+        close(er)
+    first = [("vers", "cur/x", new.version_id)]
+    if name == "ref":
+        assert cycles == [first, first], "reference fault gone"
+        assert listed == ["cur/x"]
+        return
+    assert cycles == [first, []]
+    assert listed == []
+    assert [r[1:] for r in rows] == [(True, True), (False, False),
+                                     (False, False)]
+    assert [r[0] for r in rows[1:]] == [new.version_id, old.version_id]
 
 
 def test_a_marker_over_an_older_version_is_kept(tmp_path, pinned):

@@ -693,13 +693,37 @@ def _tree(root) -> dict:
 ])
 def test_unserved_answers_not_implemented(pair, method, path, query,
                                           headers):
+    """What the port does not serve answers NotImplemented.  Tagging,
+    object lock and copy are served now: those requests answer as
+    ``NOW_SERVED`` says (each is compared with the reference in
+    ``test_torch_copy.py``, ``test_torch_tagging.py`` and
+    ``test_torch_objectlock.py``)."""
     url = f"http://127.0.0.1:{pair.port.port}{path}" + \
         (f"?{query}" if query else "")
     _, hdrs, body = signed("v4", method, url, b"", headers,
                            datetime.datetime.now(datetime.timezone.utc))
     r = raw_send(method, url, body, hdrs)
-    assert r.status == 501
-    assert b"<Code>NotImplemented</Code>" in r.body
+    status, code = NOW_SERVED.get((method, path, query, *headers),
+                                  (501, "NotImplemented"))
+    assert r.status == status
+    if code:
+        assert f"<Code>{code}</Code>".encode() in r.body
+
+
+# (method, path, query, header names) -> (status, error code or None)
+NOW_SERVED = {
+    ("GET", f"/{B}", "tagging"): (404, "NoSuchTagSet"),
+    ("GET", f"/{B}", "object-lock"):
+        (404, "ObjectLockConfigurationNotFoundError"),
+    ("GET", f"/{B}/rt/packed", "retention"):
+        (404, "NoSuchObjectLockConfiguration"),
+    ("PUT", f"/{B}/k", "partNumber=1&uploadId=x", "x-amz-copy-source"):
+        (404, "NoSuchUpload"),
+    ("GET", f"/{B}/rt/packed", "tagging"): (200, None),
+    ("PUT", f"/{B}/k", "", "x-amz-copy-source"): (200, None),
+    ("PUT", f"/{B}/k", "", "x-amz-tagging"): (200, None),
+    ("PUT", "/locked", "", "x-amz-bucket-object-lock-enabled"): (200, None),
+}
 
 
 def test_sigv2_and_unknown_methods(pair):
