@@ -203,7 +203,18 @@
    refusals launch nothing; no plain version.  Copy GiB/s, the 256 MiB
    copy's and the part copies' seconds, the degraded copy's seconds,
    the tag call's and each refusal's milliseconds.
-15. One JSON line of readings, one describing each kernel, the card line,
+15. Storage classes, SSE and compression, on phase 14's server before it
+   stops, over HTTP: an SSE-S3 PUT of 16 MiB, its GET and a ranged GET
+   (decrypting only the covering DARE packages); a compressed PUT of
+   4 MiB of text and its GET (the pure-Python snappy engine on the
+   host); a REDUCED_REDUNDANCY PUT of 16 MiB (14 data + 2 parity shards
+   on a 16-drive set, a second geometry through the same kernels), its
+   GET with two of its data-shard drives wiped (Kernel A rebuilds them
+   with that geometry's decode rows); a REDUCED_REDUNDANCY upload of
+   2 x 5 MiB parts, completed and read.  Every body checked.  Kernels A
+   and B launch in each write step and Kernel A in the degraded read; no
+   plain version.  Each step's seconds and GiB/s.
+16. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -2822,6 +2833,9 @@ def phase_pools(card: str, gen):
 
 S3_NS = "{http://s3.amazonaws.com/doc/2006-03-01/}"
 COPY_OBJ, COPY_N, COPY_THREADS = 16 << 20, 8, 4            # phase 14
+SSE_OBJ, TEXT_OBJ, RRS_PART = 16 << 20, 4 << 20, 5 << 20   # phase 15
+SSE_S3 = {"x-amz-server-side-encryption": "AES256"}
+RRS = {"x-amz-storage-class": "REDUCED_REDUNDANCY"}
 COPY_PARTS_MIB = (100, 100, 56)          # part ranges of the 256 MiB body
 LOCK_N, TAG_N = 4, 16
 
@@ -3050,6 +3064,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
                   .body == lock_objs[i], f"locked version l{i}")
         torch.cuda.synchronize()
         s_end = snapshot()
+        transform = phase_transform(srv, card, gen)
     finally:
         srv.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -3076,6 +3091,143 @@ def phase_copy_lock(bodies: dict, card: str, gen):
           f"{readings['self_copy_256mib_s']:.3f} s; tag call "
           f"{readings['tag_call_ms']:.2f} ms; refusals "
           f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings, transform
+
+
+def text_body(size: int) -> bytes:
+    """``size`` bytes of log lines: what the compression subsystem takes
+    (a ``.txt`` key) and shrinks."""
+    line = b"2026-10-17T10:00:00Z INFO request %08d served in %4d us\n"
+    out = b"".join(line % (i, i % 977) for i in range(size // 48 + 1))
+    return out[:size]
+
+
+def timed_step(steps: dict, name: str, fn):
+    """fn() between two snapshots after a synchronize; (result, s)."""
+    torch.cuda.synchronize()
+    before = snapshot()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps[name] = delta(before, snapshot())
+    return out, secs
+
+
+def phase_transform(srv, card: str, gen):
+    """Phase 15: storage classes, SSE-S3 and compression over HTTP on the
+    running server of phase 14.  Returns the launches and the
+    readings."""
+    from minio_tpu_torch.s3.client import S3Client
+    t_phase = time.perf_counter()
+    c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    blob = rand_bytes((3, SSE_OBJ), gen).cpu().numpy()
+    sse_body, rrs_body = blob[0].tobytes(), blob[1].tobytes()
+    parts = [blob[2][:RRS_PART].tobytes(),
+             blob[2][RRS_PART:2 * RRS_PART].tobytes()]
+    text = text_body(TEXT_OBJ)
+    readings: dict = {}
+    steps: dict = {}
+    gib = 2 ** 30
+    c.make_bucket("transform")
+    srv.config.set("compression", "enable", "on")
+    try:
+        torch.cuda.synchronize()
+        s0 = snapshot()
+        # 1: SSE-S3, 16 MiB: PUT, GET, a range across DARE packages
+        r, t = timed_step(steps, "sse_put", lambda: c.put_object(
+            "transform", "sse.dat", sse_body, headers=SSE_S3))
+        check(r.headers.get("x-amz-server-side-encryption") == "AES256",
+              "SSE-S3 PUT answer")
+        readings["sse_put_gibps"] = len(sse_body) / t / gib
+        info = srv.layer.get_object_info("transform", "sse.dat")
+        check(info.size > len(sse_body) and "x-minio-internal-server-side-"
+              "encryption-sealed-key" in info.user_defined,
+              "SSE-S3 object stored sealed")
+        got, t = timed_step(steps, "sse_get", lambda: c.get_object(
+            "transform", "sse.dat"))
+        check(got.body == sse_body, "SSE-S3 GET body")
+        readings["sse_get_gibps"] = len(sse_body) / t / gib
+        lo, hi = SSE_OBJ * 5 // 16 + 3, SSE_OBJ * 9 // 16 - 7
+        got, t = timed_step(steps, "sse_range", lambda: c.get_object(
+            "transform", "sse.dat", (lo, hi)))
+        check(got.body == sse_body[lo:hi + 1], "SSE-S3 ranged GET body")
+        readings["sse_range_s"] = t
+        # 2: compression, 4 MiB of text
+        r, t = timed_step(steps, "compressed_put", lambda: c.put_object(
+            "transform", "log.txt", text))
+        readings["compressed_put_s"] = t
+        readings["compressed_put_mibps"] = len(text) / t / 2 ** 20
+        info = srv.layer.get_object_info("transform", "log.txt")
+        check(info.size < len(text) // 2, f"compressed to {info.size}")
+        readings["compression_ratio"] = len(text) / info.size
+        got, t = timed_step(steps, "compressed_get", lambda: c.get_object(
+            "transform", "log.txt"))
+        check(got.body == text, "compressed GET body")
+        readings["compressed_get_s"] = t
+        readings["compressed_get_mibps"] = len(text) / t / 2 ** 20
+        check(c.head_object("transform", "log.txt").headers[
+            "Content-Length"] == str(len(text)), "HEAD plain size")
+        # 3: REDUCED_REDUNDANCY, 16 MiB, then degraded
+        _, t = timed_step(steps, "rrs_put", lambda: c.put_object(
+            "transform", "rrs.dat", rrs_body, headers=RRS))
+        readings["rrs_put_gibps"] = len(rrs_body) / t / gib
+        er = srv.layer.get_hashed_set("rrs.dat")
+        fi, _ = er._read_quorum_fileinfo("transform", "rrs.dat")
+        k_rrs = fi.erasure.data_blocks
+        check((k_rrs, fi.erasure.parity_blocks) == (K + M - 2, 2),
+              f"RRS geometry {k_rrs}+{fi.erasure.parity_blocks}")
+        wiped = [d for d, shard in enumerate(fi.erasure.distribution)
+                 if shard <= k_rrs][:2]
+        for d in wiped:
+            shutil.rmtree(f"{er.disks[d].endpoint()}/transform/rrs.dat")
+        got, t = timed_step(steps, "rrs_degraded_get", lambda: c.get_object(
+            "transform", "rrs.dat"))
+        check(got.body == rrs_body, "RRS degraded GET body")
+        check(c.head_object("transform", "rrs.dat").headers.get(
+            "x-amz-storage-class") == "REDUCED_REDUNDANCY", "RRS HEAD")
+        readings["rrs_degraded_get_gibps"] = len(rrs_body) / t / gib
+        # 4: a REDUCED_REDUNDANCY upload of 2 x 5 MiB
+        def upload():
+            uid = c.create_multipart_upload("transform", "rrs-mp",
+                                            headers=RRS)
+            etags = [c.upload_part("transform", "rrs-mp", uid, n, p)
+                     for n, p in enumerate(parts, 1)]
+            c.complete_multipart_upload("transform", "rrs-mp", uid,
+                                        list(enumerate(etags, 1)))
+        _, t = timed_step(steps, "rrs_multipart", upload)
+        readings["rrs_multipart_gibps"] = 2 * RRS_PART / t / gib
+        check(c.get_object("transform", "rrs-mp").body == b"".join(parts),
+              "RRS multipart body")
+        check(srv.layer.get_object_info("transform", "rrs-mp").parity == 2,
+              "RRS multipart parity")
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+    finally:
+        srv.config.set("compression", "enable", "off")
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"transform path: {kernel} plain version ran")
+    for step in ("sse_put", "compressed_put", "rrs_put", "rrs_multipart"):
+        for kernel in ("gf8_apply", "hh256"):
+            check(steps[step][kernel][0] > 0,
+                  f"{kernel} not launched in the {step} step")
+    check(steps["rrs_degraded_get"]["gf8_apply"][0] > 0,
+          "Kernel A not launched in the RRS degraded GET")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    print(f"transform path on {card}: SSE-S3 16 MiB PUT "
+          f"{readings['sse_put_gibps']:.3f} GiB/s, GET "
+          f"{readings['sse_get_gibps']:.3f} GiB/s, range "
+          f"{readings['sse_range_s']:.3f} s; compressed 4 MiB PUT "
+          f"{readings['compressed_put_s']:.2f} s, GET "
+          f"{readings['compressed_get_s']:.2f} s (ratio "
+          f"{readings['compression_ratio']:.1f}); RRS 16 MiB PUT "
+          f"{readings['rrs_put_gibps']:.3f} GiB/s, degraded GET "
+          f"{readings['rrs_degraded_get_gibps']:.3f} GiB/s, 2 x 5 MiB "
+          f"upload {readings['rrs_multipart_gibps']:.3f} GiB/s; phase "
+          f"{readings['phase_s']:.1f} s")
     return {k: v[0] for k, v in launches.items()}, readings
 
 
@@ -3120,7 +3272,8 @@ def main() -> int:
                                                 s3_readings)
     id_path, id_readings = phase_identity(card, gen)
     pools_path, pools_readings = phase_pools(card, gen)
-    copy_path, copy_readings = phase_copy_lock(bodies, card, gen)
+    copy_path, copy_readings, (tr_path, tr_readings) = phase_copy_lock(
+        bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -3130,7 +3283,8 @@ def main() -> int:
                    "listing_path": list_path[k["name"]],
                    "identity_path": id_path[k["name"]],
                    "pools_path": pools_path[k["name"]],
-                   "copy_lock_path": copy_path[k["name"]]}
+                   "copy_lock_path": copy_path[k["name"]],
+                   "transform_path": tr_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -3141,7 +3295,8 @@ def main() -> int:
                       "listing_path": list_readings,
                       "identity_path": id_readings,
                       "pools_path": pools_readings,
-                      "copy_lock_path": copy_readings}))
+                      "copy_lock_path": copy_readings,
+                      "transform_path": tr_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -200,6 +200,9 @@ class AdminClient:
         counters, cycle progress."""
         return self._call("GET", "rebalance-status")
 
+    def kms_key_status(self) -> dict:
+        return self._call("GET", "kms-key-status")
+
     def service_stop(self) -> dict:
         return self._call("POST", "service", "action=stop")
 

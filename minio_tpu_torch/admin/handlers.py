@@ -19,6 +19,8 @@ AccessDenied.  They answer JSON:
   GET  storageinfo              per-drive capacity, state and slow flag;
                                 on a pools layer the pools' rows too
   POST service?action=stop|restart
+  GET  kms-key-status           a data key made and unsealed through the
+                                key service (``crypto/kms.py``)
   POST add-user                 {"accessKey", "secretKey", "policies"}
   GET  list-users
   POST remove-user?accessKey=   (its service accounts go too)
@@ -75,6 +77,7 @@ from ..iam import policy as iampol
 from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
 from ..objectlayer import interface as ol
 from ..objectlayer.pools import is_pooled
+from ..utils.kvconfig import parse_storage_class
 from . import metrics
 
 ADMIN_PREFIX = "/minio-tpu/admin/v1"
@@ -153,6 +156,8 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
             return quota_route(srv, q1, payload, send_json)
         if route == "service" and h.command == "POST":
             return _service(srv, q1, send_json)
+        if route == "kms-key-status" and h.command == "GET":
+            return _kms_key_status(srv, send_json)
         if route.startswith("policy"):
             return _policy(h, srv, route, payload, send_json)
         iam_route = _IAM_ROUTES.get((h.command, route))
@@ -463,12 +468,34 @@ def _config(h, srv, route: str, payload: bytes, send_json) -> bool:
     if h.command == "GET" and len(parts) == 2:
         return send_json(cfg.get_subsys(parts[1]))
     if h.command == "PUT" and len(parts) == 3:
-        cfg.set(parts[1], parts[2], payload.decode())
+        value = payload.decode()
+        if parts[1] == "storage_class" and value:
+            # judged against the set size now: a bad class would fail
+            # every later write that names it
+            from ..s3.handlers_object import _set_drive_count
+            try:
+                parse_storage_class(value,
+                                    _set_drive_count(srv.layer) or 16)
+            except ValueError as e:
+                return send_json({"error": str(e)}, 400)
+        cfg.set(parts[1], parts[2], value)
         hook = _RELOADS.get(parts[1])
         if hook is not None:
             getattr(srv, hook)()
         return send_json({"status": "ok"})
     raise S3Error("MethodNotAllowed")
+
+
+def _kms_key_status(srv, send_json) -> bool:
+    """GET kms-key-status (madmin KMSKeyStatus): a data key made and
+    unsealed through the server's key service."""
+    try:
+        key, sealed = srv.kms.generate_key({"probe": "admin"})
+        ok = srv.kms.unseal_key(sealed, {"probe": "admin"}) == key
+        return send_json({"key_id": srv.kms.key_id, "encryption_ok": ok,
+                          "decryption_ok": ok})
+    except Exception as e:  # noqa: BLE001 — any failure of the service
+        return send_json({"key_id": srv.kms.key_id, "error": str(e)}, 500)
 
 
 def _heal(srv, route: str, q1: dict, send_json) -> bool:

@@ -34,6 +34,12 @@ writes on a per-drive writer plane.
     HEAD, DELETE and heal take a version id (``ObjectOptions``); a
     versioned DELETE without one adds a delete marker, whose GET is
     MethodNotAllowed.  ``list_object_versions`` pages every version.
+  * Storage classes: a PUT or an upload whose ``PutObjectOptions.parity``
+    names another parity than the set's is encoded in that geometry
+    (cmd/erasure-object.go:631), through a codec of its own
+    (``_codec_for``), and its write quorum is that geometry's; reads,
+    degraded reads and heals take the geometry from the version's
+    xl.meta.
   * Multipart uploads: the ``MultipartOps`` mixin (``multipart.py``).
   * heal: ``healing.heal_object``, one version, every part.
   * buckets and listing: bucket info, list and delete over every drive's
@@ -77,7 +83,7 @@ import torch
 
 from ..bucket.objectlock import check_delete_allowed
 from ..hashing import bitrot
-from ..ops import gf8, rs_kernels
+from ..ops import gf8, rs_fused, rs_kernels
 from ..ops.codec import Erasure
 from ..parallel.dsync import NamespaceLock
 from ..parallel.mesh import Mesh
@@ -167,6 +173,10 @@ class ErasureObjects(MultipartOps):
         self.codec = Erasure(self.data_blocks, self.parity, block_size,
                              device=device, mesh=mesh)
         self.device = self.codec.device
+        # the codecs of other geometries (storage classes), by
+        # (parity, block size)
+        self._codecs: dict[tuple[int, int], Erasure] = {}
+        self._codecs_mu = threading.Lock()
         self.ns_lock = NamespaceLock()
         # request concurrency x drive fan-out, and the MD5 links
         self._pool = ThreadPoolExecutor(max_workers=min(4 * max(4, n), 64))
@@ -213,6 +223,48 @@ class ErasureObjects(MultipartOps):
 
     def _pipeline_on(self) -> bool:
         return self._pipe_depth > 0
+
+    # -- geometry (storage classes) ----------------------------------------
+
+    def _geometry(self, parity: Optional[int]) -> tuple[int, int]:
+        """(k, m) of a write: the set's, or that of the parity a storage
+        class asked for (cmd/erasure-object.go:631-642)."""
+        if parity is None:
+            return self.data_blocks, self.parity
+        n = len(self.disks)
+        if not 0 < parity <= n // 2:
+            raise ValueError(f"parity {parity} out of range for {n} drives")
+        return n - parity, parity
+
+    def _codec_for(self, parity: int,
+                   block_size: Optional[int] = None) -> Erasure:
+        """The codec of ``parity`` (and ``block_size``, the set's by
+        default): the set's own for its geometry, else one made once and
+        kept.  On a mesh set it runs on the same 1 x 1 mesh, and a
+        geometry Kernel C cannot take raises ValueError naming it."""
+        bs = self.block_size if block_size is None else block_size
+        if (parity, bs) == (self.parity, self.block_size):
+            return self.codec
+        with self._codecs_mu:
+            codec = self._codecs.get((parity, bs))
+            if codec is None:
+                k = len(self.disks) - parity
+                mesh = self.codec.mesh
+                if mesh is not None:
+                    try:
+                        rs_fused.plan(1, k, parity, gf8.shard_size(bs, k))
+                    except ValueError as e:
+                        raise ValueError(
+                            f"mesh set: no Kernel C plan for {k} data + "
+                            f"{parity} parity shards: {e}") from e
+                codec = Erasure(k, parity, bs, device=self.device,
+                                mesh=mesh)
+                self._codecs[(parity, bs)] = codec
+        return codec
+
+    def _fi_codec(self, fi: FileInfo) -> Erasure:
+        return self._codec_for(fi.erasure.parity_blocks,
+                               fi.erasure.block_size)
 
     # -- drive fan-out -----------------------------------------------------
 
@@ -434,10 +486,12 @@ class ErasureObjects(MultipartOps):
     def _batch_bytes(self) -> int:
         return max(1, STREAM_BATCH_BYTES // self.block_size) * self.block_size
 
-    def _frame(self, chunk) -> torch.Tensor:
+    def _frame(self, chunk, codec: Optional[Erasure] = None
+               ) -> torch.Tensor:
         """Encode one batch of blocks and frame every shard; returns the
-        (k + m, framed_len) on-disk bytes on the device."""
-        codec = self.codec
+        (k + m, framed_len) on-disk bytes on the device (in the set's
+        geometry unless ``codec`` names another)."""
+        codec = codec or self.codec
         if codec.mesh is not None:
             return codec.encode_object_framed(chunk)
         return bitrot.frame_batch(codec.encode_object(chunk),
@@ -459,8 +513,8 @@ class ErasureObjects(MultipartOps):
             codec_mod.settle_observations()
         return buf.numpy(), lambda: bufpool.GLOBAL.release(buf)
 
-    def _encode_framed_pooled(self, chunk):
-        return self._to_host(self._frame(chunk))
+    def _encode_framed_pooled(self, chunk, codec: Optional[Erasure] = None):
+        return self._to_host(self._frame(chunk, codec))
 
     # -- PUT (cmd/erasure-object.go:614 putObject) -------------------------
 
@@ -501,7 +555,8 @@ class ErasureObjects(MultipartOps):
         """A new version's FileInfo: a uuid version id when the PUT is
         versioned (drawn before the data dir, as the reference does),
         else the null version."""
-        n, k, m = len(self.disks), self.data_blocks, self.parity
+        n = len(self.disks)
+        k, m = self._geometry(opts.parity)
         version_id = opts.version_id or (
             str(uuid.uuid4()) if opts.versioned else "")
         return FileInfo(
@@ -552,7 +607,8 @@ class ErasureObjects(MultipartOps):
                 lambda: hashlib.md5(data).hexdigest())
         else:
             self._stamp(fi, size, hashlib.md5(data).hexdigest(), opts)
-        framed, release = self._encode_framed_pooled(data)
+        framed, release = self._encode_framed_pooled(data,
+                                                     self._fi_codec(fi))
         buf = held_release(release)
         inline = size <= INLINE_THRESHOLD
         shuffled = meta.shuffle_disks(self.disks, fi.erasure.distribution)
@@ -676,11 +732,12 @@ class ErasureObjects(MultipartOps):
         stats["md5_s"] += time.perf_counter() - t0
 
     def _pump_put_pipeline(self, chunks, sw, md5, stats, write_batch_for,
-                           wq: int) -> tuple[int, int]:
-        """Chained MD5 on the pool, encode into a pooled buffer, the
-        drives' writer queues: at most ``_pipe_depth`` batches in flight,
-        quorum re-checked as completions drain.  Returns (bytes,
-        batches).  ``stats["body_wait_s"]``: time spent waiting for the
+                           wq: int, codec: Optional[Erasure] = None
+                           ) -> tuple[int, int]:
+        """Chained MD5 on the pool, encode (with ``codec``, the set's by
+        default) into a pooled buffer, the drives' writer queues: at most
+        ``_pipe_depth`` batches in flight, quorum re-checked as
+        completions drain.  Returns (bytes, batches).  ``stats["body_wait_s"]``: time spent waiting for the
         next batch of the body (a reader's socket and digests)."""
         links: collections.deque = collections.deque()
         inflight: collections.deque = collections.deque()
@@ -700,7 +757,7 @@ class ErasureObjects(MultipartOps):
             while len(links) > self._pipe_depth:
                 links.popleft().result()
             t0 = time.perf_counter()
-            framed, release = self._encode_framed_pooled(chunk)
+            framed, release = self._encode_framed_pooled(chunk, codec)
             stats["encode_s"] += time.perf_counter() - t0
             inflight.append(sw.submit_batch(write_batch_for(framed),
                                             release=release))
@@ -749,7 +806,8 @@ class ErasureObjects(MultipartOps):
                 return write_batch
 
             total, batches = self._pump_put_pipeline(
-                src, sw, md5, stats, write_batch_for, wq)
+                src, sw, md5, stats, write_batch_for, wq,
+                self._fi_codec(fi))
             self._stamp(fi, total, md5.hexdigest(), opts)
             sw.drain()
             alive = sw.alive()
@@ -797,12 +855,13 @@ class ErasureObjects(MultipartOps):
         errs: list[Optional[Exception]] = [None] * n
         md5 = hashlib.md5()
         total = 0
+        codec = self._fi_codec(fi)
         src = readahead(chunks, depth=1) if readahead_body else chunks
         try:
             for chunk in src:
                 md5.update(chunk)
                 total += len(chunk)
-                framed, release = self._encode_framed_pooled(chunk)
+                framed, release = self._encode_framed_pooled(chunk, codec)
 
                 def write_batch(idx, framed=framed):
                     disk = shuffled[idx]

@@ -121,6 +121,9 @@ class PutObjectOptions:
     # a pool move: the ETag stamped verbatim, the source version's (a
     # Content-MD5 is still checked when both are set: the move's verify)
     preserve_etag: Optional[str] = None
+    # the parity a storage class asks for (x-amz-storage-class,
+    # cmd/erasure-object.go:631); None: the set's
+    parity: Optional[int] = None
 
 
 @dataclass

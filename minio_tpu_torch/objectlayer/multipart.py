@@ -7,7 +7,10 @@ An upload stages on every drive under the system volume at
 upload's geometry, data dir and metadata (``__versioned``, ``__bucket``,
 ``__object`` ride in it and are dropped at complete), one framed shard
 file ``part.N`` per part and a sidecar ``part.N.meta`` holding
-``<md5>:<size>``.  A part streams through the set's PUT pipeline (a
+``<md5>:<size>``.  The upload's geometry is the set's, or that of the
+parity its storage class asked for (``PutObjectOptions.parity``), and
+every part is encoded in it, whichever package began the upload.  A
+part streams through the set's PUT pipeline (a
 chained hashlib MD5, encode + frame on the device, the drives' writer
 queues) into a uniquely named staging file, then is promoted by rename,
 so a retried or concurrent upload of the same part never truncates one
@@ -63,6 +66,11 @@ class MultipartOps:
         from .erasure_object import _write_quorum
         return _write_quorum(self.data_blocks, self.parity)
 
+    @staticmethod
+    def _fi_write_quorum(fi: FileInfo) -> int:
+        from .erasure_object import _write_quorum
+        return _write_quorum(fi.erasure.data_blocks, fi.erasure.parity_blocks)
+
     def new_multipart_upload(self, bucket: str, object_name: str,
                              opts: Optional[PutObjectOptions] = None) -> str:
         """Stage the upload's xl.meta on every drive; returns its id."""
@@ -72,6 +80,7 @@ class MultipartOps:
         mp = _mp_dir(bucket, object_name, upload_id)
         distribution = meta.hash_order(f"{bucket}/{object_name}",
                                        len(self.disks))
+        k, m = self._geometry(opts.parity)
         fi = FileInfo(
             volume=bucket, name=object_name, version_id="",
             data_dir=str(uuid.uuid4()), mod_time=now_ns(),
@@ -79,7 +88,7 @@ class MultipartOps:
                       "__versioned": "1" if opts.versioned else "0",
                       "__bucket": bucket, "__object": object_name},
             erasure=ErasureInfo(
-                data_blocks=self.data_blocks, parity_blocks=self.parity,
+                data_blocks=k, parity_blocks=m,
                 block_size=self.block_size, distribution=distribution))
         from .erasure_object import _disk_fileinfo
 
@@ -89,7 +98,7 @@ class MultipartOps:
 
         shuffled = meta.shuffle_disks(self.disks, distribution)
         _, errs = self._fanout(init_one, _indexed(shuffled))
-        self._reduce_quorum(errs, self._set_write_quorum())
+        self._reduce_quorum(errs, self._fi_write_quorum(fi))
         return upload_id
 
     def _mp_fileinfo(self, bucket: str, object_name: str,
@@ -108,19 +117,14 @@ class MultipartOps:
                         part_number: int, data,
                         content_md5: Optional[str] = None) -> PartInfo:
         """PutObjectPart (cmd/erasure-multipart.go:342) from bytes or a
-        reader with ``.read(n)``, one stream batch at a time.
-        ``content_md5`` (hex): the part must hash to it (BadDigest
-        otherwise, and nothing is promoted)."""
+        reader with ``.read(n)``, one stream batch at a time, in the
+        upload's geometry.  ``content_md5`` (hex): the part must hash to
+        it (BadDigest otherwise, and nothing is promoted)."""
         if not 1 <= part_number <= MAX_PARTS:
             raise InvalidPart(f"part number {part_number}")
         self._check_bucket(bucket)
         fi = self._mp_fileinfo(bucket, object_name, upload_id)
         ec = fi.erasure
-        if (ec.data_blocks, ec.parity_blocks, ec.block_size) != \
-                (self.data_blocks, self.parity, self.block_size):
-            raise ValueError(
-                f"upload {upload_id}: geometry {ec.data_blocks}+"
-                f"{ec.parity_blocks}/{ec.block_size} is not the set's")
         mp = _mp_dir(bucket, object_name, upload_id)
         from .erasure_object import _read_full
         batch = self._batch_bytes()
@@ -143,7 +147,8 @@ class MultipartOps:
         staging = f"{mp}/part.{part_number}.in.{uuid.uuid4().hex[:8]}"
         run = (self._put_part_pipelined if self._pipeline_on()
                else self._put_part_serial)
-        etag, size = run(chunks, shuffled, staging, content_md5)
+        etag, size = run(chunks, shuffled, staging, content_md5,
+                         self._fi_codec(fi), self._fi_write_quorum(fi))
         return PartInfo(part_number, etag, size, size, now_ns())
 
     def _promote(self, mp_part: str, staging: str, etag: str, size: int):
@@ -162,12 +167,12 @@ class MultipartOps:
                             f"is {etag}")
 
     def _put_part_pipelined(self, chunks, shuffled: list, staging: str,
-                            content_md5: Optional[str]) -> tuple[str, int]:
+                            content_md5: Optional[str], codec,
+                            wq: int) -> tuple[str, int]:
         """The part on the writer plane: the streaming PUT's pump
         (chained MD5, encode into a pooled buffer, the drives' queues),
         then the promote on every drive that kept up."""
         n = len(shuffled)
-        wq = self._set_write_quorum()
         started = [False] * n
         md5 = hashlib.md5()
         stats = {"md5_s": 0.0, "encode_s": 0.0, "body_wait_s": 0.0}
@@ -185,7 +190,7 @@ class MultipartOps:
                 return write_batch
 
             size, _ = self._pump_put_pipeline(chunks, sw, md5, stats,
-                                              write_batch_for, wq)
+                                              write_batch_for, wq, codec)
             etag = md5.hexdigest()
             self._check_md5(etag, content_md5)
             t0 = time.perf_counter()
@@ -219,11 +224,11 @@ class MultipartOps:
                         idx, lambda d=disk: _delete_quietly(d, staging))
 
     def _put_part_serial(self, chunks, shuffled: list, staging: str,
-                         content_md5: Optional[str]) -> tuple[str, int]:
+                         content_md5: Optional[str], codec,
+                         wq: int) -> tuple[str, int]:
         """One fan-out round per batch, then the promote (the single-core
         path: the same bytes on the drives)."""
         n = len(shuffled)
-        wq = self._set_write_quorum()
         errs: list[Optional[Exception]] = [None] * n
         started = [False] * n
         md5 = hashlib.md5()
@@ -233,7 +238,7 @@ class MultipartOps:
             for chunk in chunks:
                 md5.update(chunk)
                 size += len(chunk)
-                framed, release = self._encode_framed_pooled(chunk)
+                framed, release = self._encode_framed_pooled(chunk, codec)
 
                 def write_batch(item, framed=framed):
                     idx, disk = item
@@ -434,7 +439,7 @@ class MultipartOps:
         lk.lock(write=True)
         try:
             _, errs = self._fanout(commit_one, _indexed(shuffled))
-            self._reduce_quorum(errs, self._set_write_quorum())
+            self._reduce_quorum(errs, self._fi_write_quorum(fi))
         finally:
             lk.unlock()
         fi.is_latest = True

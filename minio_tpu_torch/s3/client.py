@@ -9,7 +9,8 @@ SigV2 header-signed requests and presigned URLs; POST-policy uploads;
 CopyObject and UploadPartCopy; object and bucket tagging; object lock
 (lock-enabled buckets, their default retention, a version's retention
 and legal hold, and a delete that bypasses governance retention).
-``send`` takes any request signed by ``sigv4`` or ``sigv2``.
+``send`` takes any request signed by ``sigv4`` or ``sigv2``; an
+``https://`` endpoint is reached with ``ssl_context`` (SSE-C needs it).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import email.utils
 import hashlib
 import http.client
 import json
+import ssl
 import time
 import urllib.parse
 import uuid
@@ -61,6 +63,7 @@ class S3Client:
     region: str = "us-east-1"
     timeout: float = 600.0
     session_token: str = ""             # an STS session's
+    ssl_context: ssl.SSLContext | None = None   # an https endpoint's
 
     @property
     def _creds(self) -> Credentials:
@@ -76,8 +79,13 @@ class S3Client:
         """Send a request as given (already signed, presigned or
         anonymous); raise S3ClientError for a status not in ``expect``."""
         u = urllib.parse.urlsplit(url)
-        conn = http.client.HTTPConnection(u.hostname, u.port,
-                                          timeout=self.timeout)
+        if u.scheme == "https":
+            conn = http.client.HTTPSConnection(u.hostname, u.port,
+                                               timeout=self.timeout,
+                                               context=self.ssl_context)
+        else:
+            conn = http.client.HTTPConnection(u.hostname, u.port,
+                                              timeout=self.timeout)
         try:
             try:
                 conn.request(method,
@@ -182,8 +190,9 @@ class S3Client:
     def get_object(self, bucket: str, key: str,
                    byte_range: tuple[int, int] | None = None,
                    version_id: str | None = None,
-                   expect=(200, 206)) -> S3Response:
-        hdrs = {}
+                   expect=(200, 206),
+                   headers: dict | None = None) -> S3Response:
+        hdrs = dict(headers or {})
         if byte_range:
             hdrs["Range"] = f"bytes={byte_range[0]}-{byte_range[1]}"
         return self.request("GET", f"/{bucket}/{key}", _vid(version_id),
@@ -404,22 +413,27 @@ class S3Client:
 
     # -- multipart ---------------------------------------------------------
 
-    def create_multipart_upload(self, bucket: str, key: str) -> str:
-        r = self.request("POST", f"/{bucket}/{key}", "uploads")
+    def create_multipart_upload(self, bucket: str, key: str,
+                                headers: dict | None = None) -> str:
+        r = self.request("POST", f"/{bucket}/{key}", "uploads",
+                         headers=headers)
         return r.xml().findtext(f"{S3_NS}UploadId")
 
     def upload_part(self, bucket: str, key: str, upload_id: str,
                     part_number: int, data: bytes, chunked: bool = True,
-                    chunk_size: int = 64 * 1024) -> str:
-        """One part, aws-chunked with Content-MD5 (or header-signed);
-        returns its ETag."""
+                    chunk_size: int = 64 * 1024,
+                    headers: dict | None = None) -> str:
+        """One part, aws-chunked with Content-MD5 (or header-signed),
+        with ``headers`` (an SSE-C key, say); returns its ETag."""
         query = f"partNumber={part_number}&uploadId={upload_id}"
         if not chunked:
-            r = self.request("PUT", f"/{bucket}/{key}", query, data)
+            r = self.request("PUT", f"/{bucket}/{key}", query, data,
+                             headers=headers)
         else:
             url = self._url(f"/{bucket}/{key}", query)
             hdrs, body = sign_request_streaming(
                 self._creds, "PUT", url, self._token({
+                    **(headers or {}),
                     "Content-MD5": base64.b64encode(
                         hashlib.md5(data).digest()).decode()}),
                 data, chunk_size, self.region)

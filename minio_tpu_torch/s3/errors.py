@@ -104,6 +104,13 @@ _ERRORS = {e.code: e for e in (
              "configuration does not exist for this bucket", 404),
     APIError("ObjectLocked", "Object is WORM protected and cannot be "
              "overwritten or deleted", 400),
+    # storage classes, SSE and the bucket's default encryption
+    APIError("InvalidStorageClass", "The storage class you specified is "
+             "not valid", 400),
+    APIError("InvalidEncryptionAlgorithmError", "The Encryption request "
+             "you specified is not valid. Supported value: AES256.", 400),
+    APIError("ServerSideEncryptionConfigurationNotFoundError",
+             "The server side encryption configuration was not found", 404),
 )}
 # codes the reference answers under another code's name
 _ERRORS["InvalidCopySource"] = APIError(
@@ -114,6 +121,16 @@ _ERRORS["InvalidCopyDest"] = APIError(
     "to copy an object to itself without changing the object's metadata, "
     "storage class, website redirect location or encryption attributes.",
     400)
+_ERRORS["SSECustomerKeyMD5Mismatch"] = APIError(
+    "InvalidArgument", "The calculated MD5 hash of the key did not match "
+    "the hash that was provided.", 400)
+_ERRORS["SSEEncryptedObject"] = APIError(
+    "InvalidRequest", "The object was stored using a form of Server Side "
+    "Encryption. The correct parameters must be provided to retrieve the "
+    "object.", 400)
+_ERRORS["InsecureSSECustomerRequest"] = APIError(
+    "InvalidRequest", "Requests specifying Server Side Encryption with "
+    "Customer provided keys must be made over a secure connection.", 400)
 _ERRORS["AdminBucketQuotaExceeded"] = APIError(
     "XMinioAdminBucketQuotaExceeded",
     "Bucket quota may be exceeded with this request.", 403)

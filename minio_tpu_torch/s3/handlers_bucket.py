@@ -9,7 +9,11 @@ and ``?tagging`` (``bucket/tags.py``), PUT and GET ``?object-lock``
 ``?quota`` (``bucket/quota.py``), ListObjects V1 and V2,
 ListObjectVersions (``?versions``), ListMultipartUploads (``?uploads``),
 DeleteObjects, with version ids and each locked version refused, and
-the browser POST-policy upload.  Each authorises the reference's S3
+the browser POST-policy upload.  PUT, GET and DELETE ``?encryption``
+keep the bucket's default encryption (``bucket/encryption.py``).  A
+listing gives each object's plain size (``_actual_size``) and its
+storage class (``x-amz-storage-class``, STANDARD when it has none; the
+reference's ListObjectVersions says STANDARD for every version).  Each authorises the reference's S3
 action on the bucket (on ``bucket/key`` for a key) before it touches
 the layer.  ``_make_handler`` (server.py) attaches them to the request
 handler; ``self`` is the handler and ``self.srv`` its server.
@@ -21,22 +25,25 @@ import urllib.parse
 import xml.etree.ElementTree as ET
 
 from ..bucket import tags as btags
+from ..bucket.encryption import SSEConfig
 from ..bucket.lifecycle import Lifecycle
 from ..bucket.objectlock import LockConfig
 from ..bucket.policy import BucketPolicy
 from ..bucket.quota import Quota
+from ..crypto import sse as csse
 from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer import metacache
 from ..objectlayer.interface import PutObjectOptions
 from . import errors as s3err
 from . import postpolicy, sigv4
-from .server import MAX_PUT_SIZE, S3_NS, S3Error, _iso_date, _try, _xml
+from .server import (MAX_PUT_SIZE, S3_NS, S3Error, _actual_size, _iso_date,
+                     _try, _xml)
 
 # bucket subresources the port does not serve (the other configs, ACLs,
-# event listening: ROADMAP Queue 1 items 16.3, 16.5, 16.8)
+# event listening: ROADMAP Queue 1 items 16.5, 16.8)
 UNSERVED = frozenset((
-    "encryption", "replication", "notification", "acl", "cors", "website",
+    "replication", "notification", "acl", "cors", "website",
     "accelerate", "requestPayment", "logging", "events"))
 
 
@@ -135,13 +142,19 @@ CONFIGS = {
                 lambda body, b: btags.to_xml(btags.parse_xml(
                     body, is_object=False)),
                 "MalformedXML", "NoSuchTagSet", "application/xml"),
+    "encryption": (iampol.GET_BUCKET_ENCRYPTION, iampol.PUT_BUCKET_ENCRYPTION,
+                   lambda body, b: SSEConfig.parse(body).to_xml(),
+                   "MalformedXML",
+                   "ServerSideEncryptionConfigurationNotFoundError",
+                   "application/xml"),
 }
 
 
 def _bucket_config(self, bucket, name, payload):
     """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go),
-    ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go) and ``?tagging``
-    (cmd/bucket-handlers.go PutBucketTaggingHandler): authorised before
+    ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go), ``?tagging``
+    (cmd/bucket-handlers.go PutBucketTaggingHandler) and ``?encryption``
+    (cmd/bucket-encryption-handlers.go): authorised before
     the bucket's existence is checked, so a caller cannot tell a missing
     bucket from a refused one.  The stored document is the parsed one
     written back."""
@@ -255,13 +268,15 @@ def _post_policy_upload(self, bucket, payload):
             raise S3Error("InvalidTag") from e
     user_defined.update(self._lock_headers(bucket, key))
     self._check_quota(bucket, len(file_data))
+    file_data = self._transform_for_put(bucket, key, user_defined, file_data)
     oi = self.srv.layer.put_object(
         bucket, key, file_data, PutObjectOptions(
             user_defined=user_defined,
-            versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+            versioned=self.srv.bucket_meta.versioning_enabled(bucket),
+            parity=self._storage_class_parity(user_defined)))
     self._charge_quota_usage(bucket, oi.size)
     self.srv.mark_changed(bucket, oi)
-    hdrs = {"ETag": f'"{oi.etag}"'}
+    hdrs = {"ETag": f'"{oi.etag}"', **csse.response_headers(user_defined)}
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
     hdrs["Location"] = f"/{bucket}/{urllib.parse.quote(key)}"
@@ -350,7 +365,7 @@ def _list_object_versions(self, bucket, query):
         ET.SubElement(v, "LastModified").text = _iso_date(o.mod_time)
         if not o.delete_marker:
             ET.SubElement(v, "ETag").text = f'"{o.etag}"'
-            ET.SubElement(v, "Size").text = str(o.size)
+            ET.SubElement(v, "Size").text = str(_actual_size(o))
             ET.SubElement(v, "StorageClass").text = "STANDARD"
     self._send(200, _xml(root))
 
@@ -434,8 +449,9 @@ def _list_objects(self, bucket, query):
         ET.SubElement(c, "Key").text = esc(o.name)
         ET.SubElement(c, "LastModified").text = _iso_date(o.mod_time)
         ET.SubElement(c, "ETag").text = f'"{o.etag}"'
-        ET.SubElement(c, "Size").text = str(o.size)
-        ET.SubElement(c, "StorageClass").text = "STANDARD"
+        ET.SubElement(c, "Size").text = str(_actual_size(o))
+        ET.SubElement(c, "StorageClass").text = o.user_defined.get(
+            "x-amz-storage-class", "STANDARD")
         if fetch_owner:
             owner = ET.SubElement(c, "Owner")
             ET.SubElement(owner, "ID").text = "minio-tpu"

@@ -27,6 +27,23 @@ bucket's versioning and lock configuration come from
 ``self.srv.bucket_meta``.  ``_make_handler`` (server.py) attaches these
 functions to the request handler; ``self`` is the handler and
 ``self.srv`` its server.
+
+A write's ``x-amz-storage-class`` picks its parity through the
+``storage_class`` subsystem (``_storage_class_parity``; a class other
+than STANDARD is recorded and answered on GET and HEAD).  A PUT's body
+is compressed when the ``compression`` subsystem says so, then encrypted
+when the request or the bucket's default asks for SSE, in the
+reference's order (``_transform_for_put``); such a PUT takes the
+buffered route.  A multipart upload's parts are each one DARE stream
+under the upload's key (``_encrypt_part``).  A GET of a transformed
+object streams its plain bytes one batch at a time
+(``_fetch_plain_chunks``): a range of an encrypted object decrypts only
+the DARE packages that cover it, read in one pass over the stored
+bytes; a compressed one decodes from its start.  HEAD answers the plain
+size, and an object transitioned to a tier answers InvalidObjectState
+to GET and its archived size to HEAD.  A copy decodes its source the
+same way, with the ``x-amz-copy-source-server-side-encryption-customer-*``
+key, and encodes for its destination.
 """
 
 from __future__ import annotations
@@ -38,30 +55,36 @@ import hashlib
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from .. import compress as mtc
 from ..admin import metrics as _metrics
 from ..bucket import objectlock as olock
 from ..bucket import tags as btags
+from ..bucket.encryption import SSEConfig
 from ..bucket.quota import Quota
+from ..crypto import dare
+from ..crypto import sse as csse
 from ..iam import policy as iampol
 from ..objectlayer import interface as ol
+from ..objectlayer import tiering
 from ..objectlayer.interface import ObjectOptions, PutObjectOptions
+from ..utils.kvconfig import parse_storage_class
 from ..utils.memgov import GOVERNOR
 from . import errors as s3err
 from . import sigv2, sigv4
 from .server import (MAX_PUT_SIZE, RESERVED_BUCKETS, S3_NS,
-                     STREAM_PUT_THRESHOLD, S3Error, _BUCKET_RE, _BodyReader,
-                     _http_date, _iso_date, _parse_range, _try, _xml)
+                     STREAM_PUT_THRESHOLD, S3Error, _actual_size, _BUCKET_RE,
+                     _BodyReader, _http_date, _iso_date, _parse_range, _try,
+                     _xml)
 
 # object subresources the port does not serve: ACLs, select (ROADMAP
 # Queue 1 item 16.9) and restore (item 16.6)
 UNSERVED = frozenset(("acl", "select", "restore"))
 # subresources answered on the buffered route only
 SUBRESOURCES = UNSERVED | {"tagging", "retention", "legal-hold"}
-# what a source stored by another transform carries: SSE's sealed key,
-# compression, a transition to a tier (ROADMAP Queue 1 items 16.3, 16.6)
-TRANSFORMED = ("x-minio-internal-server-side-encryption-sealed-key",
-               "x-minio-internal-compression")
-TRANSITION_STATUS = "x-minio-internal-transition-status"
+STORAGE_CLASS = "x-amz-storage-class"
+# plain bytes decrypted per step of a transformed GET or copy: a whole
+# number of DARE packages
+DECRYPT_BLOCK = 64 * dare.MAX_PAYLOAD
 PRECONDITIONS = ("If-Match", "If-None-Match", "If-Modified-Since",
                  "If-Unmodified-Since")
 
@@ -121,11 +144,7 @@ def _version_id(query) -> str | None:
 
 
 def _user_defined(self) -> dict[str, str]:
-    """Content-Type and x-amz-meta-* headers, as stored with the object.
-    A storage class other than STANDARD is not served."""
-    if self.headers.get("x-amz-storage-class", "STANDARD").upper() \
-            != "STANDARD":
-        raise S3Error("NotImplemented")
+    """Content-Type and x-amz-meta-* headers, as stored with the object."""
     user_defined = {}
     ct = self.headers.get("Content-Type")
     if ct:
@@ -326,7 +345,8 @@ def _content_md5(self) -> bytes | None:
 
 
 def _put_object(self, bucket, key, payload):
-    """PutObject with the body in hand (cmd/object-handlers.go:1488)."""
+    """PutObject with the body in hand (cmd/object-handlers.go:1488):
+    compressed and encrypted as asked, with its storage class's parity."""
     if "Content-Length" not in self.headers:
         raise S3Error("MissingContentLength")
     want = self._content_md5()
@@ -334,14 +354,131 @@ def _put_object(self, bucket, key, payload):
         raise S3Error("BadDigest")
     user_defined = self._new_object_meta(bucket, key)
     self._check_quota(bucket, len(payload))
-    oi = self.srv.layer.put_object(
-        bucket, key, payload,
-        PutObjectOptions(user_defined=user_defined,
-                         versioned=self.srv.bucket_meta.versioning_enabled(
-                             bucket)))
+    payload = self._transform_for_put(bucket, key, user_defined, payload)
+    oi = self.srv.layer.put_object(bucket, key, payload, PutObjectOptions(
+        user_defined=user_defined,
+        versioned=self.srv.bucket_meta.versioning_enabled(bucket),
+        parity=self._storage_class_parity(user_defined)))
     self._charge_quota_usage(bucket, oi.size)
     self.srv.mark_changed(bucket, oi)
-    self._send(200, headers=_put_headers(oi))
+    self._send(200, headers=_put_headers(oi, user_defined))
+
+
+# -- storage classes, SSE and compression of a write
+# -- (cmd/encryption-v1.go EncryptRequest, newS2CompressReader) -----------
+
+def _set_drive_count(layer) -> int:
+    """Drives per erasure set, whatever the layer's shape: a storage
+    class's parity is bounded by the set's size."""
+    n = getattr(layer, "set_drive_count", 0)
+    if n:
+        return n
+    pools = getattr(layer, "pools", None)
+    if pools:
+        return pools[0].set_drive_count
+    return len(getattr(layer, "disks", []) or [])
+
+
+def _storage_class_parity(self, user_defined: dict) -> int | None:
+    """The write's parity from ``x-amz-storage-class`` and the
+    ``storage_class`` subsystem (cmd/erasure-object.go:631): None for
+    the set's default.  REDUCED_REDUNDANCY is recorded in
+    ``user_defined`` (STANDARD is not, as on AWS); another class, or a
+    class configured out of range, is InvalidStorageClass.  A bad
+    ``standard`` value fails no request that named no class."""
+    sc = self.headers.get(STORAGE_CLASS, "").upper()
+    explicit = sc not in ("", "STANDARD")
+    if not explicit:
+        value = self.srv.config.get("storage_class", "standard")
+    elif sc == "REDUCED_REDUNDANCY":
+        value = self.srv.config.get("storage_class", "rrs")
+    else:
+        raise S3Error("InvalidStorageClass")
+    n = _set_drive_count(self.srv.layer)
+    if not value or not n:
+        return None
+    try:
+        parity = parse_storage_class(value, n)
+    except ValueError as e:
+        if explicit:
+            raise S3Error("InvalidStorageClass") from e
+        return None
+    if explicit:
+        user_defined[STORAGE_CLASS] = sc
+    return parity
+
+
+def _bucket_sse_algo(self, bucket: str) -> str:
+    """The bucket's default encryption algorithm, "" without one."""
+    raw = self.srv.bucket_meta.get_config(bucket, "encryption")
+    if not raw:
+        return ""
+    try:
+        return SSEConfig.parse(raw.encode()).algorithm
+    except ValueError:
+        return ""
+
+
+def _sse_for_put(self, bucket: str, key: str, user_defined: dict):
+    """The object's encryption when the request (or the bucket's
+    default) asks for SSE, its sealed key added to ``user_defined``;
+    else None."""
+    kind = csse.requested_sse(self.headers, self._bucket_sse_algo(bucket))
+    if not kind:
+        return None
+    enc = csse.ObjectEncryption.new(kind, bucket, key, self.headers,
+                                    self.srv.kms)
+    user_defined.update(enc.meta)
+    return enc
+
+
+def _compression_eligible(self, key: str, size: int,
+                          content_type: str | None = None) -> bool:
+    """Whether the ``compression`` subsystem stores a body of ``size``
+    bytes under ``key`` compressed (``content_type``: the request's
+    Content-Type by default)."""
+    cfg = self.srv.config
+    if cfg.get("compression", "enable") != "on":
+        return False
+    if content_type is None:
+        content_type = self.headers.get("Content-Type", "")
+    exts = [e for e in cfg.get("compression", "extensions").split(",") if e]
+    types = [t for t in cfg.get("compression", "mime_types").split(",")
+             if t]
+    return mtc.is_compressible(key, content_type, size, exts, types)
+
+
+def _compress_for_put(self, key: str, user_defined: dict,
+                      payload: bytes) -> bytes:
+    """The body compressed when the ``compression`` subsystem takes it,
+    with the marker and the plain size in ``user_defined``."""
+    if not self._compression_eligible(
+            key, len(payload), user_defined.get("content-type", "")):
+        return payload
+    user_defined[mtc.META_COMPRESSION] = mtc.COMPRESSION_ALGO
+    user_defined[csse.META_ACTUAL_SIZE] = str(len(payload))
+    return mtc.compress_stream(payload)
+
+
+def _transform_for_put(self, bucket, key, user_defined: dict,
+                       payload) -> bytes:
+    """Compressed, then encrypted: the bytes a PUT stores."""
+    payload = self._compress_for_put(key, user_defined, payload)
+    enc = self._sse_for_put(bucket, key, user_defined)
+    return payload if enc is None else enc.encrypt(bytes(payload))
+
+
+def _encrypt_part(self, bucket, key, uid, payload) -> tuple[bytes, dict]:
+    """A part of an encrypted upload as its own DARE stream under the
+    upload's key (an SSE-C upload needs the key headers on every part),
+    and the SSE headers of the answer; a plain upload's part as it is."""
+    mp = self.srv.layer.get_multipart_info(bucket, key, uid)
+    if not csse.is_encrypted(mp.user_defined):
+        return payload, {}
+    enc = csse.ObjectEncryption.open(mp.user_defined, bucket, key,
+                                     self.headers, self.srv.kms)
+    return enc.encrypt(bytes(payload)), csse.response_headers(
+        mp.user_defined)
 
 
 def _check_quota(self, bucket: str, nbytes: int) -> None:
@@ -362,25 +499,30 @@ def _charge_quota_usage(self, bucket: str, nbytes: int) -> None:
     self.srv.usage.add_pending(bucket, nbytes)
 
 
-def _put_headers(oi) -> dict:
+def _put_headers(oi, user_defined: dict | None = None) -> dict:
     hdrs = {"ETag": f'"{oi.etag}"'}
+    hdrs.update(csse.response_headers(user_defined or {}))
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
     return hdrs
 
 
 def _create_multipart(self, bucket, key):
-    """CreateMultipartUpload (cmd/object-multipart-handlers.go)."""
+    """CreateMultipartUpload (cmd/object-multipart-handlers.go): the
+    upload's key sealed when it is SSE, its parity from its storage
+    class."""
     user_defined = self._new_object_meta(bucket, key)
+    self._sse_for_put(bucket, key, user_defined)
     uid = self.srv.layer.new_multipart_upload(
         bucket, key, PutObjectOptions(
             user_defined=user_defined,
-            versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+            versioned=self.srv.bucket_meta.versioning_enabled(bucket),
+            parity=self._storage_class_parity(user_defined)))
     root = ET.Element("InitiateMultipartUploadResult", xmlns=S3_NS)
     ET.SubElement(root, "Bucket").text = bucket
     ET.SubElement(root, "Key").text = key
     ET.SubElement(root, "UploadId").text = uid
-    self._send(200, _xml(root))
+    self._send(200, _xml(root), headers=csse.response_headers(user_defined))
 
 
 def _part_number(query) -> int:
@@ -391,16 +533,22 @@ def _part_number(query) -> int:
 
 
 def _upload_part(self, bucket, key, query, payload):
-    """UploadPart with the body in hand."""
+    """UploadPart with the body in hand; encrypted when the upload is
+    (its Content-MD5 is then the plain body's)."""
     uid = query["uploadId"][0]
     part_num = _part_number(query)
     want = self._content_md5()
     self._check_quota(bucket, len(payload))
+    stored, sse_hdrs = self._encrypt_part(bucket, key, uid, payload)
+    if stored is not payload:
+        if want is not None and hashlib.md5(payload).digest() != want:
+            raise S3Error("BadDigest")
+        want = None
     pi = self.srv.layer.put_object_part(
-        bucket, key, uid, part_num, payload,
+        bucket, key, uid, part_num, stored,
         content_md5=want.hex() if want is not None else None)
     self._charge_quota_usage(bucket, pi.size)
-    self._send(200, headers={"ETag": f'"{pi.etag}"'})
+    self._send(200, headers={"ETag": f'"{pi.etag}"', **sse_hdrs})
 
 
 def _complete_multipart(self, bucket, key, query, payload):
@@ -498,19 +646,19 @@ def _parse_copy_source(self) -> tuple[str, str, str | None]:
 
 
 def _copy_source(self):
-    """(bucket, key, version id, info) of the copy source, authorised
-    for GetObject, its ``x-amz-copy-source-if-match`` and
+    """(bucket, key, version id, info, opened key) of the copy source,
+    authorised for GetObject, its ``x-amz-copy-source-if-match`` and
     ``-if-none-match`` judged on its metadata before any data is read.
-    A source another transform stored (SSE, compression, a tier) is
-    NotImplemented: the port cannot read it; a delete marker is
+    An encrypted source is opened (an SSE-C one with the
+    ``x-amz-copy-source-server-side-encryption-customer-*`` key); the
+    key is None for a plain one.  A source transitioned to a tier is
+    NotImplemented (ROADMAP Queue 3 record 39); a delete marker is
     MethodNotAllowed."""
     sbucket, skey, svid = self._parse_copy_source()
     self._allow(iampol.GET_OBJECT, f"{sbucket}/{skey}")
     soi = self.srv.layer.get_object_info(sbucket, skey,
                                          ObjectOptions(version_id=svid))
-    ud = soi.user_defined
-    if any(k in ud for k in TRANSFORMED) or \
-            ud.get(TRANSITION_STATUS) == "complete":
+    if tiering.is_transitioned(soi.user_defined):
         raise S3Error("NotImplemented")
     if_match = self.headers.get("x-amz-copy-source-if-match")
     if_none = self.headers.get("x-amz-copy-source-if-none-match")
@@ -520,7 +668,12 @@ def _copy_source(self):
         raise S3Error("PreconditionFailed")
     if soi.delete_marker:
         raise ol.MethodNotAllowed(f"{sbucket}/{skey} is a delete marker")
-    return sbucket, skey, svid, soi
+    enc = None
+    if csse.is_encrypted(soi.user_defined):
+        enc = csse.ObjectEncryption.open(soi.user_defined, sbucket, skey,
+                                         self.headers, self.srv.kms,
+                                         copy_source=True)
+    return sbucket, skey, svid, soi, enc
 
 
 class _ChunkReader:
@@ -533,27 +686,33 @@ class _ChunkReader:
         self._buf = memoryview(b"")
 
     def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            rest = [self._buf.tobytes(), *self._it]
+            self._buf = memoryview(b"")
+            return b"".join(rest)
         while not self._buf:
             try:
                 self._buf = memoryview(next(self._it))
             except StopIteration:
                 return b""
-        n = len(self._buf) if n < 0 else n
         out, self._buf = self._buf[:n], self._buf[n:]
         return out.tobytes()
 
     def close(self) -> None:
-        close = getattr(self._chunks, "close", None)
-        if close is not None:
-            close()
+        _close(self._chunks)
 
 
-def _source_body(self, sbucket, skey, soi, offset, length) -> _ChunkReader:
-    """The bytes [offset, offset + length) of the source version ``soi``
-    (the one whose conditions were judged), streamed one batch at a time
+def _source_body(self, sbucket, skey, soi, enc, offset, length
+                 ) -> _ChunkReader:
+    """The plain bytes [offset, offset + length) of the source version
+    ``soi`` (the one whose conditions were judged), decrypted and
+    decompressed when it is stored so, streamed one batch at a time
     without the source's read lock (``no_lock``), so a copy onto its own
     name, or two copies in opposite directions, never wait on the PUT's
     write lock."""
+    if _transformed(soi.user_defined):
+        return _ChunkReader(self._fetch_plain_chunks(
+            sbucket, skey, soi, enc, offset, length, no_lock=True))
     _, chunks = self.srv.layer.get_object_reader(
         sbucket, skey, offset, length,
         ObjectOptions(version_id=soi.version_id or "", no_lock=True))
@@ -563,10 +722,14 @@ def _source_body(self, sbucket, skey, soi, offset, length) -> _ChunkReader:
 def _copy_object(self, bucket, key):
     """CopyObject: the source's metadata (Content-Type, x-amz-meta-*) and
     tags, or with the ``REPLACE`` directives the request's, then the
-    destination's lock headers or default retention.  A copy onto its
-    own name that changes nothing is InvalidCopyDest.  The quota is
-    checked against the source's size before any data is read."""
-    sbucket, skey, svid, soi = self._copy_source()
+    destination's lock headers or default retention.  The source's plain
+    bytes are stored as a PUT of them would be: compressed, encrypted
+    and with the parity of the request's storage class.  A copy onto its
+    own name that changes neither metadata nor encryption is
+    InvalidCopyDest.  The quota is checked before any data is read,
+    against the source's plain size (a destination to be compressed or
+    encrypted is read whole first, and checked at its stored size)."""
+    sbucket, skey, svid, soi, senc = self._copy_source()
     replace = self.headers.get("x-amz-metadata-directive", "COPY") \
         == "REPLACE"
     request_meta = self._user_defined()
@@ -578,15 +741,29 @@ def _copy_object(self, bucket, key):
     elif soi.user_defined.get(btags.TAG_KEY):
         user_defined[btags.TAG_KEY] = soi.user_defined[btags.TAG_KEY]
     user_defined.update(self._lock_headers(bucket, key))
+    size = _actual_size(soi)
+    sse = csse.requested_sse(self.headers, self._bucket_sse_algo(bucket))
     same_name = (sbucket, skey) == (bucket, key)
-    if same_name and svid is None and not replace:
+    if same_name and svid is None and not replace and not sse and \
+            senc is None:
         raise S3Error("InvalidCopyDest")
-    self._check_quota(bucket, soi.size)
-    body = self._source_body(sbucket, skey, soi, 0, -1)
+    versioned = self.srv.bucket_meta.versioning_enabled(bucket)
+    transform = bool(sse) or self._compression_eligible(
+        key, size, user_defined.get("content-type", ""))
+    if not transform:
+        self._check_quota(bucket, size)
+    body = self._source_body(sbucket, skey, soi, senc, 0, size)
     try:
-        oi = self.srv.layer.put_object(bucket, key, body, PutObjectOptions(
-            user_defined=user_defined,
-            versioned=self.srv.bucket_meta.versioning_enabled(bucket)))
+        data = body
+        if transform:
+            data = self._compress_for_put(key, user_defined, body.read())
+            enc = self._sse_for_put(bucket, key, user_defined)
+            self._check_quota(bucket, len(data))
+            if enc is not None:
+                data = enc.encrypt(data)
+        oi = self.srv.layer.put_object(bucket, key, data, PutObjectOptions(
+            user_defined=user_defined, versioned=versioned,
+            parity=self._storage_class_parity(user_defined)))
     finally:
         body.close()
     self._charge_quota_usage(bucket, oi.size)
@@ -594,7 +771,7 @@ def _copy_object(self, bucket, key):
     root = ET.Element("CopyObjectResult", xmlns=S3_NS)
     ET.SubElement(root, "ETag").text = f'"{oi.etag}"'
     ET.SubElement(root, "LastModified").text = _iso_date(oi.mod_time)
-    hdrs = {}
+    hdrs = csse.response_headers(user_defined)
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
     if svid is not None:
@@ -603,10 +780,11 @@ def _copy_object(self, bucket, key):
 
 
 def _upload_part_copy(self, bucket, key, query):
-    """UploadPartCopy: the source's bytes, or the
-    ``x-amz-copy-source-range`` of them, as one part.  The range is
-    judged against the source's size, and the quota and the upload
-    checked, before any data is read."""
+    """UploadPartCopy: the source's plain bytes, or the
+    ``x-amz-copy-source-range`` of them, as one part (encrypted under
+    the upload's key when the upload is).  The range is judged against
+    the source's plain size, and the quota and the upload checked,
+    before any data is read."""
     uid = query["uploadId"][0]
     part_num = _part_number(query)
     offset, length = 0, -1
@@ -615,17 +793,20 @@ def _upload_part_copy(self, bucket, key, query):
         offset, length = _parse_range(crng)
         if offset < 0:
             raise S3Error("InvalidRange")
-    sbucket, skey, svid, soi = self._copy_source()
-    size = soi.size
+    sbucket, skey, svid, soi, senc = self._copy_source()
+    size = _actual_size(soi)
     if offset > size or (size > 0 and offset == size):
         raise S3Error("InvalidRange")
     n = size - offset if length < 0 else min(length, size - offset)
     self._check_quota(bucket, n)
-    self.srv.layer.get_multipart_info(bucket, key, uid)
-    body = self._source_body(sbucket, skey, soi, offset, n)
+    mp = self.srv.layer.get_multipart_info(bucket, key, uid)
+    body = self._source_body(sbucket, skey, soi, senc, offset, n)
     try:
+        data = body
+        if csse.is_encrypted(mp.user_defined):
+            data, _ = self._encrypt_part(bucket, key, uid, body.read())
         pi = self.srv.layer.put_object_part(bucket, key, uid, part_num,
-                                            body)
+                                            data)
     finally:
         body.close()
     self._charge_quota_usage(bucket, pi.size)
@@ -640,7 +821,9 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
     ``STREAM_PUT_THRESHOLD`` down the streaming route.  True when the
     request was answered (success or error); False, with no body byte
     read, sends it down the buffered route (also a part of an unknown
-    upload, which the buffered route refuses)."""
+    upload, which the buffered route refuses).  A body that is to be
+    compressed or encrypted is read whole, as the reference reads it,
+    within ``max_body_size``."""
     if self.command != "PUT" or not bucket or not key:
         return False
     if bucket in RESERVED_BUCKETS or not _BUCKET_RE.match(bucket):
@@ -655,14 +838,24 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
         return False
     if "uploadId" in query:
         try:
-            self.srv.layer.get_multipart_info(bucket, key,
-                                              query["uploadId"][0])
+            mp = self.srv.layer.get_multipart_info(bucket, key,
+                                                   query["uploadId"][0])
         except Exception:  # noqa: BLE001 — answered on the buffered route
             return False
+        transforming = csse.is_encrypted(mp.user_defined)
+    else:
+        try:
+            transforming = bool(csse.requested_sse(
+                self.headers, self._bucket_sse_algo(bucket))) \
+                or self._compression_eligible(key, cl)
+        except csse.SSEError:
+            return False                # answered on the buffered route
+    if transforming and cl <= self.srv.max_body_size:
+        return False
     # committed to streaming: any failure is answered here and the
     # half-read connection dropped
     try:
-        if cl > MAX_PUT_SIZE:
+        if cl > MAX_PUT_SIZE or transforming:
             raise S3Error("EntityTooLarge")
         want_md5 = self._content_md5()
         reader = self._auth_stream(path, query, cl)
@@ -688,7 +881,8 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
                     user_defined=user_defined,
                     versioned=self.srv.bucket_meta.versioning_enabled(
                         bucket),
-                    content_md5=md5_hex))
+                    content_md5=md5_hex,
+                    parity=self._storage_class_parity(user_defined)))
             self._charge_quota_usage(bucket, oi.size)
             self.srv.mark_changed(bucket, oi)
             self._send(200, headers=_put_headers(oi))
@@ -755,8 +949,10 @@ def _get_object(self, bucket, key, query, head: bool):
     """GetObject and HeadObject (cmd/object-handlers.go:360), of the latest
     version or of ``versionId``: the preconditions are answered from
     metadata before any data is read, and a GET's body streams from the
-    layer's reader.  A delete marker answers 405 with
-    ``x-amz-delete-marker``."""
+    layer's reader, decoded when the object is encrypted or compressed
+    (ranges are in plain bytes; SSE-C needs its key).  A delete marker
+    answers 405 with ``x-amz-delete-marker``; a version transitioned to a
+    tier answers InvalidObjectState to GET, and HEAD its archived size."""
     layer = self.srv.layer
     opts = ObjectOptions(version_id=_version_id(query))
     oi = None
@@ -767,17 +963,21 @@ def _get_object(self, bucket, key, query, head: bool):
             oi = layer.get_object_info(bucket, key, opts)
             if not oi.delete_marker and self._preconditions_304(oi):
                 return self._send(304, b"", headers={
-                    "ETag": f'"{oi.etag}"',
+                    "ETag": f'"{_display_etag(oi)}"',
                     "Last-Modified": _http_date(oi.mod_time)},
                     content_length=0)
         offset, length = _parse_range(rng) if rng else (0, -1)
         if head or rng:
-            # metadata first: a delete marker's range is never read, and
-            # a HEAD's range is checked (InvalidRange) as the reference
-            # checks it
+            # metadata first: a delete marker's range is never read, a
+            # HEAD's range is checked (InvalidRange) as the reference
+            # checks it, and a transformed object's range is in plain
+            # bytes, not stored ones
             oi = oi if oi is not None else \
                 layer.get_object_info(bucket, key, opts)
-            if rng and not oi.delete_marker:
+            if rng and not head and _stubbed(oi.user_defined):
+                raise S3Error("InvalidObjectState")
+            if rng and not oi.delete_marker and \
+                    not _transformed(oi.user_defined):
                 oi, body = layer.get_object_reader(bucket, key, offset,
                                                    length, opts)
         else:
@@ -785,12 +985,55 @@ def _get_object(self, bucket, key, query, head: bool):
                                                opts)
         if not head and oi.delete_marker:
             raise ol.MethodNotAllowed(key)
+        ud = oi.user_defined
+        stubbed = _stubbed(ud)
+        if stubbed and not head:
+            raise S3Error("InvalidObjectState")
+        live = not oi.delete_marker and not stubbed
+        encrypted = live and csse.is_encrypted(ud)
+        compressed = live and mtc.META_COMPRESSION in ud
+        size = oi.size
+        enc = None
+        sse_hdrs: dict[str, str] = {}
+        if stubbed:
+            size = int(ud.get(tiering.META_SIZE, "0"))
+        if encrypted:
+            enc = csse.ObjectEncryption.open(ud, bucket, key, self.headers,
+                                             self.srv.kms)
+            sse_hdrs = csse.response_headers(ud)
+            if not compressed:
+                size = csse.decrypted_size(ud, oi.size, oi.parts)
+                if rng and offset >= size:
+                    raise S3Error("InvalidRange")
+        if compressed:
+            size = int(ud[csse.META_ACTUAL_SIZE])
+            if rng and not head and offset >= size:
+                raise S3Error("InvalidRange")
+        start = max(0, size + offset) if offset < 0 else offset
+        sent = size - start if length < 0 else min(length, size - start)
+        if not head and (encrypted or compressed):
+            body = self._fetch_plain_chunks(
+                bucket, key, oi, enc, start, sent,
+                stored=None if rng else body)
     except ol.MethodNotAllowed:
         return self._send(
             405, s3err.to_xml(s3err.get("MethodNotAllowed")),
             headers={"x-amz-delete-marker": "true"})
+    except BaseException:
+        _close(body)
+        raise
     hdrs = {"ETag": f'"{oi.etag}"', "Last-Modified": _http_date(oi.mod_time),
             "Accept-Ranges": "bytes"}
+    if tiering.is_transitioned(oi.user_defined):
+        hdrs["ETag"] = f'"{_display_etag(oi)}"'
+        hdrs[tiering.STORAGE_CLASS_HDR] = oi.user_defined.get(
+            tiering.STORAGE_CLASS_HDR, "")
+        restore = tiering.restore_header(oi.user_defined)
+        if restore:
+            hdrs[tiering.RESTORE_HDR] = restore
+    elif oi.user_defined.get(STORAGE_CLASS):
+        hdrs[STORAGE_CLASS] = oi.user_defined[STORAGE_CLASS]
+    hdrs.update(sse_hdrs)
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
     for k, v in oi.user_defined.items():
@@ -802,22 +1045,173 @@ def _get_object(self, bucket, key, query, head: bool):
             tag_hdr, keep_blank_values=True)))
     ct = oi.content_type or "binary/octet-stream"
     if head:
-        if body is not None:
-            body.close()
+        _close(body)
         if oi.delete_marker:
             dm_hdrs = {"x-amz-delete-marker": "true"}
             if oi.version_id:
                 dm_hdrs["x-amz-version-id"] = oi.version_id
             return self._send(405, b"", headers=dm_hdrs, content_length=0)
         return self._send(200, b"", content_type=ct, headers=hdrs,
-                          content_length=oi.size)
+                          content_length=size)
     if rng:
-        start = max(0, oi.size + offset) if offset < 0 else offset
-        sent = oi.size - start if length < 0 \
-            else min(length, oi.size - start)
-        hdrs["Content-Range"] = f"bytes {start}-{start + sent - 1}/{oi.size}"
+        hdrs["Content-Range"] = f"bytes {start}-{start + sent - 1}/{size}"
         return self._send_stream(206, body, sent, ct, hdrs)
-    return self._send_stream(200, body, oi.size, ct, hdrs)
+    return self._send_stream(200, body, size, ct, hdrs)
+
+
+def _close(it) -> None:
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
+def _stubbed(user_defined: dict) -> bool:
+    """A version whose data lives in a tier and has no valid restored
+    copy here."""
+    return tiering.is_transitioned(user_defined) and \
+        not tiering.restore_valid(user_defined)
+
+
+def _transformed(user_defined: dict) -> bool:
+    """Stored encrypted or compressed: its bytes are not the client's."""
+    return csse.is_encrypted(user_defined) or \
+        mtc.META_COMPRESSION in user_defined
+
+
+def _display_etag(oi) -> str:
+    """The ETag clients see: a transitioned stub's is the original's."""
+    if tiering.is_transitioned(oi.user_defined):
+        return oi.user_defined.get(tiering.META_ETAG, oi.etag)
+    return oi.etag
+
+
+class _SeqCipherReader:
+    """``read(offset, n)`` over one stream of an object's stored bytes
+    that starts at ``start``, for reads whose offsets do not go back
+    past the previous read's (a DARE package may be read twice where a
+    step ends inside it): one layer reader, one lock and one metadata
+    read for the whole walk.  An offset before that falls back to a
+    ranged read of the version (``fallback(offset, n)``)."""
+
+    def __init__(self, chunks, start: int, fallback):
+        self._chunks = chunks
+        self._it = iter(chunks)
+        self._buf = bytearray()
+        self._start = start                 # object offset of _buf[0]
+        self._fallback = fallback
+
+    def read(self, offset: int, n: int) -> bytes:
+        if offset < self._start:
+            return self._fallback(offset, n)
+        rel = offset - self._start
+        while len(self._buf) - rel < n:
+            piece = next(self._it, None)
+            if piece is None:
+                break
+            # the bytes before ``offset`` are never read again
+            drop = min(rel, len(self._buf))
+            del self._buf[:drop]
+            self._start += drop
+            rel -= drop
+            self._buf += piece
+        return bytes(self._buf[rel:rel + n])
+
+    def close(self) -> None:
+        _close(self._chunks)
+
+
+def _fetch_plain_chunks(self, bucket, key, oi, enc, offset: int,
+                        length: int, stored=None, no_lock: bool = False):
+    """The plain bytes [offset, offset + length) of version ``oi`` of a
+    transformed object, one step at a time (never the whole object).
+    An encrypted one (``enc``: its opened key) decrypts only the DARE
+    packages that cover what it needs, read in one pass from one layer
+    reader (``_SeqCipherReader``); a compressed one decodes its stream
+    from the start and skips to ``offset``.  ``stored``: a reader of the
+    whole stored object already open, used instead of a new one."""
+    layer = self.srv.layer
+    ud = oi.user_defined
+    opts = ObjectOptions(version_id=oi.version_id or "", no_lock=no_lock)
+    compressed = mtc.META_COMPRESSION in ud
+    if enc is None:
+        if stored is None:
+            _, stored = layer.get_object_reader(bucket, key, 0, -1, opts)
+        inner = stored
+    else:
+        lo, n = offset, length
+        if compressed:
+            lo, n = 0, csse.decrypted_size(ud, oi.size, oi.parts)
+        inner = self._decrypted_chunks(bucket, key, oi, enc, opts, lo, n,
+                                       stored)
+    if not compressed:
+        return inner
+    return _slice_chunks(mtc.decompress_chunks(inner), offset, length)
+
+
+def _decrypted_chunks(self, bucket, key, oi, enc, opts, offset: int,
+                      length: int, stored=None):
+    """Plain bytes [offset, offset + length) of an encrypted object's DARE
+    streams, ``DECRYPT_BLOCK`` at a time."""
+    ud = oi.user_defined
+    layer = self.srv.layer
+    if length <= 0:
+        _close(stored)
+        return iter(())
+    c0, c1 = csse.cipher_range(ud, oi.size, offset, length, oi.parts)
+    if stored is None:
+        _, stored = layer.get_object_reader(bucket, key, c0, c1 - c0, opts)
+    else:
+        c0 = 0                          # the whole object's reader
+    seq = _SeqCipherReader(stored, c0, lambda o, n: layer.get_object(
+        bucket, key, o, n, ObjectOptions(version_id=opts.version_id))[1])
+
+    def steps():
+        try:
+            off, end = offset, offset + length
+            while off < end:
+                n = min(DECRYPT_BLOCK - off % DECRYPT_BLOCK, end - off)
+                yield csse.decrypt_object_range(enc, ud, oi.size, seq.read,
+                                                off, n, oi.parts)
+                off += n
+        finally:
+            seq.close()
+    return _Closing(steps(), seq.close)
+
+
+def _slice_chunks(chunks, offset: int, length: int):
+    """The bytes [offset, offset + length) of a chunk stream."""
+    def cut():
+        pos, end = 0, offset + length
+        for c in chunks:
+            lo, hi = max(offset - pos, 0), min(end - pos, len(c))
+            pos += len(c)
+            if hi > lo:
+                yield c[lo:hi]
+            if pos >= end:
+                return
+    return _Closing(cut(), lambda: _close(chunks))
+
+
+class _Closing:
+    """An iterator whose ``close`` also closes what it reads from, even
+    when it was never advanced (a generator's ``finally`` would not run
+    then)."""
+
+    def __init__(self, it, close):
+        self._it = it
+        self._close = close
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._it)
+
+    def close(self) -> None:
+        try:
+            self._it.close()
+        finally:
+            self._close()
 
 
 def _preconditions_304(self, oi) -> bool:
@@ -867,4 +1261,8 @@ HANDLERS = ["_object_api", "_user_defined", "_new_object_meta",
             "_list_parts", "_delete_object", "_parse_copy_source",
             "_copy_source", "_source_body", "_copy_object",
             "_upload_part_copy", "_try_stream_put", "_auth_stream",
-            "_get_object", "_preconditions_304"]
+            "_get_object", "_preconditions_304", "_storage_class_parity",
+            "_bucket_sse_algo", "_sse_for_put", "_compression_eligible",
+            "_compress_for_put",
+            "_transform_for_put", "_encrypt_part", "_fetch_plain_chunks",
+            "_decrypted_chunks"]

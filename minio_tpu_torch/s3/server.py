@@ -14,11 +14,20 @@ layer's device.  A request is authorised before its body is read or
 encoded.  Multipart uploads, versioned buckets, CopyObject and
 UploadPartCopy, object and bucket tagging, object lock (retention, legal
 hold, a bucket's default retention), bucket policies (``?policy``),
-lifecycle and quota, POST-policy uploads and STS AssumeRole are served.
-What the port does not serve (SSE and compression, ACLs, the other
-bucket configs, select, restore, the LDAP and web-identity STS calls,
-the web UI, the admin routes of ``admin/handlers.py`` it lacks) answers
-the S3 ``NotImplemented`` error document.  The health probes are served:
+lifecycle and quota, POST-policy uploads and STS AssumeRole are served,
+and so are storage classes (``x-amz-storage-class``: the object's
+parity), SSE-C, SSE-S3 and SSE-KMS (``crypto/sse.py``, with a bucket's
+default encryption) and transparent compression (``compress/``); a
+listing and a HEAD give a transformed object's plain size
+(``_actual_size``).  ``kms`` is the key service of SSE-S3 and SSE-KMS
+(``crypto/kms.py``: KES, Vault or the local master key); ``tls``, when
+given or set in the ``tls`` subsystem, serves the front over TLS
+(``secure/certs.py``), and a request with SSE-C headers over plain HTTP
+is refused (InsecureSSECustomerRequest) before it is authenticated.
+What the port does not serve (ACLs, the other bucket configs, select,
+restore, the LDAP and web-identity STS calls, the web UI, the admin
+routes of ``admin/handlers.py`` it lacks) answers the S3
+``NotImplemented`` error document.  The health probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
@@ -78,6 +87,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from ..admin import handlers as admin_handlers
 from ..admin import metrics as _metrics
 from ..background.crawler import UsageCache
+from ..crypto import sse as csse
+from ..crypto.kms import kms_from_env
 from ..iam import sts as _sts
 from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
@@ -85,6 +96,7 @@ from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..objectlayer.metacache import leaf_layers_of, managers_of
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
+from ..secure.certs import CertManager, enable_server_tls
 from ..storage import commit as _commit
 from ..utils import memgov
 from ..utils.kvconfig import Config, parse_duration
@@ -98,9 +110,6 @@ STREAM_PUT_THRESHOLD = 8 * 1024 * 1024
 S3_NS = "http://s3.amazonaws.com/doc/2006-03-01/"
 STS_NS = "https://sts.amazonaws.com/doc/2011-06-15/"
 RESERVED_BUCKETS = ("minio-tpu", "minio")
-SSE_HEADERS = ("x-amz-server-side-encryption",
-               "x-amz-server-side-encryption-customer-algorithm",
-               "x-amz-copy-source-server-side-encryption-customer-algorithm")
 
 _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.\-]{1,61}[a-z0-9]$")
 
@@ -265,6 +274,24 @@ def _parse_range(spec: str) -> tuple[int, int]:
     return start, end - start + 1
 
 
+def _actual_size(oi) -> int:
+    """The size a client sees (GetActualSize, cmd/object-api-utils.go):
+    a compressed object's plain size, an encrypted one's DARE plaintext
+    size, else the stored size."""
+    raw = oi.user_defined.get(csse.META_ACTUAL_SIZE)
+    if raw:
+        try:
+            return int(raw)
+        except ValueError:
+            pass
+    if csse.is_encrypted(oi.user_defined):
+        try:
+            return csse.decrypted_size(oi.user_defined, oi.size, oi.parts)
+        except Exception:  # noqa: BLE001 — corrupt metadata: stored size
+            pass
+    return oi.size
+
+
 def _try(fn):
     """Run a document's parser; its ValueError answers the S3 error its
     ``code`` names, MalformedXML without one."""
@@ -282,18 +309,25 @@ class S3Server:
                  secret_key: str = "minioadmin", region: str = "us-east-1",
                  host: str = "127.0.0.1", port: int = 0,
                  max_body_size: int = 1024 ** 3,
-                 config: Config | None = None):
+                 config: Config | None = None,
+                 tls: CertManager | None = None):
         """``access_key``/``secret_key``: the root credential, which also
         seals config.json and iam.json.  ``config``: the live kvconfig
         (by default the layer's, read from and sealed onto its drives);
         its values reach the request plane, the layer, the commit plane
-        and the heal sweep through the ``reload_*`` hooks.  IAM is not
-        read from the drives until ``iam.load()``."""
+        and the heal sweep through the ``reload_*`` hooks.  ``tls``: the
+        front's certificates (by default from the ``tls`` subsystem;
+        None there serves plain HTTP).  IAM is not read from the drives
+        until ``iam.load()``; the key service is built here
+        (``kms_from_env``)."""
         self.layer = layer
         self.iam = IAMSys(layer, access_key, secret_key)
         self.config = config if config is not None else \
             Config(layer, secret=secret_key)
         self.bucket_meta = BucketMetadataSys(layer)
+        self.tls = tls if tls is not None else \
+            CertManager.from_config(self.config)
+        self.kms = kms_from_env(layer)
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
@@ -311,6 +345,8 @@ class S3Server:
         self.reload_api_config()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
+        if self.tls is not None:
+            enable_server_tls(self.httpd, self.tls)
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
         # the last-minute per-API windows (cmd/last-minute.go)
@@ -505,7 +541,8 @@ class S3Server:
 
     @property
     def endpoint(self) -> str:
-        return f"http://127.0.0.1:{self.port}"
+        scheme = "https" if self.tls is not None else "http"
+        return f"{scheme}://127.0.0.1:{self.port}"
 
 
 def _sever(conns) -> None:
@@ -570,6 +607,10 @@ def _make_handler(srv: S3Server):
             # make the socket non-blocking); the rfile wrapper adds each
             # body's absolute budget, armed in _dispatch
             self.timeout = srv.read_header_timeout_s or None
+            if srv.tls is not None:
+                # the handshake the accept loop deferred, in this thread
+                # and under the header deadline
+                srv.tls.handshake(self.request, self.timeout)
             super().setup()
             self.rfile = _DeadlineRFile(self.rfile, self.connection,
                                         self.timeout)
@@ -792,7 +833,7 @@ def _make_handler(srv: S3Server):
                              str(max(1, int(e.retry_after_s)))})
             if isinstance(e, S3Error):
                 api = e.api
-            elif isinstance(e, sigv4.SigV4Error):
+            elif isinstance(e, (sigv4.SigV4Error, csse.SSEError)):
                 api = s3err.get(e.code)
             elif isinstance(e, ol.ObjectLayerError):
                 api = s3err.from_object_error(e)
@@ -903,6 +944,13 @@ def _make_handler(srv: S3Server):
         def _dispatch_inner(self):
             path, bucket, key, query = self._split()
             try:
+                # SSE-C needs TLS, as on AWS: a client key sent in the
+                # clear is already leaked, so it is refused before
+                # anything reads it (ErrInsecureSSECustomerRequest)
+                if srv.tls is None and (
+                        csse.SSEC_ALGO in self.headers
+                        or csse.SSEC_COPY_ALGO in self.headers):
+                    raise S3Error("InsecureSSECustomerRequest")
                 if path.startswith(("/minio-tpu/health/",
                                     "/minio/health/")):
                     # unauthenticated probes (cmd/healthcheck-router.go)
@@ -915,8 +963,6 @@ def _make_handler(srv: S3Server):
                         raise S3Error("MethodNotAllowed")
                     return admin_handlers.handle(self, srv, path, query,
                                                  b"")
-                if any(h in self.headers for h in SSE_HEADERS):
-                    raise S3Error("NotImplemented")   # server-side encryption
                 if self._try_stream_put(path, bucket, key, query):
                     return
                 payload = self._body()

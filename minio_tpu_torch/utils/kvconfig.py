@@ -114,6 +114,30 @@ register_subsys("pipeline", {
     "depth": "2",
     "queue_depth": "2",
 })
+register_subsys("storage_class", {
+    # the parity of each S3 storage class (cmd/config/storageclass):
+    # ``standard`` for a PUT without x-amz-storage-class or with STANDARD
+    # (empty: the set's default parity), ``rrs`` for REDUCED_REDUNDANCY;
+    # as EC:<parity>, read on every write (s3/handlers_object.py)
+    "standard": "",
+    "rrs": "EC:2",
+})
+register_subsys("compression", {
+    # transparent compression (compress/, s3/handlers_object.py): off by
+    # default; when on, a PUT whose key ends in one of ``extensions`` or
+    # whose Content-Type starts with one of ``mime_types`` is stored
+    # compressed; read on every write
+    "enable": "off",
+    "extensions": ".txt,.log,.csv,.json,.tar,.xml,.bin",
+    "mime_types": "text/*,application/json,application/xml",
+})
+register_subsys("tls", {
+    # TLS on the S3 front (secure/certs.py): ``certs_dir`` holds
+    # public.crt and private.key (and CAs/, sni/<host>/); read when the
+    # server is built, while the certificate files reload live
+    "enable": "off",
+    "certs_dir": "",
+})
 register_subsys("commit", {
     # the group-commit plane (storage/commit.py): ops per group commit,
     # the packing ceiling and the segment rotation point
@@ -214,3 +238,17 @@ class Config:
             if reseal:
                 self._persist()
             return
+
+
+def parse_storage_class(value: str, drive_count: int) -> int | None:
+    """'EC:4' -> parity 4 (cmd/config/storageclass/storage-class.go);
+    None for an empty value.  ValueError for another form, or a parity
+    outside 1..drive_count // 2 (the write path needs a parity shard)."""
+    if not value:
+        return None
+    if not value.startswith("EC:"):
+        raise ValueError(f"invalid storage class {value!r}")
+    parity = int(value[3:])
+    if parity < 1 or parity > drive_count // 2:
+        raise ValueError(f"parity {parity} out of range")
+    return parity

@@ -10,6 +10,7 @@ reference's drive monitor and fan-out pools are stopped too, which its
 
 import contextlib
 import os
+import ssl
 
 import pytest
 
@@ -31,9 +32,10 @@ AK, SK = "ctl-key", "ctl-secret"
 
 
 @contextlib.contextmanager
-def servers(root, mp: pytest.MonkeyPatch):
-    """(reference server, port server), started; both stopped and the
-    process-wide knobs they touched restored on exit."""
+def servers(root, mp: pytest.MonkeyPatch, sets: int = SETS, per: int = PER):
+    """(reference server, port server) over ``sets`` sets of ``per``
+    drives, started; both stopped and the process-wide knobs they
+    touched restored on exit."""
     saved = (dict(ref_hotread.CONFIG.__dict__),
              dict(ref_commit.CONFIG.__dict__),
              dict(port_commit.CONFIG.__dict__))
@@ -42,15 +44,15 @@ def servers(root, mp: pytest.MonkeyPatch):
     pin(mp, batch=BATCH)
     for mod in (ref_ho, port_ho):
         mp.setattr(mod, "STREAM_PUT_THRESHOLD", THRESHOLD)
-    dirs = {tag: [str(root / tag / f"d{i}") for i in range(SETS * PER)]
+    dirs = {tag: [str(root / tag / f"d{i}") for i in range(sets * per)]
             for tag in ("ref", "port")}
     ref = ref_main.build_server(dirs["ref"], "127.0.0.1:0", AK, SK,
-                                set_drive_count=PER, backend="numpy",
+                                set_drive_count=per, backend="numpy",
                                 block_size=BS)
     try:
         port = port_main.build_server(dirs["port"], "127.0.0.1:0", AK, SK,
                                       block_size=BS, device="cpu",
-                                      set_drive_count=PER)
+                                      set_drive_count=per)
     except BaseException:
         ref.stop()
         raise
@@ -75,7 +77,13 @@ def servers(root, mp: pytest.MonkeyPatch):
 
 
 def client(srv, key: str = AK, secret: str = SK) -> S3Client:
-    return S3Client(f"http://127.0.0.1:{srv.port}", key, secret)
+    """A client of ``srv``; over TLS, trusting the CA its test gave it
+    (``srv.test_ca``)."""
+    ca = getattr(srv, "test_ca", None)
+    if ca is None:
+        return S3Client(f"http://127.0.0.1:{srv.port}", key, secret)
+    return S3Client(f"https://127.0.0.1:{srv.port}", key, secret,
+                    ssl_context=ssl.create_default_context(cafile=ca))
 
 
 def both(ref, port, method: str, path: str, query: str = "",

@@ -8,8 +8,10 @@ their own and read a fixed wall clock, so a listing leaves the same
 ``.mt.sys/metacache/`` tree in either package without moving the object
 layers' counters."""
 
+import hashlib
 import itertools
 import os
+import sys
 import types
 import uuid
 
@@ -61,12 +63,51 @@ class Pins:
 PINNED_TIME = types.SimpleNamespace(time=lambda: T0 / 1e9)
 
 
-def pin(monkeypatch, shared: bool = False, batch: int = BATCH) -> None:
+class Draws:
+    """``os.urandom`` for the SSE draws: a call from a module of
+    ``minio_tpu_torch`` takes the port's stream, one from ``minio_tpu``
+    the reference's, each a SHA-256 counter of ``seed``; any other
+    caller (``uuid4``, the request ids) gets real randomness.  The
+    packages draw the object key, the data key and the DARE nonces
+    where the reference draws them, in its order, so one sequence of
+    calls gives both the same bytes."""
+
+    def __init__(self, seed: int, shared: bool = False):
+        self._real = os.urandom
+        self._streams = {"minio_tpu": self._stream(seed)}
+        self._streams["minio_tpu_torch"] = self._streams["minio_tpu"] \
+            if shared else self._stream(seed)
+
+    @staticmethod
+    def _stream(seed: int):
+        counter = itertools.count()
+        buf = bytearray()
+
+        def draw(n: int) -> bytes:
+            while len(buf) < n:
+                buf.extend(hashlib.sha256(
+                    f"{seed}:{next(counter)}".encode()).digest())
+            out = bytes(buf[:n])
+            del buf[:n]
+            return out
+        return draw
+
+    def __call__(self, n: int) -> bytes:
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        pkg = caller.split(".", 1)[0]
+        draw = self._streams.get(pkg)
+        return draw(n) if draw is not None else self._real(n)
+
+
+def pin(monkeypatch, shared: bool = False, batch: int = BATCH,
+        draws: int | None = None) -> None:
     """One counter pair per package, or with ``shared`` one for both (a
     sequence that hops between packages); stream batches of ``batch``
     bytes.  The format modules draw the deployment and drive ids from
     the same uuid counter, the metacache modules from one of their own
-    (``PINNED_TIME`` their clock)."""
+    (``PINNED_TIME`` their clock).  ``draws``: the seed of each
+    package's ``os.urandom`` stream (``Draws``; the SSE keys and
+    nonces), real randomness when None."""
     ref, ref_ids = Pins(), Pins()
     port, port_ids = (ref, ref_ids) if shared else (Pins(), Pins())
     for pins, ids, mods, fmt, mc in (
@@ -80,6 +121,8 @@ def pin(monkeypatch, shared: bool = False, batch: int = BATCH) -> None:
         monkeypatch.setattr(mc, "time", PINNED_TIME)
     for mod in (ref_eo, port_eo):
         monkeypatch.setattr(mod, "STREAM_BATCH_BYTES", batch)
+    if draws is not None:
+        monkeypatch.setattr(os, "urandom", Draws(draws, shared))
 
 
 def drives(root, cls, n: int = N) -> list:

@@ -20,7 +20,10 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "commit": ["max_batch", "pack_threshold", "segment_max_bytes"],
              "scanner": ["delay", "max_wait"],
              "quota": ["enable"],
-             "rebalance": ["enable", "max_workers", "bandwidth"]}
+             "rebalance": ["enable", "max_workers", "bandwidth"],
+             "storage_class": ["standard", "rrs"],
+             "compression": ["enable", "extensions", "mime_types"],
+             "tls": ["enable", "certs_dir"]}
 
 
 def test_registers_only_the_keys_the_port_reads():

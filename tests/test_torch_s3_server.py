@@ -694,10 +694,11 @@ def _tree(root) -> dict:
 def test_unserved_answers_not_implemented(pair, method, path, query,
                                           headers):
     """What the port does not serve answers NotImplemented.  Tagging,
-    object lock and copy are served now: those requests answer as
-    ``NOW_SERVED`` says (each is compared with the reference in
-    ``test_torch_copy.py``, ``test_torch_tagging.py`` and
-    ``test_torch_objectlock.py``)."""
+    object lock, copy, SSE, the bucket's default encryption and storage
+    classes are served now: those requests answer as ``NOW_SERVED`` says
+    (each is compared with the reference in ``test_torch_copy.py``,
+    ``test_torch_tagging.py``, ``test_torch_objectlock.py``,
+    ``test_torch_sse.py`` and ``test_torch_storage_class.py``)."""
     url = f"http://127.0.0.1:{pair.port.port}{path}" + \
         (f"?{query}" if query else "")
     _, hdrs, body = signed("v4", method, url, b"", headers,
@@ -723,6 +724,9 @@ NOW_SERVED = {
     ("PUT", f"/{B}/k", "", "x-amz-copy-source"): (200, None),
     ("PUT", f"/{B}/k", "", "x-amz-tagging"): (200, None),
     ("PUT", "/locked", "", "x-amz-bucket-object-lock-enabled"): (200, None),
+    ("PUT", f"/{B}", "encryption"): (400, "MalformedXML"),
+    ("PUT", f"/{B}/k", "", "x-amz-server-side-encryption"): (200, None),
+    ("PUT", f"/{B}/k", "", "x-amz-storage-class"): (200, None),
 }
 
 
