@@ -214,7 +214,27 @@
    2 x 5 MiB parts, completed and read.  Every body checked.  Kernels A
    and B launch in each write step and Kernel A in the degraded read; no
    plain version.  Each step's seconds and GiB/s.
-16. One JSON line of readings, one describing each kernel, the card line,
+16. Transitions to a tier and restore, then S3 Select, on phase 15's
+   server before it stops, over HTTP: a directory tier and an S3 tier
+   (a second bucket of the same server) added through the admin
+   ``tier`` route; two 16 MiB objects (one SSE-S3) under a rule for the
+   first and one under a rule for the second, Transition dates in the
+   past, moved by one crawler cycle in process; each stub answers GET
+   and Select InvalidObjectState and HEAD its size, ETag and storage
+   class, its
+   drives hold no part file and its tier the stored bytes (ciphertext
+   for the SSE object); ``POST ?restore`` answers 202, the GET its body,
+   a second restore 200; a restored stub copied; the DELETEs free the
+   tier copies.  Then a seeded CSV of 15.3 MB, the same rows as JSON
+   lines and as a gzip CSV, each queried with a WHERE and an aggregate
+   (``?select&select-type=2``) and checked against a plain evaluation
+   here, the WHERE again over an SSE-S3 copy and over the CSV with the
+   drives of four data shards wiped.  Kernel B launches in the
+   transitions, A and B in each restore, B in each Select and A too in
+   the degraded one; no plain version.  Each transition's, restore's and
+   Select's seconds, each Select's MB/s of scanned bytes, and the CSV's
+   layer read alone, three times.
+17. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -3065,6 +3085,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
         torch.cuda.synchronize()
         s_end = snapshot()
         transform = phase_transform(srv, card, gen)
+        tier_select = phase_tier_select(srv, card)
     finally:
         srv.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -3091,7 +3112,8 @@ def phase_copy_lock(bodies: dict, card: str, gen):
           f"{readings['self_copy_256mib_s']:.3f} s; tag call "
           f"{readings['tag_call_ms']:.2f} ms; refusals "
           f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
-    return {k: v[0] for k, v in launches.items()}, readings, transform
+    return ({k: v[0] for k, v in launches.items()}, readings, transform,
+            tier_select)
 
 
 def text_body(size: int) -> bytes:
@@ -3231,6 +3253,275 @@ def phase_transform(srv, card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+TIER_OBJ, SEL_OBJ, SEL_SEED = 16 << 20, 16 << 20, 20261018    # phase 16
+SEL_CITIES = ("paris", "tokyo", "lima", "oslo", "accra", "quito")
+SEL_WHERE = ("SELECT s.id, s.amount FROM S3Object s "
+             "WHERE CAST(s.amount AS FLOAT) > 500")
+SEL_AGG = "SELECT COUNT(*), SUM(CAST(s.amount AS FLOAT)) FROM S3Object s"
+SEL_SUM_RTOL = 1e-9
+TIER_RULE = (b'<LifecycleConfiguration>' + b''.join(
+    b'<Rule><ID>%s</ID><Status>Enabled</Status><Filter><Prefix>%s/'
+    b'</Prefix></Filter><Transition><Date>2020-01-01T00:00:00Z</Date>'
+    b'<StorageClass>%s</StorageClass></Transition></Rule>' % (t, p, t)
+    for t, p in ((b"COLD", b"cold"), (b"REMOTE", b"remote"))) +
+    b'</LifecycleConfiguration>')
+
+
+def select_table(target: int, seed: int) -> tuple:
+    """Seeded rows (id, name, amount with two decimals, city) of about
+    ``target`` bytes as CSV with a header: (CSV, the same rows as JSON
+    lines, the ids, the amounts as floats)."""
+    rng = np.random.default_rng(seed)
+    n = target // 33
+    amounts = [f"{a:.2f}" for a in rng.uniform(0, 1000, n)]
+    cities = rng.integers(0, len(SEL_CITIES), n)
+    csv_rows = [f"{i},user{i},{amounts[i]},{SEL_CITIES[cities[i]]}\n"
+                for i in range(n)]
+    json_rows = [f'{{"id":{i},"name":"user{i}","amount":{amounts[i]},'
+                 f'"city":"{SEL_CITIES[cities[i]]}"}}\n' for i in range(n)]
+    return ("id,name,amount,city\n" + "".join(csv_rows)).encode(), \
+        "".join(json_rows).encode(), list(range(n)), \
+        [float(a) for a in amounts]
+
+
+def select_request(expression: str, input_xml: str) -> bytes:
+    return ("<SelectObjectContentRequest><Expression>" + expression +
+            "</Expression><ExpressionType>SQL</ExpressionType>"
+            "<InputSerialization>" + input_xml + "</InputSerialization>"
+            "<OutputSerialization><CSV/></OutputSerialization>"
+            "</SelectObjectContentRequest>").encode()
+
+
+def select_answer(body: bytes) -> tuple:
+    """(the Records payload, BytesScanned) of a Select's event stream,
+    every frame's CRCs checked."""
+    from minio_tpu_torch.s3select import message
+    events = message.parse_events(body)
+    check(events and events[-1][0] == "End",
+          f"select stream ends {events[-1:] if events else events}")
+    check(not any(t == "error" for t, _ in events), "select error frame")
+    stats = [p for t, p in events if t == "Stats"]
+    scanned = int(stats[0].split(b"<BytesScanned>")[1].split(b"<")[0])
+    return b"".join(p for t, p in events if t == "Records"), scanned
+
+
+def phase_tier_select(srv, card: str):
+    """Phase 16: transitions to a tier and restore, then S3 Select, on the
+    running server of phases 14 and 15.  Returns the launches and the
+    readings."""
+    import gzip
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.objectlayer import tiering
+    from minio_tpu_torch.s3.client import S3Client
+    t_phase = time.perf_counter()
+    c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    layer = srv.layer
+    tier_root = tempfile.mkdtemp(prefix="chip-smoke-tier-")
+    rng = np.random.default_rng(SEL_SEED)
+    bodies = {key: rng.integers(0, 256, TIER_OBJ, dtype=np.uint8).tobytes()
+              for key in ("cold/plain.dat", "cold/sse.dat",
+                          "remote/plain.dat")}
+    csv_body, jsonl_body, ids, amounts = select_table(SEL_OBJ, SEL_SEED)
+    want_where = [(i, a) for i, a in zip(ids, amounts) if a > 500]
+    want_count, want_sum = len(ids), sum(amounts)
+    readings: dict = {"select_bytes": len(csv_body),
+                      "select_jsonl_bytes": len(jsonl_body)}
+    steps: dict = {}
+    try:
+        adm.add_tier({"type": "dir", "name": "COLD",
+                      "path": f"{tier_root}/cold"})
+        c.make_bucket("tierremote")
+        adm.add_tier({"type": "s3", "name": "REMOTE",
+                      "endpoint": srv.endpoint, "bucket": "tierremote",
+                      "access_key": S3_KEY, "secret_key": S3_SECRET})
+        check(sorted(t["name"] for t in adm.list_tiers()) ==
+              ["COLD", "REMOTE"], "the tier routes")
+        for b in ("tiered", "tiercopy", "sel"):
+            c.make_bucket(b)
+        etags = {}
+        for key, data in bodies.items():
+            etags[key] = c.put_object(
+                "tiered", key, data,
+                headers=SSE_S3 if "sse" in key else None).headers["ETag"]
+        stored = {k: hashlib.md5(layer.get_object("tiered", k)[1]).digest()
+                  for k in bodies}
+        check(stored["cold/sse.dat"] != hashlib.md5(
+            bodies["cold/sse.dat"]).digest(), "SSE-S3 stored encrypted")
+        c.set_bucket_lifecycle("tiered", TIER_RULE)
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        # 1: one crawler cycle transitions the three objects
+        moves = []
+        transition = srv.crawler.transition_fn
+
+        def timed_transition(*args):
+            t0 = time.perf_counter()
+            transition(*args)
+            torch.cuda.synchronize()
+            moves.append(time.perf_counter() - t0)
+
+        srv.crawler.transition_fn = timed_transition
+        try:
+            res, t = timed_step(steps, "transition", srv.crawler.run_cycle)
+        finally:
+            srv.crawler.transition_fn = transition
+        check(sorted(res.transitioned) == sorted(
+            ("tiered", k) for k in bodies), f"transitioned {res.transitioned}")
+        readings["transition_s"] = moves
+        readings["crawler_cycle_s"] = t
+        stub_select = select_request(SEL_AGG, "<CSV/>")
+        for key, data in bodies.items():
+            check(s3_code(lambda: c.get_object("tiered", key)) ==
+                  "InvalidObjectState", f"GET of the stub {key}")
+            check(s3_code(lambda: c.request(
+                "POST", f"/tiered/{key}", "select&select-type=2",
+                stub_select)) == "InvalidObjectState",
+                f"Select over the stub {key}")
+            h = c.head_object("tiered", key).headers
+            check((h["Content-Length"], h["ETag"],
+                   h.get("x-amz-storage-class")) ==
+                  (str(len(data)), etags[key],
+                   "COLD" if key.startswith("cold/") else "REMOTE"),
+                  f"HEAD of the stub {key}: {h}")
+            er = layer.get_hashed_set(key)
+            for d in er.disks:
+                left = os.listdir(f"{d.endpoint()}/tiered/{key}")
+                check(left == ["xl.meta"], f"{key} on {d.endpoint()}: {left}")
+            ud = layer.get_object_info("tiered", key).user_defined
+            tier_key = ud[tiering.META_KEY]
+            if key.startswith("cold"):
+                path = f"{tier_root}/cold/" + tier_key.replace("/", "_")
+                with open(path, "rb") as f:
+                    held = f.read()
+            else:
+                held = c.get_object("tierremote", tier_key).body
+            check(hashlib.md5(held).digest() == stored[key],
+                  f"the tier holds {key}'s stored bytes")
+        # 2: restore each (202), then a second time (200)
+        restores = []
+        for key, data in bodies.items():
+            r, t = timed_step(steps, f"restore {key}", lambda: c.request(
+                "POST", f"/tiered/{key}", "restore",
+                b"<RestoreRequest><Days>1</Days></RestoreRequest>",
+                expect=()))
+            check(r.status == 202, f"restore of {key}: {r.status}")
+            restores.append(t)
+            check(c.get_object("tiered", key).body == data,
+                  f"GET of the restored {key}")
+            r = c.request("POST", f"/tiered/{key}", "restore", expect=())
+            check(r.status == 200, f"second restore of {key}: {r.status}")
+            check("x-amz-restore" in c.head_object("tiered", key).headers,
+                  f"x-amz-restore of {key}")
+        readings["restore_s"] = restores
+        _, t = timed_step(steps, "copy", lambda: c.copy_object(
+            "tiercopy", "copy", "tiered", "cold/plain.dat"))
+        readings["copy_restored_s"] = t
+        check(c.get_object("tiercopy", "copy").body ==
+              bodies["cold/plain.dat"], "copy of the restored stub")
+        # 3: the deletes free the tier copies
+        for key in bodies:
+            ud = layer.get_object_info("tiered", key).user_defined
+            c.delete_object("tiered", key)
+            tier_key = ud[tiering.META_KEY]
+            if key.startswith("cold"):
+                check(not os.path.exists(f"{tier_root}/cold/" +
+                                         tier_key.replace("/", "_")),
+                      f"the tier copy of {key} freed")
+            else:
+                check(s3_code(lambda: c.get_object(
+                    "tierremote", tier_key)) == "NoSuchKey",
+                    f"the remote tier copy of {key} freed")
+        # 4: Select over a CSV, JSON lines, a gzip CSV, an SSE-S3 CSV
+        csv_in = "<CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV>"
+        sources = {
+            "csv": ("data.csv", csv_body, None, csv_in),
+            "jsonl": ("data.jsonl", jsonl_body, None,
+                      "<JSON><Type>LINES</Type></JSON>"),
+            "gzip": ("data.csv.gz", gzip.compress(csv_body, 6, mtime=0),
+                     None, "<CompressionType>GZIP</CompressionType>" +
+                     csv_in),
+            "sse": ("sse.csv", csv_body, SSE_S3, csv_in),
+        }
+        for key, data, hdrs, _ in sources.values():
+            c.put_object("sel", key, data, headers=hdrs)
+        queries = [(name, q) for name in ("csv", "jsonl", "gzip")
+                   for q in ("where", "agg")] + [("sse", "where"),
+                                                 ("degraded", "where")]
+        seconds: dict = {}
+        for name, q in queries:
+            key, data, _, input_xml = sources[
+                "csv" if name == "degraded" else name]
+            if name == "degraded":
+                er = layer.get_hashed_set(key)
+                fi, _ = er._read_quorum_fileinfo("sel", key)
+                for d, shard in enumerate(fi.erasure.distribution):
+                    if shard <= M:
+                        shutil.rmtree(f"{er.disks[d].endpoint()}/sel/{key}")
+            payload = select_request(SEL_WHERE if q == "where" else SEL_AGG,
+                                     input_xml)
+            r, t = timed_step(steps, f"select {name} {q}", lambda: c.request(
+                "POST", f"/sel/{key}", "select&select-type=2", payload))
+            records, scanned = select_answer(r.body)
+            rows = [ln.split(",") for ln in records.decode().splitlines()]
+            if q == "where":
+                got = [(int(i), float(a)) for i, a in rows]
+                check(got == want_where, f"select {name} {q}: {len(got)} "
+                      f"rows against {len(want_where)}")
+            else:
+                (count, total), = rows
+                check(int(count) == want_count and abs(float(total) - want_sum)
+                      <= SEL_SUM_RTOL * want_sum,
+                      f"select {name} {q}: {count}, {total} against "
+                      f"{want_count}, {want_sum}")
+            seconds[f"{name}_{q}"] = {"s": t, "scanned": scanned,
+                                      "mb_per_s": scanned / t / 1e6}
+            if name == "csv" and q == "agg":
+                # the layer read under the CSV Selects, timed alone
+                reads = []
+                for n in range(3):
+                    (_, got), t = timed_step(
+                        steps, f"layer read {n}",
+                        lambda: layer.get_object("sel", key))
+                    check(got == data, "the layer read of the CSV")
+                    reads.append(t)
+                readings["select_layer_read_s"] = reads
+        readings["select"] = seconds
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+    finally:
+        shutil.rmtree(tier_root, ignore_errors=True)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"tier and select path: {kernel} plain version ran")
+    check(steps["transition"]["hh256"][0] > 0,
+          "Kernel B not launched in the transitions")
+    for key in bodies:
+        for kernel in ("gf8_apply", "hh256"):
+            check(steps[f"restore {key}"][kernel][0] > 0,
+                  f"{kernel} not launched in the restore of {key}")
+    for name, q in queries:
+        check(steps[f"select {name} {q}"]["hh256"][0] > 0,
+              f"Kernel B not launched in the select {name} {q}")
+    check(steps["select degraded where"]["gf8_apply"][0] > 0,
+          "Kernel A not launched in the degraded select")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    sel = readings["select"]
+    print(f"tier and select path on {card}: transition of 3 x 16 MiB "
+          f"{[round(t, 3) for t in readings['transition_s']]} s (crawler "
+          f"cycle {readings['crawler_cycle_s']:.2f} s), restore "
+          f"{[round(t, 3) for t in readings['restore_s']]} s; select "
+          + ", ".join(f"{k} {v['s']:.2f} s {v['mb_per_s']:.2f} MB/s"
+                      for k, v in sel.items())
+          + f"; the CSV's layer read "
+          f"{[round(t, 3) for t in readings['select_layer_read_s']]} s"
+          + f"; phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -3272,8 +3563,8 @@ def main() -> int:
                                                 s3_readings)
     id_path, id_readings = phase_identity(card, gen)
     pools_path, pools_readings = phase_pools(card, gen)
-    copy_path, copy_readings, (tr_path, tr_readings) = phase_copy_lock(
-        bodies, card, gen)
+    copy_path, copy_readings, (tr_path, tr_readings), (
+        ts_path, ts_readings) = phase_copy_lock(bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -3284,7 +3575,8 @@ def main() -> int:
                    "identity_path": id_path[k["name"]],
                    "pools_path": pools_path[k["name"]],
                    "copy_lock_path": copy_path[k["name"]],
-                   "transform_path": tr_path[k["name"]]}
+                   "transform_path": tr_path[k["name"]],
+                   "tier_select_path": ts_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -3296,7 +3588,8 @@ def main() -> int:
                       "identity_path": id_readings,
                       "pools_path": pools_readings,
                       "copy_lock_path": copy_readings,
-                      "transform_path": tr_readings}))
+                      "transform_path": tr_readings,
+                      "tier_select_path": ts_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -203,6 +203,16 @@ class AdminClient:
     def kms_key_status(self) -> dict:
         return self._call("GET", "kms-key-status")
 
+    def list_tiers(self) -> list[dict]:
+        """The remote tiers, credentials redacted."""
+        return self._call("GET", "tier")
+
+    def add_tier(self, config: dict) -> None:
+        """Add a remote tier: ``{"type": "dir", "name", "path"}`` or
+        ``{"type": "s3", "name", "endpoint", "bucket", "access_key",
+        "secret_key"}``."""
+        self._call("PUT", "tier", body=json.dumps(config).encode())
+
     def service_stop(self) -> dict:
         return self._call("POST", "service", "action=stop")
 

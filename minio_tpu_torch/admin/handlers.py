@@ -21,6 +21,13 @@ AccessDenied.  They answer JSON:
   POST service?action=stop|restart
   GET  kms-key-status           a data key made and unsealed through the
                                 key service (``crypto/kms.py``)
+  GET  tier                     the remote tiers, credentials redacted
+  PUT  tier                     {"type": "dir", "name", "path"} or
+                                {"type": "s3", "name", "endpoint",
+                                "bucket", "access_key", "secret_key",
+                                "prefix", "region"}: add a tier (409 for a
+                                name in use), persisted in
+                                ``tiers/tiers.json``
   POST add-user                 {"accessKey", "secretKey", "policies"}
   GET  list-users
   POST remove-user?accessKey=   (its service accounts go too)
@@ -76,6 +83,7 @@ from ..bucket.quota import Quota
 from ..iam import policy as iampol
 from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
 from ..objectlayer import interface as ol
+from ..objectlayer import tiering
 from ..objectlayer.pools import is_pooled
 from ..utils.kvconfig import parse_storage_class
 from . import metrics
@@ -158,6 +166,8 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
             return _service(srv, q1, send_json)
         if route == "kms-key-status" and h.command == "GET":
             return _kms_key_status(srv, send_json)
+        if route == "tier" and h.command in ("GET", "PUT"):
+            return _tier(h, srv, payload, send_json)
         if route.startswith("policy"):
             return _policy(h, srv, route, payload, send_json)
         iam_route = _IAM_ROUTES.get((h.command, route))
@@ -496,6 +506,30 @@ def _kms_key_status(srv, send_json) -> bool:
                           "decryption_ok": ok})
     except Exception as e:  # noqa: BLE001 — any failure of the service
         return send_json({"key_id": srv.kms.key_id, "error": str(e)}, 500)
+
+
+def _tier(h, srv, payload: bytes, send_json) -> bool:
+    """GET tier (madmin ListTiers: no credential leaves the server) and
+    PUT tier (madmin AddTier).  A name in use is refused, 409: replacing
+    its tier would strand every stub that names it."""
+    tsys = srv.transition
+    if h.command == "GET":
+        return send_json(json.loads(tsys.to_json(redact=True)))
+    doc = json.loads(payload)
+    name = doc.get("name", "")
+    if not name:
+        return send_json({"error": "tier name required"}, 400)
+    if name in tsys.tiers:
+        return send_json({"error": f"tier {name!r} already exists"}, 409)
+    try:
+        tier = tiering.tier_from_doc(doc)
+    except KeyError as e:
+        return send_json({"error": f"missing tier config field {e}"}, 400)
+    except ValueError:
+        return send_json({"error": "unknown tier type"}, 400)
+    tsys.add_tier(tier)
+    tsys.save()
+    return _ok(send_json)
 
 
 def _heal(srv, route: str, q1: dict, send_json) -> bool:

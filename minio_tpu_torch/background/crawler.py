@@ -13,8 +13,11 @@ due action is computed and the expiries are carried out (current
 versions, as a delete marker in a versioned bucket; noncurrent versions
 dated from their successor's write; delete markers that are their
 object's only version).  A version whose object lock refuses the delete
-(a legal hold, a retention not yet ended) is left.  A Transition rule takes
-no action: there are no tiers.  The usage is persisted at
+(a legal hold, a retention not yet ended) is left.  A due Transition
+(of the current version, or of a noncurrent one by its version id) goes
+to ``transition_fn`` with the rule's storage class, which names the tier
+(``objectlayer/tiering.py transition_fn``); one that fails is tried
+again next cycle.  The usage is persisted at
 ``datausage/usage.json`` in the metadata set's system volume, the
 reference's bytes, where the admin ``datausageinfo`` route, the metrics
 scrape and the hard quota (``UsageCache``) read it.
@@ -132,14 +135,16 @@ def _histogram_bucket(size: int) -> str:
 class ScanResult:
     usage: DataUsageInfo
     expired: list[tuple[str, str, str]] = field(default_factory=list)
+    transitioned: list[tuple[str, str]] = field(default_factory=list)
 
 
 def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
-               tracker: DataUpdateTracker | None = None,
+               transition_fn=None, tracker: DataUpdateTracker | None = None,
                since_cycle: int | None = None,
                progress: CycleProgress | None = None) -> ScanResult:
     """One cycle: the usage of every bucket, and the lifecycle expiries
-    that are due.  With a tracker and ``since_cycle``, a bucket that did
+    and transitions (``transition_fn(bucket, oi, storage_class)``) that
+    are due.  With a tracker and ``since_cycle``, a bucket that did
     not change since that cycle skips the lifecycle pass; its usage is
     counted all the same (the listing is the truth).  ``progress``
     advances once per bucket."""
@@ -184,16 +189,25 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
                     bu.objects_count += 1
             if lc is None or skip_ilm:
                 continue
-            action = lc.compute_action(ObjectOpts(
+            oopts = ObjectOpts(
                 name=oi.name, mod_time_ns=oi.mod_time,
                 user_tags=_tags_of(oi), is_latest=oi.is_latest,
                 delete_marker=oi.delete_marker,
                 num_versions=oi.num_versions or 1,
                 successor_mod_time_ns=0 if oi.is_latest
-                else succ_mod.get((oi.name, oi.version_id), 0)))
+                else succ_mod.get((oi.name, oi.version_id), 0))
+            action = lc.compute_action(oopts)
             if action in (Action.DELETE, Action.DELETE_VERSION,
                           Action.DELETE_MARKER_DELETE):
                 _expire(layer, b.name, oi, action, res, versioned)
+            elif action in (Action.TRANSITION, Action.TRANSITION_VERSION) \
+                    and transition_fn is not None:
+                try:
+                    transition_fn(b.name, oi,
+                                  lc.transition_storage_class(oopts))
+                    res.transitioned.append((b.name, oi.name))
+                except Exception:  # noqa: BLE001 — tried again next cycle
+                    pass
         info.buckets_count += 1
         info.objects_total_count += bu.objects_count
         info.objects_total_size += bu.size
@@ -335,10 +349,11 @@ class Crawler:
     the tracker advanced so the next cycle can skip unchanged buckets."""
 
     def __init__(self, layer, bucket_meta=None, interval_s: float = 60.0,
-                 tracker: DataUpdateTracker | None = None):
+                 transition_fn=None, tracker: DataUpdateTracker | None = None):
         self.layer = layer
         self.bucket_meta = bucket_meta
         self.interval_s = interval_s
+        self.transition_fn = transition_fn
         self.tracker = tracker or DataUpdateTracker()
         self.last: ScanResult | None = None
         self.cycles = 0
@@ -365,6 +380,7 @@ class Crawler:
         self.progress.begin()
         try:
             res = scan_usage(self.layer, self.bucket_meta,
+                             transition_fn=self.transition_fn,
                              tracker=self.tracker, since_cycle=since,
                              progress=self.progress)
         except BaseException:

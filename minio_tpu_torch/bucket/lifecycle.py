@@ -6,9 +6,9 @@ XML, ``to_xml`` writes it back as the reference does, and
 ``compute_action`` (ComputeAction, lifecycle.go:225) says what is due
 for one object version: expiry of the current version, of a noncurrent
 version (from the moment its successor was written) or of a delete
-marker that is the last version, or a transition.  The crawler
-(``background/crawler.py``) acts on the expiries; a Transition rule is
-kept and answered, and no transition is made (there are no tiers yet).
+marker that is the last version, or a transition, whose tier
+``transition_storage_class`` names.  The crawler
+(``background/crawler.py``) acts on both.
 """
 
 from __future__ import annotations
@@ -338,3 +338,31 @@ class Lifecycle:
                     now_ns >= obj.mod_time_ns + r.transition_days * day_ns:
                 return Action.TRANSITION
         return Action.NONE
+
+    def transition_storage_class(self, obj: ObjectOpts,
+                                 now_ns: Optional[int] = None) -> str:
+        """The storage class (the tier) of the transition that is due for
+        ``obj``: the rule ``compute_action`` answers TRANSITION for, not
+        merely the first that matches."""
+        if now_ns is None:
+            now_ns = int(datetime.datetime.now(
+                datetime.timezone.utc).timestamp() * 1e9)
+        day_ns = 24 * 3600 * 1e9
+        for r in self._filtered(obj):
+            if not obj.is_latest:
+                if r.noncurrent_transition_days is not None and \
+                        obj.successor_mod_time_ns and \
+                        now_ns >= obj.successor_mod_time_ns + \
+                        r.noncurrent_transition_days * day_ns:
+                    return r.noncurrent_transition_storage_class
+                continue
+            if r.transition_date is not None and \
+                    now_ns >= r.transition_date.timestamp() * 1e9 and \
+                    r.transition_storage_class:
+                return r.transition_storage_class
+            if r.transition_days is not None and \
+                    now_ns >= obj.mod_time_ns + \
+                    r.transition_days * day_ns and \
+                    r.transition_storage_class:
+                return r.transition_storage_class
+        return ""

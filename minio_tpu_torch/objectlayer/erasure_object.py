@@ -102,8 +102,8 @@ from .interface import (BadDigest, BucketExists, BucketInfo, BucketNotEmpty,
                         BucketNotFound, InvalidRange, ListObjectsInfo,
                         ListObjectVersionsInfo, MethodNotAllowed,
                         ObjectInfo, ObjectLocked, ObjectNotFound,
-                        ObjectOptions, PutObjectOptions, ReadQuorumError,
-                        VersionNotFound, WriteQuorumError)
+                        ObjectOptions, PreconditionFailed, PutObjectOptions,
+                        ReadQuorumError, VersionNotFound, WriteQuorumError)
 from .metacache import (MetacacheManager, SnapshotGone, paginate,
                         paginate_versions)
 from .multipart import MultipartOps
@@ -615,6 +615,7 @@ class ErasureObjects(MultipartOps):
         lk = self.ns_lock.new_lock(bucket, object_name)
         try:
             lk.lock(write=True)
+            self._check_replaces(fi, opts)
             if etag_future is not None and not inline \
                     and self._pipeline_on():
                 self._commit_put_overlapped(fi, framed, shuffled,
@@ -627,6 +628,26 @@ class ErasureObjects(MultipartOps):
         finally:
             lk.unlock()
             buf.done_one()
+
+    def _check_replaces(self, fi: FileInfo, opts: PutObjectOptions) -> None:
+        """Under the write lock: PreconditionFailed unless the version
+        ``fi`` replaces still has ``opts.replaces``' ETag and mod time
+        (gone, a delete marker or rewritten since it was read fails).
+        Options of the reference's shape carry no such field and replace
+        nothing."""
+        replaces = getattr(opts, "replaces", None)
+        if replaces is None:
+            return
+        try:
+            cur, _ = self._read_quorum_fileinfo(fi.volume, fi.name,
+                                                fi.version_id)
+        except (ObjectNotFound, VersionNotFound):
+            cur = None
+        if cur is None or cur.deleted or (
+                cur.metadata.get(ETAG_KEY, ""), cur.mod_time) \
+                != replaces:
+            raise PreconditionFailed(
+                f"{fi.volume}/{fi.name}@{fi.version_id}: changed since read")
 
     def _commit_put(self, fi: FileInfo, framed: np.ndarray, inline: bool,
                     shuffled: list, buf) -> None:
@@ -711,6 +732,7 @@ class ErasureObjects(MultipartOps):
         lk = self.ns_lock.new_lock(bucket, object_name)
         lk.lock(write=True)
         try:
+            self._check_replaces(fi, opts)
             run = (self._stream_put_pipelined if self._pipeline_on()
                    else self._stream_put_serial)
             run(fi, chunks, opts, shuffled, readahead_body)

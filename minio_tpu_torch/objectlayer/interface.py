@@ -124,6 +124,11 @@ class PutObjectOptions:
     # the parity a storage class asks for (x-amz-storage-class,
     # cmd/erasure-object.go:631); None: the set's
     parity: Optional[int] = None
+    # (ETag, mod time) the version ``version_id`` must still have when
+    # the write lock is taken, else PreconditionFailed and nothing is
+    # written: a transition's stub and a restore's copy replace only the
+    # version they read
+    replaces: Optional[tuple[str, int]] = None
 
 
 @dataclass

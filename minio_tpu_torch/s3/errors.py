@@ -111,6 +111,23 @@ _ERRORS = {e.code: e for e in (
              "you specified is not valid. Supported value: AES256.", 400),
     APIError("ServerSideEncryptionConfigurationNotFoundError",
              "The server side encryption configuration was not found", 404),
+    # S3 Select (cmd/api-errors.go, the select section)
+    APIError("ParseSelectFailure", "The SQL expression contains an invalid "
+             "token or is otherwise not parseable.", 400),
+    APIError("EvaluatorInvalidArguments", "Incorrect number of arguments in "
+             "the function call or invalid evaluation.", 400),
+    APIError("InvalidExpressionType", "The ExpressionType is invalid. Only "
+             "SQL expressions are supported.", 400),
+    APIError("InvalidDataSource", "Invalid data source type. Only CSV and "
+             "JSON are supported.", 400),
+    APIError("InvalidCompressionFormat", "The file is not in a supported "
+             "compression format. Only GZIP is supported.", 400),
+    APIError("InvalidRequestParameter", "The value of a parameter in "
+             "SelectRequest element is invalid.", 400),
+    APIError("CSVParsingError", "Encountered an error parsing the CSV file. "
+             "Check the file and try again.", 400),
+    APIError("JSONParsingError", "Encountered an error parsing the JSON "
+             "file. Check the file and try again.", 400),
 )}
 # codes the reference answers under another code's name
 _ERRORS["InvalidCopySource"] = APIError(

@@ -268,12 +268,14 @@ def _post_policy_upload(self, bucket, payload):
             raise S3Error("InvalidTag") from e
     user_defined.update(self._lock_headers(bucket, key))
     self._check_quota(bucket, len(file_data))
+    versioned = self.srv.bucket_meta.versioning_enabled(bucket)
+    tiered = self._overwritten_tier_copy(bucket, key, versioned)
     file_data = self._transform_for_put(bucket, key, user_defined, file_data)
     oi = self.srv.layer.put_object(
         bucket, key, file_data, PutObjectOptions(
-            user_defined=user_defined,
-            versioned=self.srv.bucket_meta.versioning_enabled(bucket),
+            user_defined=user_defined, versioned=versioned,
             parity=self._storage_class_parity(user_defined)))
+    self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
     self.srv.mark_changed(bucket, oi)
     hdrs = {"ETag": f'"{oi.etag}"', **csse.response_headers(user_defined)}
@@ -466,7 +468,8 @@ def _delete_objects(self, bucket, payload):
     """Multi-object delete (cmd/bucket-handlers.go:604): one Deleted or
     Error element per key, 200 whatever each key's fate.  An entry with
     a VersionId deletes that version (ObjectLocked when its lock says
-    no); one without, in a versioned bucket, adds a delete marker."""
+    no); one without, in a versioned bucket, adds a delete marker.  A
+    removed version's tier copy is freed after its delete."""
     try:
         root = ET.fromstring(payload)
     except ET.ParseError as e:
@@ -481,8 +484,10 @@ def _delete_objects(self, bucket, payload):
         vid = obj.findtext(f"{ns}VersionId") or obj.findtext("VersionId")
         try:
             self._allow(iampol.DELETE_OBJECT, f"{bucket}/{key}")
+            tiered = self._tiered_meta_of(bucket, key, vid, versioned)
             res = self.srv.layer.delete_object(
                 bucket, key, self._delete_opts(bucket, key, vid, versioned))
+            self._free_tier_copy(tiered)
             if not quiet:
                 d = ET.SubElement(out, "Deleted")
                 ET.SubElement(d, "Key").text = key

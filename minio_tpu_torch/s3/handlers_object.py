@@ -41,9 +41,14 @@ object streams its plain bytes one batch at a time
 the DARE packages that cover it, read in one pass over the stored
 bytes; a compressed one decodes from its start.  HEAD answers the plain
 size, and an object transitioned to a tier answers InvalidObjectState
-to GET and its archived size to HEAD.  A copy decodes its source the
-same way, with the ``x-amz-copy-source-server-side-encryption-customer-*``
-key, and encodes for its destination.
+to GET (and as a copy source) and its archived size and ETag to HEAD,
+until ``POST ?restore`` writes its tier copy back for some days
+(``_restore_object``); a DELETE, DeleteObjects or unversioned overwrite
+of a transitioned version frees its tier copy once it commits.  A copy
+decodes its source the same way, with the
+``x-amz-copy-source-server-side-encryption-customer-*`` key, and encodes
+for its destination.  ``POST ?select&select-type=2`` runs S3 Select
+over the object's plain bytes (``_select_object``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import urllib.parse
 import xml.etree.ElementTree as ET
 
 from .. import compress as mtc
+from .. import s3select
 from ..admin import metrics as _metrics
 from ..bucket import objectlock as olock
 from ..bucket import tags as btags
@@ -67,6 +73,7 @@ from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer import tiering
 from ..objectlayer.interface import ObjectOptions, PutObjectOptions
+from ..utils import close_quietly
 from ..utils.kvconfig import parse_storage_class
 from ..utils.memgov import GOVERNOR
 from . import errors as s3err
@@ -76,11 +83,12 @@ from .server import (MAX_PUT_SIZE, RESERVED_BUCKETS, S3_NS,
                      _BodyReader, _http_date, _iso_date, _parse_range, _try,
                      _xml)
 
-# object subresources the port does not serve: ACLs, select (ROADMAP
-# Queue 1 item 16.9) and restore (item 16.6)
-UNSERVED = frozenset(("acl", "select", "restore"))
+# object subresources the port does not serve: ACLs (ROADMAP Queue 1
+# item 16.5)
+UNSERVED = frozenset(("acl",))
 # subresources answered on the buffered route only
-SUBRESOURCES = UNSERVED | {"tagging", "retention", "legal-hold"}
+SUBRESOURCES = UNSERVED | {"tagging", "retention", "legal-hold", "select",
+                           "restore"}
 STORAGE_CLASS = "x-amz-storage-class"
 # plain bytes decrypted per step of a transformed GET or copy: a whole
 # number of DARE packages
@@ -100,14 +108,19 @@ def _object_api(self, bucket, key, query, payload):
         return self._object_retention(bucket, key, query, payload)
     if "legal-hold" in query:
         return self._object_legal_hold(bucket, key, query, payload)
+    if cmd == "POST" and "select" in query and \
+            query.get("select-type") == ["2"]:
+        self._allow(iampol.GET_OBJECT, resource)
+        return self._select_object(bucket, key, payload)
     if cmd == "POST" and "uploads" in query:
         self._allow(iampol.PUT_OBJECT, resource)
         return self._create_multipart(bucket, key)
     if cmd == "POST" and "uploadId" in query:
         self._allow(iampol.PUT_OBJECT, resource)
         return self._complete_multipart(bucket, key, query, payload)
-    if cmd == "POST":
-        raise S3Error("NotImplemented")     # select, restore
+    if cmd == "POST" and "restore" in query:
+        self._allow("s3:RestoreObject", resource)
+        return self._restore_object(bucket, key, query, payload)
     if cmd == "PUT" and "uploadId" in query:
         self._allow(iampol.PUT_OBJECT, resource)
         if "x-amz-copy-source" in self.headers:
@@ -334,6 +347,149 @@ def _delete_opts(self, bucket, key, vid, versioned) -> ObjectOptions:
         and self._governance_bypass(f"{bucket}/{key}"))
 
 
+# -- transitions to a tier: restore, and the tier copy a delete or an
+# -- overwrite frees (cmd/object-handlers.go PostRestoreObjectHandler) -----
+
+def _restore_object(self, bucket, key, query, payload):
+    """RestoreObject: ``<RestoreRequest><Days>N</Days></RestoreRequest>``
+    (1 day without a body) writes a stub's tier copy back for N days:
+    202 for a fresh copy, 200 when a valid one is already held,
+    InvalidObjectState for a version that was never transitioned."""
+    days = 1
+    if payload:
+        try:
+            root = ET.fromstring(payload)
+            for el in root.iter():
+                if el.tag.split("}")[-1] == "Days":
+                    days = int(el.text or 1)
+        except (ET.ParseError, ValueError) as e:
+            raise S3Error("MalformedXML") from e
+    if days < 1:
+        raise S3Error("InvalidArgument")
+    try:
+        fresh = self.srv.transition.restore(bucket, key, days,
+                                            version_id=_version_id(query))
+    except tiering.TierError as e:
+        # only "not archived" is the client's mistake; a tier that fails
+        # is the server's
+        if "archived state" in str(e):
+            raise S3Error("InvalidObjectState") from e
+        raise S3Error("InternalError") from e
+    self.srv.mark_changed(bucket, ol.ObjectInfo(name=key))
+    return self._send(202 if fresh else 200, b"")
+
+
+def _tiered_meta_of(self, bucket, key, vid, versioned):
+    """The metadata of the version a delete or an overwrite is about to
+    remove (``vid`` None: the latest, "": the null version) when it is
+    transitioned, so its tier copy can be freed once the call commits;
+    None when there is none to free (a versioned DELETE without a
+    version id only adds a marker)."""
+    if not self.srv.transition.tiers or (versioned and vid is None):
+        return None
+    try:
+        old = self.srv.layer.get_object_info(
+            bucket, key, ObjectOptions(version_id=vid))
+    except ol.ObjectLayerError:
+        return None
+    return old.user_defined if tiering.is_transitioned(old.user_defined) \
+        else None
+
+
+def _overwritten_tier_copy(self, bucket, key, versioned):
+    """An unversioned write replaces the null version: its tier copy's
+    metadata, to free after the write commits."""
+    return None if versioned else \
+        self._tiered_meta_of(bucket, key, "", False)
+
+
+def _free_tier_copy(self, user_defined) -> None:
+    if user_defined is not None:
+        self.srv.transition.delete_tiered(user_defined)
+
+
+# -- S3 Select (cmd/object-handlers.go SelectObjectContentHandler) ---------
+
+# frames held before a Select answer switches from one buffered body to
+# chunked transfer encoding written as the scan advances
+SELECT_FLUSH_BYTES = 2 << 20
+# decode blocks one scan charges to the memory governor, besides the
+# frames it holds before the switch
+SELECT_CHARGE_BLOCKS = 6
+
+
+def _select_object(self, bucket, key, payload):
+    """SelectObjectContent over the object's plain bytes
+    (``_fetch_plain_chunks``: an encrypted or compressed object is
+    queried in the clear, a degraded one rebuilt on the layer's device),
+    ``api select_block_bytes`` at a time.  A version in a tier without a
+    valid restored copy is InvalidObjectState, as GET is.  A malformed
+    request is refused before anything is charged; the scan's working
+    set is charged to the memory governor (``select``) before a byte is
+    read, twice the plain size more for an input read whole (Parquet, a
+    JSON document).  Frames up to ``SELECT_FLUSH_BYTES`` go out as one body;
+    past that the answer is chunked, and an error after the status line
+    becomes an error frame in the stream."""
+    block = self.srv.select_block_bytes
+    try:
+        req = s3select.SelectRequest.parse(payload)
+    except s3select.SelectError as e:
+        raise S3Error(e.code) from e
+    oi = self.srv.layer.get_object_info(bucket, key)
+    if _stubbed(oi.user_defined):
+        raise S3Error("InvalidObjectState")
+    size = _actual_size(oi)
+    est = SELECT_CHARGE_BLOCKS * block + SELECT_FLUSH_BYTES
+    if req.input_format == "PARQUET" or (
+            req.input_format == "JSON" and
+            req.input_opts.get("type", "LINES") != "LINES"):
+        est += 2 * size
+    charge = GOVERNOR.charge(est, "select")
+    chunks = None
+    try:
+        m = _metrics.GLOBAL
+        m.inc("mt_select_requests_total")
+
+        def on_stats(scanned, processed, returned):
+            m.inc("mt_select_scanned_bytes_total", value=scanned)
+            m.inc("mt_select_processed_bytes_total", value=processed)
+            m.inc("mt_select_returned_bytes_total", value=returned)
+
+        enc = None
+        if csse.is_encrypted(oi.user_defined):
+            enc = csse.ObjectEncryption.open(oi.user_defined, bucket, key,
+                                             self.headers, self.srv.kms)
+        chunks = self._fetch_plain_chunks(bucket, key, oi, enc, 0, size)
+        try:
+            frames = iter(s3select.run_select_stream(
+                payload, chunks, block_bytes=block, on_stats=on_stats))
+            head = bytearray()
+            done = False
+            while len(head) < SELECT_FLUSH_BYTES:
+                piece = next(frames, None)
+                if piece is None:
+                    done = True
+                    break
+                head += piece
+        except s3select.SelectError as e:
+            raise S3Error(e.code) from e
+        if done:
+            return self._send(200, bytes(head),
+                              content_type="application/octet-stream")
+
+        def tail():
+            try:
+                yield from frames
+            except s3select.SelectError as e:
+                yield s3select.message.error_message(e.code, str(e))
+
+        self._send_chunked(200, tail(), "application/octet-stream",
+                           head=bytes(head))
+    finally:
+        charge.release()
+        close_quietly(chunks)
+
+
 def _content_md5(self) -> bytes | None:
     md5_hdr = self.headers.get("Content-MD5")
     if not md5_hdr:
@@ -354,11 +510,13 @@ def _put_object(self, bucket, key, payload):
         raise S3Error("BadDigest")
     user_defined = self._new_object_meta(bucket, key)
     self._check_quota(bucket, len(payload))
+    versioned = self.srv.bucket_meta.versioning_enabled(bucket)
+    tiered = self._overwritten_tier_copy(bucket, key, versioned)
     payload = self._transform_for_put(bucket, key, user_defined, payload)
     oi = self.srv.layer.put_object(bucket, key, payload, PutObjectOptions(
-        user_defined=user_defined,
-        versioned=self.srv.bucket_meta.versioning_enabled(bucket),
+        user_defined=user_defined, versioned=versioned,
         parity=self._storage_class_parity(user_defined)))
+    self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
     self.srv.mark_changed(bucket, oi)
     self._send(200, headers=_put_headers(oi, user_defined))
@@ -611,10 +769,14 @@ def _list_parts(self, bucket, key, query):
 
 def _delete_object(self, bucket, key, query):
     """DeleteObject: in a versioned bucket and without a version id, a
-    delete marker; a version under a lock is refused."""
+    delete marker; a version under a lock is refused.  A transitioned
+    version's tier copy is freed once the delete has committed."""
+    vid = _version_id(query)
+    versioned = self.srv.bucket_meta.versioning_enabled(bucket)
+    tiered = self._tiered_meta_of(bucket, key, vid, versioned)
     res = self.srv.layer.delete_object(bucket, key, self._delete_opts(
-        bucket, key, _version_id(query),
-        self.srv.bucket_meta.versioning_enabled(bucket)))
+        bucket, key, vid, versioned))
+    self._free_tier_copy(tiered)
     self.srv.mark_changed(bucket, res)
     hdrs = {}
     if res.delete_marker:
@@ -652,14 +814,14 @@ def _copy_source(self):
     An encrypted source is opened (an SSE-C one with the
     ``x-amz-copy-source-server-side-encryption-customer-*`` key); the
     key is None for a plain one.  A source transitioned to a tier is
-    NotImplemented (ROADMAP Queue 3 record 39); a delete marker is
-    MethodNotAllowed."""
+    InvalidObjectState unless it holds a valid restored copy, which is
+    copied; a delete marker is MethodNotAllowed."""
     sbucket, skey, svid = self._parse_copy_source()
     self._allow(iampol.GET_OBJECT, f"{sbucket}/{skey}")
     soi = self.srv.layer.get_object_info(sbucket, skey,
                                          ObjectOptions(version_id=svid))
-    if tiering.is_transitioned(soi.user_defined):
-        raise S3Error("NotImplemented")
+    if _stubbed(soi.user_defined):
+        raise S3Error("InvalidObjectState")
     if_match = self.headers.get("x-amz-copy-source-if-match")
     if_none = self.headers.get("x-amz-copy-source-if-none-match")
     if if_match and if_match.strip('"') != soi.etag:
@@ -876,13 +1038,14 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
             self._charge_quota_usage(bucket, pi.size)
             self._send(200, headers={"ETag": f'"{pi.etag}"'})
         else:
+            versioned = self.srv.bucket_meta.versioning_enabled(bucket)
+            tiered = self._overwritten_tier_copy(bucket, key, versioned)
             oi = self.srv.layer.put_object(
                 bucket, key, reader, PutObjectOptions(
-                    user_defined=user_defined,
-                    versioned=self.srv.bucket_meta.versioning_enabled(
-                        bucket),
+                    user_defined=user_defined, versioned=versioned,
                     content_md5=md5_hex,
                     parity=self._storage_class_parity(user_defined)))
+            self._free_tier_copy(tiered)
             self._charge_quota_usage(bucket, oi.size)
             self.srv.mark_changed(bucket, oi)
             self._send(200, headers=_put_headers(oi))
@@ -1226,9 +1389,11 @@ def _preconditions_304(self, oi) -> bool:
     # echoed header would fail
     mod_s = oi.mod_time // 10 ** 9
 
+    etag = _display_etag(oi)
+
     def etag_in(header: str) -> bool:
         tags = [t.strip().strip('"') for t in header.split(",")]
-        return "*" in tags or oi.etag in tags
+        return "*" in tags or etag in tags
 
     def parse_date(v: str) -> float | None:
         try:
@@ -1265,4 +1430,5 @@ HANDLERS = ["_object_api", "_user_defined", "_new_object_meta",
             "_bucket_sse_algo", "_sse_for_put", "_compression_eligible",
             "_compress_for_put",
             "_transform_for_put", "_encrypt_part", "_fetch_plain_chunks",
-            "_decrypted_chunks"]
+            "_decrypted_chunks", "_restore_object", "_tiered_meta_of",
+            "_overwritten_tier_copy", "_free_tier_copy", "_select_object"]

@@ -24,10 +24,12 @@ listing and a HEAD give a transformed object's plain size
 given or set in the ``tls`` subsystem, serves the front over TLS
 (``secure/certs.py``), and a request with SSE-C headers over plain HTTP
 is refused (InsecureSSECustomerRequest) before it is authenticated.
-What the port does not serve (ACLs, the other bucket configs, select,
-restore, the LDAP and web-identity STS calls, the web UI, the admin
-routes of ``admin/handlers.py`` it lacks) answers the S3
-``NotImplemented`` error document.  The health probes are served:
+Transitions to a remote tier and their restore (``transition``, the
+tiers registered in ``tiers/tiers.json``) and S3 Select are served.
+What the port does not serve (ACLs, the other bucket configs, the LDAP
+and web-identity STS calls, the web UI, the admin routes of
+``admin/handlers.py`` it lacks) answers the S3 ``NotImplemented`` error
+document.  The health probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
@@ -94,6 +96,7 @@ from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..objectlayer.metacache import leaf_layers_of, managers_of
+from ..objectlayer.tiering import TransitionSys
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..secure.certs import CertManager, enable_server_tls
@@ -328,6 +331,10 @@ class S3Server:
         self.tls = tls if tls is not None else \
             CertManager.from_config(self.config)
         self.kms = kms_from_env(layer)
+        # the remote tiers (cmd/bucket-lifecycle.go transitionObject),
+        # registered at ``tiers/tiers.json`` in the system volume
+        self.transition = TransitionSys(layer)
+        self.transition.load()
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
@@ -402,6 +409,12 @@ class S3Server:
         self.shutdown_drain_s = parse_duration(
             cfg.get("api", "shutdown_drain_s") or "5s")
         memgov.GOVERNOR.load(cfg)
+        try:
+            self.select_block_bytes = max(
+                64 * 1024, int(cfg.get("api", "select_block_bytes")
+                               or 1 << 20))
+        except ValueError:
+            self.select_block_bytes = 1 << 20
 
     def body_budget_s(self, content_length: int) -> float:
         """The read budget of one body: ``body_deadline`` plus its
@@ -543,6 +556,15 @@ class S3Server:
     def endpoint(self) -> str:
         scheme = "https" if self.tls is not None else "http"
         return f"{scheme}://127.0.0.1:{self.port}"
+
+
+def _chain(head: bytes, chunks):
+    """``head``, then every non-empty chunk of ``chunks``."""
+    if head:
+        yield head
+    for chunk in chunks:
+        if chunk:
+            yield chunk
 
 
 def _sever(conns) -> None:
@@ -755,12 +777,12 @@ def _make_handler(srv: S3Server):
                 raise S3Error("AccessDenied")
 
         def _send_prologue(self, status: int, sent_bytes: int,
-                           entity_len: int, content_type: str,
+                           entity_len: int | None, content_type: str,
                            headers: dict | None):
             """The status line and headers; counts the response
             (``sent_bytes``: its body's length, counted as the reference
             counts it, a HEAD's unsent body too) and takes the time to
-            its first byte."""
+            its first byte.  ``entity_len`` None: a chunked body."""
             m = _metrics.GLOBAL
             m.inc("mt_s3_requests_total",
                   {"method": self.command, "status": str(status)})
@@ -775,7 +797,10 @@ def _make_handler(srv: S3Server):
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.send_header("Content-Type", content_type)
-            self.send_header("Content-Length", str(entity_len))
+            if entity_len is None:
+                self.send_header("Transfer-Encoding", "chunked")
+            else:
+                self.send_header("Content-Length", str(entity_len))
             self.end_headers()
 
         def _send(self, status: int, body: bytes = b"",
@@ -818,6 +843,34 @@ def _make_handler(srv: S3Server):
                 self.close_connection = True
             finally:
                 close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+
+        def _send_chunked(self, status: int, chunks, content_type: str,
+                          headers: dict | None = None, head: bytes = b""):
+            """Send a body of unknown length with chunked transfer
+            encoding (a Select's event stream, whose length is known only
+            when the scan ends): ``head`` first, then each chunk as it
+            comes.  A failure after the status line drops the connection:
+            the missing last chunk tells the client the body is short."""
+            self._send_prologue(status, 0, None, content_type, headers)
+            sent = 0
+            try:
+                for chunk in _chain(head, chunks):
+                    self.wfile.write(b"%x\r\n" % len(chunk) + chunk
+                                     + b"\r\n")
+                    sent += len(chunk)
+                self.wfile.write(b"0\r\n\r\n")
+                self.wfile.flush()
+            except (ConnectionError, TimeoutError):
+                self.close_connection = True
+                raise
+            except Exception:   # noqa: BLE001 — the status line is out
+                self.close_connection = True
+            finally:
+                _metrics.GLOBAL.inc("mt_s3_tx_bytes_total", value=sent)
+                self._resp_bytes += sent
+                close = getattr(chunks, "close", None)
                 if close is not None:
                     close()
 

@@ -6,8 +6,9 @@ the N drives as the reference lays them out: sets of the largest size in
 4..16 that divides N (or ``--set-drive-count``), every drive's
 format.json loaded or written, each drive behind a health proxy, a drive
 monitor that reconnects returning drives and heals their set, the
-background heal sweep, the crawler (data usage, lifecycle expiry, the
-hard quotas' usage) with its data-update tracker, the request plane's
+background heal sweep, the crawler (data usage, lifecycle expiry and
+transitions to the server's tiers, the hard quotas' usage) with its
+data-update tracker, the request plane's
 limits and deadlines, IAM (users, service accounts, STS sessions,
 policies) loaded from the drives, and the control plane: the live
 kvconfig (``MT_<SUBSYS>_<KEY>`` environment overrides), the admin API
@@ -32,6 +33,7 @@ from .background.tracker import DataUpdateTracker
 from .device import resolve
 from .objectlayer.erasure_object import DEFAULT_BLOCK_SIZE
 from .objectlayer.sets import ErasureSets
+from .objectlayer.tiering import transition_fn
 from .s3.server import S3Server
 from .secure import configcrypt
 
@@ -103,7 +105,7 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
     srv.crawler = Crawler(
         layer, bucket_meta=srv.bucket_meta,
         interval_s=float(os.environ.get("MT_CRAWL_INTERVAL_S", "60")),
-        tracker=tracker)
+        transition_fn=transition_fn(srv.transition), tracker=tracker)
     srv.healer = BackgroundHealer(
         layer, interval_s=float(os.environ.get("MT_HEAL_INTERVAL_S", "3600")),
         deep_every=int(os.environ.get("MT_HEAL_DEEP_EVERY", "8")))

@@ -71,6 +71,9 @@ register_subsys("api", {
     # of a shed
     "mem_limit": "0",
     "mem_retry_after": "1s",
+    # S3 Select (s3select/): decoded object bytes are scanned this many
+    # at a time, so a scan holds a few blocks whatever the object's size
+    "select_block_bytes": "1048576",
 })
 register_subsys("heal", {
     # bitrotscan=on makes every sweep deep; max_sleep caps the sleep

@@ -21,6 +21,7 @@ import torch
 import minio_tpu.objectlayer.erasure_object as ref_eo
 import minio_tpu.objectlayer.metacache as ref_mc
 import minio_tpu.objectlayer.multipart as ref_mp
+import minio_tpu.objectlayer.tiering as ref_tier
 import minio_tpu.storage.format as ref_fmt
 from minio_tpu.objectlayer import interface as ref_ol
 from minio_tpu.storage.writers import close_write_planes
@@ -29,6 +30,7 @@ from minio_tpu_torch.objectlayer import erasure_object as port_eo
 from minio_tpu_torch.objectlayer import interface as port_ol
 from minio_tpu_torch.objectlayer import metacache as port_mc
 from minio_tpu_torch.objectlayer import multipart as port_mp
+from minio_tpu_torch.objectlayer import tiering as port_tier
 from minio_tpu_torch.parallel.mesh import make_mesh
 from minio_tpu_torch.storage import format as port_fmt
 from minio_tpu_torch.storage.xl_storage import XLStorage
@@ -103,19 +105,23 @@ def pin(monkeypatch, shared: bool = False, batch: int = BATCH,
         draws: int | None = None) -> None:
     """One counter pair per package, or with ``shared`` one for both (a
     sequence that hops between packages); stream batches of ``batch``
-    bytes.  The format modules draw the deployment and drive ids from
-    the same uuid counter, the metacache modules from one of their own
-    (``PINNED_TIME`` their clock).  ``draws``: the seed of each
+    bytes.  The format modules draw the deployment and drive ids, and the
+    tiering modules a transition's tier key, from the same uuid counter,
+    the metacache modules from one of their own (``PINNED_TIME`` their
+    clock).  ``draws``: the seed of each
     package's ``os.urandom`` stream (``Draws``; the SSE keys and
     nonces), real randomness when None."""
     ref, ref_ids = Pins(), Pins()
     port, port_ids = (ref, ref_ids) if shared else (Pins(), Pins())
-    for pins, ids, mods, fmt, mc in (
-            (ref, ref_ids, (ref_eo, ref_mp), ref_fmt, ref_mc),
-            (port, port_ids, (port_eo, port_mp), port_fmt, port_mc)):
+    for pins, ids, mods, fmt, mc, tier in (
+            (ref, ref_ids, (ref_eo, ref_mp), ref_fmt, ref_mc, ref_tier),
+            (port, port_ids, (port_eo, port_mp), port_fmt, port_mc,
+             port_tier)):
         for mod in mods:
             monkeypatch.setattr(mod, "now_ns", pins.now_ns)
             monkeypatch.setattr(mod, "uuid", pins.uuid)
+        # a transition's tier key ends in a uuid4 drawn after its read
+        monkeypatch.setattr(tier, "uuid", pins.uuid)
         monkeypatch.setattr(fmt, "uuid", pins.uuid)
         monkeypatch.setattr(mc, "uuid", ids.uuid)
         monkeypatch.setattr(mc, "time", PINNED_TIME)

@@ -13,7 +13,8 @@ from minio_tpu_torch.utils import kvconfig as port_kv
 
 PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
                      "read_header_timeout", "body_deadline", "body_min_rate",
-                     "shutdown_drain_s", "mem_limit", "mem_retry_after"],
+                     "shutdown_drain_s", "mem_limit", "mem_retry_after",
+                     "select_block_bytes"],
              "heal": ["bitrotscan", "max_sleep"],
              "drive": ["slow_latency_multiple", "slow_min_samples"],
              "pipeline": ["depth", "queue_depth"],
@@ -79,7 +80,6 @@ def test_keys_the_port_leaves_out_are_refused():
     for subsys, key in (("pipeline", "md5_lanes"), ("pipeline", "md5_backend"),
                         ("pipeline", "mesh_batch_bytes"), ("heal", "max_io"),
                         ("commit", "enable"), ("commit", "group_window_us"),
-                        ("api", "select_block_bytes"),
                         ("api", "cors_allow_origin")):
         with pytest.raises(KeyError):
             cfg.set(subsys, key, "1")

@@ -33,7 +33,7 @@ API_DEFAULTS = {"requests_max": "0", "requests_queue": "0",
                 "requests_deadline": "10s", "body_deadline": "2m",
                 "body_min_rate": "1048576", "mem_limit": "0",
                 "mem_retry_after": "1s", "read_header_timeout": "30s",
-                "shutdown_drain_s": "5s"}
+                "shutdown_drain_s": "5s", "select_block_bytes": "1048576"}
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +66,8 @@ def _limits(srv, mg) -> tuple:
             srv.read_header_timeout_s, srv.body_deadline_s,
             srv.body_min_rate_bps, srv.shutdown_drain_s,
             [srv.body_budget_s(n) for n in (0, 1, 10 << 20)],
-            mg.GOVERNOR.limit_bytes, mg.GOVERNOR.retry_after_s)
+            mg.GOVERNOR.limit_bytes, mg.GOVERNOR.retry_after_s,
+            srv.select_block_bytes)
 
 
 @pytest.mark.parametrize("values", [
@@ -74,9 +75,9 @@ def _limits(srv, mg) -> tuple:
     {"requests_max": "3", "requests_queue": "5", "requests_deadline": "2s",
      "body_deadline": "30s", "body_min_rate": "0", "mem_limit": "64MiB",
      "mem_retry_after": "4s", "read_header_timeout": "7s",
-     "shutdown_drain_s": "0"},
+     "shutdown_drain_s": "0", "select_block_bytes": "1000"},
     {"requests_max": "x", "requests_queue": "y", "body_min_rate": "z",
-     "mem_limit": "bad"},
+     "mem_limit": "bad", "select_block_bytes": "x"},
 ], ids=["defaults", "set", "bad"])
 def test_the_api_knobs_derive_the_same_limits(pair, values):
     ref, port, _ = pair

@@ -5,7 +5,10 @@ sequence; the counters each scrape gained over it must be equal, sample
 for sample, with the ``backend`` label left out (``cuda``, ``cpu`` or
 ``mesh`` in the port, ``numpy`` in the reference) and drive labels
 reduced to the drive's number.  Histograms compare by sample count
-(their sums are timings).  The reference runs its codec's plain path
+(their sums are timings).  How the writer ops group into commits
+depends on timing, so the ``mt_commit_group_*`` batch, stream and
+saved-fsync counts and the drives' fsync rounds are held to what holds
+in any timing, and the bytes packed into segments to the reference's.  The reference runs its codec's plain path
 (its native GF library's fused ``encode-framed`` op is switched off),
 which names a PUT's op ``encode`` as its device backends and the port
 do.  The registry itself, the codec's op accounting (the card's parked
@@ -25,6 +28,7 @@ from minio_tpu.ops import gf8_native
 from minio_tpu_torch.admin import metrics as port_metrics
 from minio_tpu_torch.ops import codec as port_codec
 from minio_tpu_torch.parallel.mesh import make_mesh
+from minio_tpu_torch.storage import commit as port_commit
 
 from ._torch_control import THRESHOLD, both, client, servers
 from ._torch_versions import body
@@ -100,13 +104,47 @@ def _sequence(srv) -> None:
     c.request("GET", "/minio/health/live", sign=False)
 
 
+GROUP = "mt_commit_group_"
+# one sample per flush round of a batch, or per eager fsync: fewer when
+# more ops share a batch
+FSYNC_ROUNDS = ("mt_drive_op_seconds_count", (("op", "fsync"),))
+
+
+def _timed(key) -> bool:
+    return key[0].startswith(GROUP) or key == FSYNC_ROUNDS
+
+
+def _check_group_commits(grouped: dict) -> None:
+    """What holds of the group-commit counts in any timing: a batch holds
+    at least one writer op and counts at least one and at most one stream
+    per op, so 1 <= batches <= streams <= the writer ops settled
+    (``mt_put_pipeline_writes_total`` over every drive); a batch never
+    syncs more than it deferred, so no count of saved fsyncs is below 0;
+    the drives fsynced at least once."""
+    writes = sum(v for (name, _), v in grouped.items()
+                 if name == "mt_put_pipeline_writes_total")
+    batches = grouped.get(("mt_commit_group_batches_total", ()), 0)
+    streams = grouped.get(("mt_commit_group_streams_total", ()), 0)
+    assert 1 <= batches <= streams <= writes, (batches, streams, writes)
+    assert grouped.get(("mt_commit_group_fsyncs_saved_total", ()), 0) >= 0
+    assert grouped.get(FSYNC_ROUNDS, 0) >= 1
+
+
+def _commit_counts() -> tuple[int, int]:
+    """The port's fsyncs its batches deferred and issued
+    (``storage.commit.COUNTS``)."""
+    return port_commit.COUNTS.deferred, port_commit.COUNTS.fsyncs
+
+
 def test_scrape_counters_equal_the_references(pair):
     ref, port = pair
     before = [counters(ref_metrics.render()), counters(port_metrics.render())]
+    held = _commit_counts()
     for srv in pair:
         _sequence(srv)
         srv.healer.sweep()
     r, p = both(ref, port, "GET", "/minio-tpu/metrics", sign=False)
+    deferred, synced = (b - a for a, b in zip(held, _commit_counts()))
     assert r.status == p.status == 200
     got, want = (delta(counters(x.body.decode()), b)
                  for x, b in ((p, before[1]), (r, before[0])))
@@ -119,8 +157,19 @@ def test_scrape_counters_equal_the_references(pair):
                  "mt_put_pipeline_writes_total",
                  "mt_commit_group_batches_total"):
         assert must in fams, must
-    # the reference has families the port does not fill yet (ROADMAP)
-    assert {k: want.get(k) for k in got} == got
+    # how writes group into commits depends on timing: those families are
+    # held to invariants, every other counter to the reference's value
+    # (the reference has families the port does not fill yet, ROADMAP)
+    exact = {k: v for k, v in got.items() if not _timed(k)}
+    assert {k: want.get(k) for k in exact} == exact
+    for grouped in (got, want):
+        _check_group_commits(grouped)
+    # the port's saved fsyncs are what its batches deferred less what
+    # they issued
+    assert got.get(("mt_commit_group_fsyncs_saved_total", ()), 0) == \
+        deferred - synced > 0
+    seg = ("mt_commit_group_segment_bytes_total", ())
+    assert got.get(seg) == want.get(seg)
     apis = {dict(k[1])["api"]: v for k, v in got.items()
             if k[0] == "mt_s3_requests_api_total"}
     assert apis == {"MakeBucket": 1, "PutObject": 5, "GetObject": 6,

@@ -694,11 +694,12 @@ def _tree(root) -> dict:
 def test_unserved_answers_not_implemented(pair, method, path, query,
                                           headers):
     """What the port does not serve answers NotImplemented.  Tagging,
-    object lock, copy, SSE, the bucket's default encryption and storage
-    classes are served now: those requests answer as ``NOW_SERVED`` says
-    (each is compared with the reference in ``test_torch_copy.py``,
-    ``test_torch_tagging.py``, ``test_torch_objectlock.py``,
-    ``test_torch_sse.py`` and ``test_torch_storage_class.py``)."""
+    object lock, copy, SSE, the bucket's default encryption, storage
+    classes and restore are served now: those requests answer as
+    ``NOW_SERVED`` says (each is compared with the reference in
+    ``test_torch_copy.py``, ``test_torch_tagging.py``,
+    ``test_torch_objectlock.py``, ``test_torch_sse.py``,
+    ``test_torch_storage_class.py`` and ``test_torch_tiering.py``)."""
     url = f"http://127.0.0.1:{pair.port.port}{path}" + \
         (f"?{query}" if query else "")
     _, hdrs, body = signed("v4", method, url, b"", headers,
@@ -727,6 +728,7 @@ NOW_SERVED = {
     ("PUT", f"/{B}", "encryption"): (400, "MalformedXML"),
     ("PUT", f"/{B}/k", "", "x-amz-server-side-encryption"): (200, None),
     ("PUT", f"/{B}/k", "", "x-amz-storage-class"): (200, None),
+    ("POST", f"/{B}/k", "restore"): (404, "NoSuchKey"),
 }
 
 
