@@ -234,7 +234,31 @@
    the degraded one; no plain version.  Each transition's, restore's and
    Select's seconds, each Select's MB/s of scanned bytes, and the CSV's
    layer read alone, three times.
-17. One JSON line of readings, one describing each kernel, the card line,
+17. The other bucket configs and event notification, on phase 16's
+   server before it stops, over HTTP: ``?replication`` PUT, GET and
+   DELETE on a versioned bucket (InvalidRequest on an unversioned one),
+   ``?acl`` on a bucket and an object (private only), ``?cors`` and the
+   dummy subresources.  A 16 MiB PUT, its GET and a GET with four
+   data-shard drives wiped, timed and counted without a notification
+   config; then a webhook sink in this process on a free local port,
+   ``notify_webhook`` pointed at it through SetConfigKV, a notification
+   config (an unknown ARN refused first) for the created, accessed,
+   removed and restore events under ``ev/``, and a ListenNotification
+   stream on the bucket, read line by line.  Under ``ev/``: a 16 MiB
+   PUT, its GET, a degraded GET, a 2 x 8 MiB upload, a copy, a tag, a
+   transition to phase 16's S3 tier and a restore, a DELETE (a marker),
+   and one key outside ``ev/``.  The sink and the stream hold the
+   expected event names, keys, sizes, ETags and version ids, in request
+   order per key (the outside key on the stream only).  The sink
+   stopped, two PUTs: ``targets`` shows the target offline with both
+   records in its ``queue_dir``; the sink back, ``targets/replay``
+   delivers both and empties the store; the scrape carries
+   ``mt_target_*``.  Each PUT, GET and degraded GET launches what it
+   launched without notification; the delivery, the storing and the
+   replay launch nothing; no plain version.  The PUT's seconds with and
+   without notification, the median and largest delay from a response
+   to its record at the sink and at the listener, the replay's seconds.
+18. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -3086,6 +3110,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
         s_end = snapshot()
         transform = phase_transform(srv, card, gen)
         tier_select = phase_tier_select(srv, card)
+        events = phase_events(srv, card, gen)
     finally:
         srv.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -3113,7 +3138,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
           f"{readings['tag_call_ms']:.2f} ms; refusals "
           f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
     return ({k: v[0] for k, v in launches.items()}, readings, transform,
-            tier_select)
+            tier_select, events)
 
 
 def text_body(size: int) -> bytes:
@@ -3522,6 +3547,440 @@ def phase_tier_select(srv, card: str):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+EV_BUCKET, EV_OBJ, EV_PART = "events", 16 << 20, 8 << 20           # phase 17
+EV_PAIRS = 6
+EV_ARN = "arn:minio:sqs::1:webhook"
+# the reference's event names have no s3:ObjectRestore:* wildcard
+EV_NAMES = ("s3:ObjectCreated:*", "s3:ObjectAccessed:*", "s3:ObjectRemoved:*",
+            "s3:ObjectRestore:Post", "s3:ObjectRestore:Completed")
+
+
+def notification_xml(arn: str, prefix: str) -> bytes:
+    return (b'<NotificationConfiguration xmlns="http://s3.amazonaws.com/doc/'
+            b'2006-03-01/"><QueueConfiguration><Queue>' + arn.encode() +
+            b'</Queue>' + b"".join(b"<Event>%s</Event>" % n.encode()
+                                   for n in EV_NAMES) +
+            b"<Filter><S3Key><FilterRule><Name>prefix</Name><Value>" +
+            prefix.encode() + b"</Value></FilterRule></S3Key></Filter>"
+            b"</QueueConfiguration></NotificationConfiguration>")
+
+
+class WebhookSink:
+    """A local webhook endpoint: every POSTed record with its arrival
+    time (perf_counter); ``stop`` and ``start`` take it down and bring it
+    back on the same port."""
+
+    def __init__(self):
+        import threading
+        self.records: list = []         # (arrival s, record)
+        self._mu = threading.Lock()
+        self.port = 0
+        self.httpd = None
+        self._thread = None
+
+    def start(self) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        sink = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                now = time.perf_counter()
+                with sink._mu:
+                    sink.records.extend((now, r) for r in
+                                        json.loads(body)["Records"])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", self.port), Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        kwargs={"poll_interval": 0.05},
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+            self._thread.join()
+            self.httpd = None
+
+    def got(self) -> list:
+        with self._mu:
+            return list(self.records)
+
+
+def listen_stream(srv, client, bucket: str, query: str, out: list):
+    """A ListenNotification stream read line by line on a thread, each
+    record with its arrival time (perf_counter) appended to ``out``;
+    returns the thread once the server holds the subscription."""
+    import http.client
+    import threading
+    from minio_tpu_torch.s3.sigv4 import sign_request
+    url = client._url(f"/{bucket}", query)
+    hdrs = sign_request(client._creds, "GET", url, {}, b"", client.region)
+    subs = srv.events.pubsub.num_subscribers
+
+    def run():
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+        try:
+            conn.request("GET", url[len(srv.endpoint):], headers=hdrs)
+            resp = conn.getresponse()
+            out.append(("status", resp.status))
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if line.strip():
+                    out.append((time.perf_counter(),
+                                json.loads(line)["Records"][0]))
+        finally:
+            conn.close()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    deadline = time.monotonic() + 30
+    while srv.events.pubsub.num_subscribers <= subs and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(srv.events.pubsub.num_subscribers > subs, "listener subscribed")
+    return t
+
+
+def wipe_data_shards(layer, bucket: str, key: str) -> None:
+    """Remove ``key`` from the drives of its first M data shards."""
+    er = layer.get_hashed_set(key)
+    fi, _ = er._read_quorum_fileinfo(bucket, key)
+    for d, shard in enumerate(fi.erasure.distribution):
+        if shard <= M:
+            shutil.rmtree(f"{er.disks[d].endpoint()}/{bucket}/{key}")
+
+
+def phase_events(srv, card: str, gen):
+    """Phase 17: the other bucket configs and event notification, on the
+    running server of phases 14-16.  Returns the launches and the
+    readings."""
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.s3.client import S3Client
+    t_phase = time.perf_counter()
+    c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    layer = srv.layer
+    blob = rand_bytes((5, EV_OBJ), gen).cpu().numpy()
+    base, obj, mp, out1, out2 = (blob[i].tobytes() for i in range(5))
+    small = blob[4][:64 * 1024].tobytes()
+    readings: dict = {}
+    steps: dict = {}
+    qdir = tempfile.mkdtemp(prefix="chip-smoke-events-")
+    sink = WebhookSink()
+    try:
+        # 1: the configs, against what the reference answers
+        c.make_bucket("evplain")
+        c.make_bucket(EV_BUCKET)
+        c.set_bucket_versioning(EV_BUCKET, True)
+        repl = (b'<ReplicationConfiguration><Rule><ID>r1</ID><Status>Enabled'
+                b'</Status><Priority>1</Priority><Filter><Prefix>ev/</Prefix>'
+                b'</Filter><Destination><Bucket>arn:minio:replication::t:dst'
+                b'</Bucket></Destination></Rule></ReplicationConfiguration>')
+        check(s3_code(lambda: c.request("PUT", "/evplain", "replication",
+                                        repl)) == "InvalidRequest",
+              "replication on an unversioned bucket")
+        c.request("PUT", f"/{EV_BUCKET}", "replication", repl)
+        got = c.request("GET", f"/{EV_BUCKET}", "replication").body
+        check(b"<ID>r1</ID>" in got and b"<DeleteReplication><Status>"
+              b"Disabled</Status>" in got, f"GET ?replication: {got[:200]}")
+        check(c.request("DELETE", f"/{EV_BUCKET}", "replication").status
+              == 204, "DELETE ?replication")
+        check(s3_code(lambda: c.request("GET", f"/{EV_BUCKET}",
+                                        "replication")) ==
+              "ReplicationConfigurationNotFoundError", "replication gone")
+        c.put_object(EV_BUCKET, "acl/k", small)
+        for path in (f"/{EV_BUCKET}", f"/{EV_BUCKET}/acl/k"):
+            check(b"<Permission>FULL_CONTROL</Permission>" in c.request(
+                "GET", path, "acl").body, f"GET {path}?acl")
+            c.request("PUT", path, "acl", headers={"x-amz-acl": "private"})
+            check(s3_code(lambda: c.request(
+                "PUT", path, "acl", headers={"x-amz-acl": "public-read"}))
+                == "NotImplemented", f"PUT {path}?acl public-read")
+        check(s3_code(lambda: c.request("GET", f"/{EV_BUCKET}", "cors")) ==
+              "NoSuchCORSConfiguration", "GET ?cors")
+        for sub, want in (("accelerate", b"<AccelerateConfiguration"),
+                          ("requestPayment", b"<Payer>BucketOwner</Payer>"),
+                          ("logging", b"<BucketLoggingStatus")):
+            check(want in c.request("GET", f"/{EV_BUCKET}", sub).body,
+                  f"GET ?{sub}")
+        check(s3_code(lambda: c.request("GET", f"/{EV_BUCKET}", "website"))
+              == "NoSuchWebsiteConfiguration", "GET ?website")
+        # 2: without a notification config, the requests to compare with
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        _, t = timed_step(steps, "put_before", lambda: c.put_object(
+            EV_BUCKET, "ev/base", base))
+        readings["put_16mib_before_s"] = t
+        r, t = timed_step(steps, "get_before", lambda: c.get_object(
+            EV_BUCKET, "ev/base"))
+        check(r.body == base, "GET before")
+        readings["get_16mib_before_s"] = t
+        wipe_data_shards(layer, EV_BUCKET, "ev/base")
+        r, t = timed_step(steps, "degraded_get_before", lambda: c.get_object(
+            EV_BUCKET, "ev/base"))
+        check(r.body == base, "degraded GET before")
+        readings["degraded_get_16mib_before_s"] = t
+        # 3: the webhook target, the notification config, a listener
+        sink.start()
+        adm.set_config_kv("notify_webhook", "endpoint",
+                          f"http://127.0.0.1:{sink.port}/hook")
+        adm.set_config_kv("notify_webhook", "queue_dir", qdir)
+        adm.set_config_kv("notify_webhook", "enable", "on")
+        check(srv.events.valid_arns() == {EV_ARN}, "the webhook target")
+        check(s3_code(lambda: c.request(
+            "PUT", f"/{EV_BUCKET}", "notification",
+            notification_xml("arn:minio:sqs::9:webhook", "ev/"))) ==
+            "MalformedXML", "an unknown ARN refused")
+        c.request("PUT", f"/{EV_BUCKET}", "notification",
+                  notification_xml(EV_ARN, "ev/"))
+        check(b"<Value>ev/</Value>" in c.request(
+            "GET", f"/{EV_BUCKET}", "notification").body, "GET ?notification")
+        heard: list = []
+        listener = listen_stream(srv, c, EV_BUCKET,
+                                 "events&timeout=120&max-events=9", heard)
+        # 4: the requests, each answered at ``done[i]``
+        done: list = []
+        expect: list = []       # (event name, key, size, etag, version id)
+
+        def step(name, fn, event, key, size, vid_of, etag_of=None):
+            r, t = timed_step(steps, name, fn)
+            done.append(time.perf_counter())
+            expect.append((event, key, size, etag_of(r) if etag_of else
+                           None, vid_of(r)))
+            return r, t
+
+        def vid(r):
+            return r.headers.get("x-amz-version-id", "")
+
+        def etag(r):
+            return r.headers["ETag"].strip('"')
+
+        r, t = step("put", lambda: c.put_object(EV_BUCKET, "ev/obj", obj),
+                    "ObjectCreated:Put", "ev/obj", EV_OBJ, vid, etag)
+        readings["put_16mib_s"] = t
+        obj_etag, obj_vid = etag(r), vid(r)
+        r, t = step("get", lambda: c.get_object(EV_BUCKET, "ev/obj"),
+                    "ObjectAccessed:Get", "ev/obj", EV_OBJ, vid, etag)
+        check(r.body == obj, "GET body")
+        readings["get_16mib_s"] = t
+        wipe_data_shards(layer, EV_BUCKET, "ev/obj")
+        r, t = step("degraded_get", lambda: c.get_object(EV_BUCKET, "ev/obj"),
+                    "ObjectAccessed:Get", "ev/obj", EV_OBJ, vid, etag)
+        check(r.body == obj, "degraded GET body")
+        readings["degraded_get_16mib_s"] = t
+
+        def multipart():
+            uid, parts, _ = c.upload_parts(EV_BUCKET, "ev/mp", mp, EV_PART, 2)
+            return c.complete_multipart_upload(EV_BUCKET, "ev/mp", uid, parts)
+
+        r, _ = step("multipart", multipart,
+                    "ObjectCreated:CompleteMultipartUpload", "ev/mp", EV_OBJ,
+                    vid, lambda r: r.xml().findtext(
+                        "{http://s3.amazonaws.com/doc/2006-03-01/}ETag")
+                    .strip('"'))
+        r, _ = step("copy", lambda: c.copy_object(EV_BUCKET, "ev/copy",
+                                                  EV_BUCKET, "ev/obj"),
+                    "ObjectCreated:Copy", "ev/copy", EV_OBJ, vid,
+                    lambda r: r.xml().findtext(
+                        "{http://s3.amazonaws.com/doc/2006-03-01/}ETag")
+                    .strip('"'))
+        step("tag", lambda: c.put_object_tagging(EV_BUCKET, "ev/obj",
+                                                 {"phase": "17"}, obj_vid),
+             "ObjectCreated:PutTagging", "ev/obj", EV_OBJ,
+             lambda r: obj_vid, lambda r: obj_etag)
+        # a restore of the multipart object from phase 16's S3 tier
+        info = layer.get_object_info(EV_BUCKET, "ev/mp")
+        info.transition_tier = "REMOTE"
+        srv.transition.transition(EV_BUCKET, info)
+        r, t = step("restore", lambda: c.request(
+            "POST", f"/{EV_BUCKET}/ev/mp", "restore",
+            b"<RestoreRequest><Days>1</Days></RestoreRequest>", expect=(202,)),
+            "ObjectRestore:Completed", "ev/mp", None,
+            lambda r: info.version_id)
+        readings["restore_16mib_s"] = t
+        r, _ = step("delete", lambda: c.delete_object(EV_BUCKET, "ev/copy"),
+                    "ObjectRemoved:DeleteMarkerCreated", "ev/copy", 0, vid,
+                    lambda r: "")
+        r, _ = step("outside", lambda: c.put_object(EV_BUCKET, "other/k",
+                                                    small),
+                    "ObjectCreated:Put", "other/k", len(small), vid, etag)
+        listener.join(60)
+        check(not listener.is_alive(), "the listen stream ended")
+        torch.cuda.synchronize()
+        s_deliver = snapshot()
+        deadline = time.monotonic() + 30
+        while len(sink.got()) < 8 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(0.2)
+        torch.cuda.synchronize()
+        steps["delivery"] = delta(s_deliver, snapshot())
+
+        def same(rec, want) -> bool:
+            o = rec["s3"]["object"]
+            event, key, size, et, v = want
+            return (rec["eventName"], o["key"], o["versionId"]) == \
+                (event, key, v) and (size is None or o["size"] == size) and \
+                (et is None or o["eTag"] == et)
+
+        stream = [x for x in heard if x[0] != "status"]
+        check(heard[0] == ("status", 200) and len(stream) == len(expect),
+              f"the stream's records: {len(stream)} of {len(expect)}")
+        for (_, rec), want in zip(stream, expect):
+            check(same(rec, want), f"stream record {rec['eventName']} "
+                  f"{rec['s3']['object']} against {want}")
+        hooked = sink.got()
+        want_hook = [(w, d) for w, d in zip(expect, done)
+                     if w[1].startswith("ev/")]
+        check(len(hooked) == len(want_hook),
+              f"the sink's records: {len(hooked)} of {len(want_hook)}")
+        for key in {w[1] for w, _ in want_hook}:
+            got_k = [rec for _, rec in hooked
+                     if rec["s3"]["object"]["key"] == key]
+            want_k = [w for w, _ in want_hook if w[1] == key]
+            check(len(got_k) == len(want_k) and all(
+                same(g, w) for g, w in zip(got_k, want_k)),
+                f"the sink's records of {key} in request order")
+        delays = {"sink": [], "listener": []}
+        pool = list(hooked)
+        for w, d in want_hook:
+            i = next(i for i, (_, rec) in enumerate(pool) if same(rec, w))
+            delays["sink"].append(pool.pop(i)[0] - d)
+        for (at, _), d in zip(stream, done):
+            delays["listener"].append(at - d)
+        readings["delay_s"] = {k: {"median": float(np.median(v)),
+                                   "max": max(v), "all": v}
+                               for k, v in delays.items()}
+        # 5: the outage: the sink down, two PUTs stored, then replayed
+        sink.stop()
+        torch.cuda.synchronize()
+        s_out = snapshot()
+        c.put_object(EV_BUCKET, "ev/out1", out1)
+        c.put_object(EV_BUCKET, "ev/out2", out2)
+        torch.cuda.synchronize()
+        steps["outage_puts"] = delta(s_out, snapshot())
+        s_store = snapshot()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            rows = json.loads(c.request(
+                "GET", "/minio-tpu/admin/v1/targets").body)["targets"]
+            if rows and rows[0]["stored"] == 2 and not rows[0]["online"]:
+                break
+            time.sleep(0.05)
+        torch.cuda.synchronize()
+        steps["storing"] = delta(s_store, snapshot())
+        check(rows[0]["target"] == EV_ARN and not rows[0]["online"] and
+              rows[0]["stored"] == 2, f"the target offline: {rows}")
+        check(len(os.listdir(qdir)) == 2, f"queue_dir: {os.listdir(qdir)}")
+        sink.start()
+        before = len(sink.got())
+        torch.cuda.synchronize()
+        s_rep = snapshot()
+        t0 = time.perf_counter()
+        doc = json.loads(c.request(
+            "POST", "/minio-tpu/admin/v1/targets/replay").body)
+        readings["replay_s"] = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while len(sink.got()) < before + 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        steps["replay"] = delta(s_rep, snapshot())
+        readings["replayed"] = doc["replayed"]
+        check(sorted(rec["s3"]["object"]["key"] for _, rec in
+                     sink.got()[before:]) == ["ev/out1", "ev/out2"],
+              "the stored records replayed")
+        check(os.listdir(qdir) == [], "queue_dir emptied")
+        scrape = c.request("GET", "/minio-tpu/metrics", sign=False).body
+        check(b'mt_target_sent_total{target="' + EV_ARN.encode() +
+              b'",target_type="notify"} 10' in scrape and
+              b"mt_target_online" in scrape, "mt_target_* in the scrape")
+        # 6: the event's cost: a PUT and a GET of 16 MiB with the
+        # notification config and without, in alternating pairs
+        paired: dict = {"on": {"put": [], "get": []},
+                        "off": {"put": [], "get": []}}
+        for i in range(EV_PAIRS):
+            for side in (("on", "off") if i % 2 else ("off", "on")):
+                # an empty configuration removes the stored one
+                c.request("PUT", f"/{EV_BUCKET}", "notification",
+                          notification_xml(EV_ARN, "ev/") if side == "on"
+                          else b"<NotificationConfiguration/>")
+                key = f"ev/pair{i}{side}"
+                _, t = timed_step(steps, f"pair_put_{side}{i}", lambda:
+                                  c.put_object(EV_BUCKET, key, obj))
+                paired[side]["put"].append(t)
+                r, t = timed_step(steps, f"pair_get_{side}{i}", lambda:
+                                  c.get_object(EV_BUCKET, key))
+                check(r.body == obj, f"GET {key}")
+                paired[side]["get"].append(t)
+        readings["paired_s"] = paired
+        deadline = time.monotonic() + 30
+        while len(sink.got()) < before + 2 + 2 * EV_PAIRS and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(len(sink.got()) == before + 2 + 2 * EV_PAIRS,
+              "the paired steps' records: one PUT and one GET per pair on")
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+    finally:
+        sink.stop()
+        shutil.rmtree(qdir, ignore_errors=True)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"events path: {kernel} plain version ran")
+    for name in ("put", "get", "degraded_get"):
+        check(steps[name] == steps[f"{name}_before"],
+              f"{name} launches {steps[name]} against "
+              f"{steps[f'{name}_before']} without notification")
+    for name in ("put", "degraded_get", "multipart", "copy", "restore",
+                 "outage_puts"):
+        for kernel in ("gf8_apply", "hh256"):
+            check(steps[name][kernel][0] > 0,
+                  f"{kernel} not launched in the {name} step")
+    check(steps["get"]["hh256"][0] > 0, "Kernel B not launched in the GET")
+    for name in ("tag", "delete", "delivery", "storing", "replay"):
+        check(all(v == (0, 0) for v in steps[name].values()),
+              f"the {name} step launched a kernel: {steps[name]}")
+    for op in ("put", "get"):
+        for i in range(EV_PAIRS):
+            check(steps[f"pair_{op}_on{i}"] == steps[f"pair_{op}_off{i}"]
+                  == steps[f"{op}_before"], f"pair {i}: {op} launches")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    d = readings["delay_s"]
+    med = {side: {op: float(np.median(v)) for op, v in ops.items()}
+           for side, ops in readings["paired_s"].items()}
+    readings["paired_median_s"] = med
+    print(f"events path on {card}: {EV_PAIRS} alternating pairs, median "
+          f"16 MiB PUT {med['on']['put']:.4f} s with notification, "
+          f"{med['off']['put']:.4f} s without, GET {med['on']['get']:.4f} / "
+          f"{med['off']['get']:.4f} s; first 16 MiB PUT "
+          f"{readings['put_16mib_s']:.3f} s "
+          f"with notification, {readings['put_16mib_before_s']:.3f} s "
+          f"without; GET {readings['get_16mib_s']:.3f} / "
+          f"{readings['get_16mib_before_s']:.3f} s, degraded GET "
+          f"{readings['degraded_get_16mib_s']:.3f} / "
+          f"{readings['degraded_get_16mib_before_s']:.3f} s; delay to the "
+          f"sink median {d['sink']['median'] * 1e3:.2f} ms max "
+          f"{d['sink']['max'] * 1e3:.2f} ms, to the listener median "
+          f"{d['listener']['median'] * 1e3:.2f} ms max "
+          f"{d['listener']['max'] * 1e3:.2f} ms; replay of 2 "
+          f"{readings['replay_s'] * 1e3:.2f} ms; phase "
+          f"{readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -3564,7 +4023,8 @@ def main() -> int:
     id_path, id_readings = phase_identity(card, gen)
     pools_path, pools_readings = phase_pools(card, gen)
     copy_path, copy_readings, (tr_path, tr_readings), (
-        ts_path, ts_readings) = phase_copy_lock(bodies, card, gen)
+        ts_path, ts_readings), (ev_path, ev_readings) = phase_copy_lock(
+            bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -3576,7 +4036,8 @@ def main() -> int:
                    "pools_path": pools_path[k["name"]],
                    "copy_lock_path": copy_path[k["name"]],
                    "transform_path": tr_path[k["name"]],
-                   "tier_select_path": ts_path[k["name"]]}
+                   "tier_select_path": ts_path[k["name"]],
+                   "events_path": ev_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -3589,7 +4050,8 @@ def main() -> int:
                       "pools_path": pools_readings,
                       "copy_lock_path": copy_readings,
                       "transform_path": tr_readings,
-                      "tier_select_path": ts_readings}))
+                      "tier_select_path": ts_readings,
+                      "events_path": ev_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,14 @@ AccessDenied.  They answer JSON:
   POST pool-decommission?pool=  drain a pool (by index or id)
   POST pool-decommission-abort?pool=
   GET  rebalance-status         the rebalancer's state and counters
+  GET  targets                  each event target's delivery state,
+                                queue, store and counters
+                                (``obs/egress.py`` ``status``)
+  POST targets/replay           drain every target's store now;
+                                {"replayed": {"type/name": n}}
+
+These two answer for this server's targets only: the peers' rows are
+the distributed nodes' (ROADMAP Queue 1 item 18).
 
 An unknown user or policy answers 404, another IAM refusal 400, a
 malformed request 400, a pool route on a layer without pools 400 "not a
@@ -100,7 +108,8 @@ _RELOADS = {"api": "reload_api_config",
             "commit": "reload_commit_config",
             "heal": "reload_background_config",
             "scanner": "reload_background_config",
-            "rebalance": "reload_background_config"}
+            "rebalance": "reload_background_config",
+            "notify_webhook": "reload_egress_config"}
 
 
 def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
@@ -112,7 +121,7 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
         body = metrics.render(srv.layer, healer=srv.healer,
                               config=srv.config, api_stats=srv.api_stats,
                               crawler=srv.crawler,
-                              rebalancer=srv.rebalancer)
+                              rebalancer=srv.rebalancer, egress=srv.egress)
         h._send(200, body.encode(),
                 content_type="text/plain; version=0.0.4")
         return True
@@ -153,6 +162,12 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
                 "persisted": json.loads(info.to_json())
                 if info is not None else None,
                 "cache": srv.usage.snapshot_doc()})
+        if route == "targets" and h.command == "GET":
+            return send_json({"node": srv.api_stats.label,
+                              "targets": srv.egress.status()})
+        if route == "targets/replay" and h.command == "POST":
+            return send_json({"node": srv.api_stats.label,
+                              "replayed": srv.egress.replay_all()})
         if route == "background-status" and h.command == "GET":
             return send_json({**background_status(srv),
                               "node": srv.api_stats.label})

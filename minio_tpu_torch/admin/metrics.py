@@ -29,6 +29,10 @@ families computed at scrape time from the live server:
                           rates
   mt_mem_*                the memory governor (``utils/memgov.py``):
                           watermark, bytes in use per kind, peak, sheds
+  mt_target_*             each event target's deliveries, failures,
+                          drops, dead letters, queue and store lengths,
+                          state and delivery seconds (``obs/egress.py``);
+                          none on a server without targets
 
 Family names are the reference's, so its dashboards read the port.  A
 family that nothing fills is not rendered.
@@ -135,11 +139,12 @@ def _memgov_gauges() -> list[str]:
 
 
 def render(layer=None, healer=None, config=None, api_stats=None,
-           crawler=None, rebalancer=None) -> str:
+           crawler=None, rebalancer=None, egress=None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
     is the server's last-minute per-API ``OpWindows``; ``crawler`` and
-    ``rebalancer`` the server's loops.  Codec ops whose
+    ``rebalancer`` the server's loops; ``egress`` its event targets'
+    registry.  Codec ops whose
     device time is still being measured are settled first (those whose
     kernels have finished)."""
     from ..ops import codec
@@ -197,6 +202,8 @@ def render(layer=None, healer=None, config=None, api_stats=None,
         sources.append(lambda: _scanner_gauges(crawler))
     if rebalancer is not None:
         sources.append(lambda: _rebalance_metrics(rebalancer))
+    if egress is not None:
+        sources.append(lambda: _egress_metrics(egress))
     for fam in sources:
         try:
             lines += fam()
@@ -450,4 +457,46 @@ def _s3_lastminute_gauges(api_stats) -> list[str]:
         lines.append(f"mt_s3_api_last_minute_p99_ns{al}"
                      f" {w.p99() if w is not None else 0}")
         lines.append(f"mt_s3_api_last_minute_bytes{al} {b}")
+    return lines
+
+
+def _egress_metrics(egress) -> list[str]:
+    """The event targets' delivery families, labelled ``{target,
+    target_type}``; an empty registry renders none (reference
+    ``admin/metrics.py:532``)."""
+    stats = [(t, t.status()) for t in egress.targets()]
+    if not stats:
+        return []
+
+    def lbl(st) -> tuple:
+        return (("target", st["target"]), ("target_type", st["type"]))
+
+    lines: list[str] = []
+    for fam, key, kind in (
+            ("mt_target_sent_total", "sent", "counter"),
+            ("mt_target_failed_total", "failed", "counter"),
+            ("mt_target_dropped_total", "dropped", "counter"),
+            ("mt_target_dead_letter_total", "deadLettered", "counter"),
+            ("mt_target_queue_length", "queued", "gauge"),
+            ("mt_target_store_length", "stored", "gauge"),
+            ("mt_target_online", "online", "gauge")):
+        lines.append(f"# TYPE {fam} {kind}")
+        for _, st in stats:
+            v = int(st[key]) if key == "online" else st[key]
+            lines.append(f"{fam}{_fmt_labels(lbl(st))} {v}")
+    lines.append("# TYPE mt_target_delivery_seconds histogram")
+    for t, st in stats:
+        buckets, counts, total = t.delivery_hist()
+        labels = lbl(st)
+        for i, ub in enumerate(buckets):
+            le = 'le="%g"' % ub
+            lines.append("mt_target_delivery_seconds_bucket"
+                         f"{_fmt_labels(labels, le)} {counts[i]}")
+        le_inf = 'le="+Inf"'
+        lines.append("mt_target_delivery_seconds_bucket"
+                     f"{_fmt_labels(labels, le_inf)} {counts[len(buckets)]}")
+        lines.append("mt_target_delivery_seconds_sum"
+                     f"{_fmt_labels(labels)} {_fmt_value(total)}")
+        lines.append("mt_target_delivery_seconds_count"
+                     f"{_fmt_labels(labels)} {counts[len(buckets)]}")
     return lines

@@ -1,6 +1,5 @@
-"""A bucket's versioning state and configs: the policy, the lifecycle
-and the quota (``minio_tpu/objectlayer/bucket_meta.py``,
-cmd/bucket-metadata-sys.go).
+"""A bucket's versioning state and its configs
+(``minio_tpu/objectlayer/bucket_meta.py``, cmd/bucket-metadata-sys.go).
 
 The document is the reference's: JSON in every drive's system volume at
 ``.mt.sys/buckets/<bucket>/bucket-meta.json``, written with quorum,
@@ -10,8 +9,8 @@ A read takes the copy with the highest ``_rev``, so a drive that missed
 the last write cannot roll the state back.  Either package serving the
 drives sees the same state.  Over several sets the document lives on set
 0's drives, as the reference's ``ErasureSets._fanout`` keeps it.  The
-other configs the reference keeps in the same document (tagging, ...)
-are carried through, not read (ROADMAP Queue 1 item 16.5).  Every S3
+other configs are kept in the same document as raw text: tagging,
+object lock, encryption, replication and notification.  Every S3
 request looks up its bucket's policy, and every PUT its versioning, so a
 bucket found without a document is remembered as such (up to
 ``ABSENT_CAP`` names, so probes of random names cannot grow it) until

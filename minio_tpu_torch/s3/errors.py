@@ -128,6 +128,13 @@ _ERRORS = {e.code: e for e in (
              "Check the file and try again.", 400),
     APIError("JSONParsingError", "Encountered an error parsing the JSON "
              "file. Check the file and try again.", 400),
+    APIError("ReplicationConfigurationNotFoundError",
+             "The replication configuration was not found", 404),
+    APIError("NoSuchWebsiteConfiguration",
+             "The specified bucket does not have a website configuration",
+             404),
+    APIError("NoSuchCORSConfiguration",
+             "The CORS configuration does not exist", 404),
 )}
 # codes the reference answers under another code's name
 _ERRORS["InvalidCopySource"] = APIError(

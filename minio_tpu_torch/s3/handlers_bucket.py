@@ -3,27 +3,38 @@ cmd/bucket-handlers.go): ListBuckets, PUT/HEAD/DELETE bucket (a bucket
 created with ``x-amz-bucket-object-lock-enabled: true`` is versioned and
 lock-enabled), GET ``?location``, PUT and GET ``?versioning`` (a lock
 bucket cannot be suspended), PUT, GET and DELETE ``?policy`` (the bucket
-policy, ``bucket/policy.py``), ``?lifecycle`` (``bucket/lifecycle.py``)
-and ``?tagging`` (``bucket/tags.py``), PUT and GET ``?object-lock``
-(``bucket/objectlock.py``: the default retention of a lock bucket) and
-``?quota`` (``bucket/quota.py``), ListObjects V1 and V2,
-ListObjectVersions (``?versions``), ListMultipartUploads (``?uploads``),
-DeleteObjects, with version ids and each locked version refused, and
-the browser POST-policy upload.  PUT, GET and DELETE ``?encryption``
-keep the bucket's default encryption (``bucket/encryption.py``).  A
-listing gives each object's plain size (``_actual_size``) and its
-storage class (``x-amz-storage-class``, STANDARD when it has none; the
-reference's ListObjectVersions says STANDARD for every version).  Each authorises the reference's S3
-action on the bucket (on ``bucket/key`` for a key) before it touches
-the layer.  ``_make_handler`` (server.py) attaches them to the request
-handler; ``self`` is the handler and ``self.srv`` its server.
+policy, ``bucket/policy.py``), ``?lifecycle`` (``bucket/lifecycle.py``),
+``?tagging`` (``bucket/tags.py``), ``?encryption`` (the bucket's default
+encryption, ``bucket/encryption.py``) and ``?replication``
+(``bucket/replication.py``: stored and returned, acting on nothing yet;
+a bucket without versioning refuses it), PUT and GET ``?object-lock``
+(``bucket/objectlock.py``: the default retention of a lock bucket),
+``?quota`` (``bucket/quota.py``) and ``?notification``
+(``bucket/notification.py``: each ARN must name a registered target, an
+empty document removes the stored one), ``?acl`` (the canned private
+ACL only), ``?cors`` and the dummy ``?accelerate``,
+``?requestPayment``, ``?logging`` and ``?website`` (fixed answers,
+cmd/dummy-handlers.go), ListenNotification (GET ``?events``), ListObjects
+V1 and V2, ListObjectVersions (``?versions``), ListMultipartUploads
+(``?uploads``), DeleteObjects, with version ids and each locked version
+refused, and the browser POST-policy upload.  A listing gives each
+object's plain size (``_actual_size``) and its storage class
+(``x-amz-storage-class``, STANDARD when it has none; the reference's
+ListObjectVersions says STANDARD for every version).  Each authorises
+the reference's S3 action on the bucket (on ``bucket/key`` for a key)
+before it touches the layer.  ``_make_handler`` (server.py) attaches
+them to the request handler; ``self`` is the handler and ``self.srv``
+its server.
 """
 
 from __future__ import annotations
 
+import json
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket import notification
+from ..bucket import replication
 from ..bucket import tags as btags
 from ..bucket.encryption import SSEConfig
 from ..bucket.lifecycle import Lifecycle
@@ -37,14 +48,27 @@ from ..objectlayer import metacache
 from ..objectlayer.interface import PutObjectOptions
 from . import errors as s3err
 from . import postpolicy, sigv4
-from .server import (MAX_PUT_SIZE, S3_NS, S3Error, _actual_size, _iso_date,
-                     _try, _xml)
+from .server import (MAX_PUT_SIZE, S3_NS, S3Error, _actual_size,
+                     _canned_acl_xml, _iso_date, _try, _xml)
 
-# bucket subresources the port does not serve (the other configs, ACLs,
-# event listening: ROADMAP Queue 1 items 16.5, 16.8)
-UNSERVED = frozenset((
-    "replication", "notification", "acl", "cors", "website",
-    "accelerate", "requestPayment", "logging", "events"))
+# the dummy subresources (cmd/dummy-handlers.go) and their GET answers;
+# ``website`` has none (NoSuchWebsiteConfiguration)
+DUMMY = {
+    "accelerate": (
+        b'<?xml version="1.0" encoding="UTF-8"?>'
+        b'<AccelerateConfiguration xmlns="http://s3.amazonaws'
+        b'.com/doc/2006-03-01/"/>'),
+    "requestPayment": (
+        b'<?xml version="1.0" encoding="UTF-8"?>'
+        b'<RequestPaymentConfiguration xmlns="http://s3.'
+        b'amazonaws.com/doc/2006-03-01/"><Payer>BucketOwner'
+        b'</Payer></RequestPaymentConfiguration>'),
+    "logging": (
+        b'<?xml version="1.0" encoding="UTF-8"?>'
+        b'<BucketLoggingStatus xmlns="http://s3.amazonaws.com'
+        b'/doc/2006-03-01/"></BucketLoggingStatus>'),
+    "website": None,
+}
 
 
 def _list_buckets(self):
@@ -65,13 +89,25 @@ def _list_buckets(self):
 
 def _bucket_api(self, bucket, query, payload):
     cmd = self.command
+    for name in DUMMY:
+        if name in query:
+            return self._bucket_dummy(bucket, name)
     for name in CONFIGS:
         if name in query:
             return self._bucket_config(bucket, name, payload)
-    if "quota" in query:
-        return self._bucket_quota(bucket, payload)
+    if "notification" in query:
+        return self._bucket_notification(bucket, payload)
     if "object-lock" in query:
         return self._bucket_object_lock(bucket, payload)
+    if "quota" in query:
+        return self._bucket_quota(bucket, payload)
+    if "acl" in query:
+        return self._bucket_acl(bucket, payload)
+    if "cors" in query:
+        self._allow(iampol.GET_BUCKET_LOCATION, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        raise S3Error("NoSuchCORSConfiguration" if cmd == "GET"
+                      else "NotImplemented")
     if "versioning" in query:
         if cmd == "PUT":
             self._allow(iampol.PUT_BUCKET_VERSIONING, bucket)
@@ -91,6 +127,9 @@ def _bucket_api(self, bucket, query, payload):
     if cmd == "GET" and "versions" in query:
         self._allow(iampol.LIST_BUCKET_VERSIONS, bucket)
         return self._list_object_versions(bucket, query)
+    if cmd == "GET" and "events" in query:
+        self._allow(iampol.LISTEN_NOTIFICATION, bucket)
+        return self._listen_notification(bucket, query)
     if cmd == "POST" and "delete" in query:
         return self._delete_objects(bucket, payload)
     if cmd == "POST" and (self.headers.get("Content-Type") or ""
@@ -99,8 +138,8 @@ def _bucket_api(self, bucket, query, payload):
     if cmd == "GET" and "uploads" in query:
         self._allow(iampol.LIST_MULTIPART_UPLOADS, bucket)
         return self._list_uploads(bucket, query)
-    if UNSERVED & set(query) or cmd == "POST":
-        raise S3Error("NotImplemented")     # the other configs
+    if cmd == "POST":
+        raise S3Error("NotImplemented")
     if cmd == "PUT":
         self._allow(iampol.CREATE_BUCKET, bucket)
         self.srv.layer.make_bucket(bucket)
@@ -147,17 +186,23 @@ CONFIGS = {
                    "MalformedXML",
                    "ServerSideEncryptionConfigurationNotFoundError",
                    "application/xml"),
+    "replication": (iampol.GET_REPLICATION, iampol.PUT_REPLICATION,
+                    lambda body, b: replication.Config.parse(body).to_xml(),
+                    "MalformedXML", "ReplicationConfigurationNotFoundError",
+                    "application/xml"),
 }
 
 
 def _bucket_config(self, bucket, name, payload):
     """PUT, GET and DELETE ``?policy`` (cmd/bucket-policy-handlers.go),
     ``?lifecycle`` (cmd/bucket-lifecycle-handlers.go), ``?tagging``
-    (cmd/bucket-handlers.go PutBucketTaggingHandler) and ``?encryption``
-    (cmd/bucket-encryption-handlers.go): authorised before
-    the bucket's existence is checked, so a caller cannot tell a missing
-    bucket from a refused one.  The stored document is the parsed one
-    written back."""
+    (cmd/bucket-handlers.go PutBucketTaggingHandler), ``?encryption``
+    (cmd/bucket-encryption-handlers.go) and ``?replication``
+    (cmd/bucket-replication-handlers.go; InvalidRequest on a bucket
+    without versioning): authorised before the bucket's existence is
+    checked, so a caller cannot tell a missing bucket from a refused
+    one.  The stored document is the parsed one written back.  No
+    replication ARN is checked: there are no remote targets yet."""
     get_act, put_act, parse, bad, missing, ctype = CONFIGS[name]
     cmd = self.command
     if cmd not in ("PUT", "GET", "DELETE"):
@@ -169,6 +214,9 @@ def _bucket_config(self, bucket, name, payload):
             doc = parse(payload, bucket).decode()
         except (ValueError, KeyError) as e:
             raise S3Error(getattr(e, "code", bad)) from e
+        if name == "replication" and \
+                not self.srv.bucket_meta.versioning_enabled(bucket):
+            raise S3Error("InvalidRequest")
         self.srv.bucket_meta.set_config(bucket, name, doc)
         return self._send(200)
     if cmd == "GET":
@@ -178,6 +226,97 @@ def _bucket_config(self, bucket, name, payload):
         return self._send(200, raw.encode(), content_type=ctype)
     self.srv.bucket_meta.set_config(bucket, name, None)
     return self._send(204)
+
+
+def _bucket_notification(self, bucket, payload):
+    """PUT and GET ``?notification`` (cmd/bucket-notification-handlers.go):
+    a PUT naming an ARN that no registered target has is refused; one
+    without a configuration removes the stored one; a GET without one
+    answers the empty document."""
+    cmd = self.command
+    if cmd == "PUT":
+        self._allow(iampol.PUT_BUCKET_NOTIFICATION, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        cfg = _try(lambda: notification.Config.parse(
+            payload, valid_arns=self.srv.events.valid_arns()))
+        self.srv.bucket_meta.set_config(
+            bucket, "notification",
+            cfg.to_xml().decode() if cfg.targets else None)
+        return self._send(200)
+    if cmd == "GET":
+        self._allow(iampol.GET_BUCKET_NOTIFICATION, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        raw = self.srv.bucket_meta.get_config(bucket, "notification") \
+            or notification.Config().to_xml().decode()
+        return self._send(200, raw.encode())
+    raise S3Error("MethodNotAllowed")
+
+
+def _bucket_acl(self, bucket, payload):
+    """GET ``?acl`` answers the canned private ACL; PUT takes only
+    ``private`` or a FULL_CONTROL body (anything else NotImplemented)."""
+    cmd = self.command
+    if cmd == "GET":
+        self._allow(iampol.GET_BUCKET_ACL, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        return self._send(200, _canned_acl_xml())
+    if cmd == "PUT":
+        self._allow(iampol.PUT_BUCKET_ACL, bucket)
+        self.srv.layer.get_bucket_info(bucket)
+        if self.headers.get("x-amz-acl", "private") != "private" or (
+                payload and b"FULL_CONTROL" not in payload):
+            raise S3Error("NotImplemented")
+        return self._send(200)
+    raise S3Error("MethodNotAllowed")
+
+
+def _bucket_dummy(self, bucket, name):
+    """The dummy subresources (cmd/dummy-handlers.go), authorised as
+    GetBucketPolicy: GET answers the fixed default, DELETE ``?website``
+    succeeds, anything else is NotImplemented."""
+    self._allow(iampol.GET_BUCKET_POLICY, bucket)
+    self.srv.layer.get_bucket_info(bucket)
+    if name == "website" and self.command == "DELETE":
+        return self._send(204)
+    if self.command != "GET":
+        raise S3Error("NotImplemented")
+    if DUMMY[name] is None:
+        raise S3Error("NoSuchWebsiteConfiguration")
+    return self._send(200, DUMMY[name])
+
+
+def _listen_notification(self, bucket, query):
+    """ListenNotification (cmd/listen-notification-handlers.go): one
+    chunk of newline-ended ``{"Records": [...]}`` per event of the bucket
+    that matches ``prefix``, ``suffix`` and an ``events`` glob, until
+    ``max-events`` (1,000) or ``timeout`` seconds (10, at most 300) or
+    the server stops.  The subscription is in place when the status line
+    is sent; a listener holds its request slot while it streams."""
+    self.srv.layer.get_bucket_info(bucket)
+    q1 = {k: v[0] for k, v in query.items()}
+    prefix = q1.get("prefix", "")
+    suffix = q1.get("suffix", "")
+    names = query.get("events", []) or ["*"]
+    try:
+        timeout = min(float(q1.get("timeout", 10) or 10), 300.0)
+        max_events = int(q1.get("max-events", 1000) or 1000)
+    except ValueError as e:
+        raise S3Error("InvalidArgument") from e
+
+    def want(item) -> bool:
+        key = item["key"]
+        return item["bucket"] == bucket and key.startswith(prefix) and \
+            key.endswith(suffix) and any(
+                n == "*" or notification.match_pattern(n, item["name"])
+                for n in names)
+
+    sub = self.srv.events.pubsub.subscribe(want)
+    try:
+        self._send_chunked(200, (
+            json.dumps({"Records": [item["record"]]}).encode() + b"\n"
+            for item in sub.drain(max_events, timeout)), "application/json")
+    finally:
+        sub.close()
 
 
 def _bucket_object_lock(self, bucket, payload):
@@ -277,7 +416,7 @@ def _post_policy_upload(self, bucket, payload):
             parity=self._storage_class_parity(user_defined)))
     self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
-    self.srv.mark_changed(bucket, oi)
+    self.srv.notify("s3:ObjectCreated:Post", bucket, oi)
     hdrs = {"ETag": f'"{oi.etag}"', **csse.response_headers(user_defined)}
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id
@@ -511,7 +650,8 @@ def _delete_objects(self, bucket, payload):
 
 # the methods _make_handler attaches to the request handler
 HANDLERS = ["_list_buckets", "_bucket_api", "_bucket_config",
-            "_bucket_object_lock", "_bucket_quota",
+            "_bucket_notification", "_bucket_acl", "_bucket_dummy",
+            "_listen_notification", "_bucket_object_lock", "_bucket_quota",
             "_post_policy_upload", "_put_versioning",
             "_get_versioning", "_list_object_versions", "_list_uploads",
             "_encoding_type", "_list_objects", "_delete_objects"]

@@ -14,15 +14,20 @@ An object's tags (``?tagging``, ``x-amz-tagging``), retention and legal
 hold (``?retention``, ``?legal-hold``, the ``x-amz-object-lock-*``
 headers, else the bucket's default retention) are metadata, updated in
 place by ``put_object_metadata``; a DELETE of a version its lock
-protects answers ``ObjectLocked`` (``_delete_opts``).  Each handler
+protects answers ``ObjectLocked`` (``_delete_opts``).  ``?acl``
+answers the canned private ACL, and a PUT of it takes ``private`` only.
+Each handler
 authorises the reference's S3 action on ``bucket/key`` (``_allow``)
 before it reads a body or reaches the layer; CompleteMultipartUpload
 charges its largest part to the memory governor (``multipart``).  A
 write to a bucket with a hard quota is refused (403
 ``XMinioAdminBucketQuotaExceeded``) before its body is read when it
 would take the bucket past the limit, and a committed write is charged
-to the server's usage view (``_check_quota``, ``_charge_quota_usage``);
-every call that changes an object marks the data-update tracker.  A
+to the server's usage view (``_check_quota``, ``_charge_quota_usage``).
+Each call fires the event the reference fires there (``srv.notify``):
+a PUT, a copy, a completed upload, a tag, retention or legal-hold
+update, a restore, a DELETE, a GET and a HEAD; those that change the
+object also mark the data-update tracker.  A
 bucket's versioning and lock configuration come from
 ``self.srv.bucket_meta``.  ``_make_handler`` (server.py) attaches these
 functions to the request handler; ``self`` is the handler and
@@ -80,15 +85,12 @@ from . import errors as s3err
 from . import sigv2, sigv4
 from .server import (MAX_PUT_SIZE, RESERVED_BUCKETS, S3_NS,
                      STREAM_PUT_THRESHOLD, S3Error, _actual_size, _BUCKET_RE,
-                     _BodyReader, _http_date, _iso_date, _parse_range, _try,
-                     _xml)
+                     _BodyReader, _canned_acl_xml, _http_date, _iso_date,
+                     _parse_range, _try, _xml)
 
-# object subresources the port does not serve: ACLs (ROADMAP Queue 1
-# item 16.5)
-UNSERVED = frozenset(("acl",))
 # subresources answered on the buffered route only
-SUBRESOURCES = UNSERVED | {"tagging", "retention", "legal-hold", "select",
-                           "restore"}
+SUBRESOURCES = frozenset(("acl", "tagging", "retention", "legal-hold",
+                          "select", "restore"))
 STORAGE_CLASS = "x-amz-storage-class"
 # plain bytes decrypted per step of a transformed GET or copy: a whole
 # number of DARE packages
@@ -100,14 +102,23 @@ PRECONDITIONS = ("If-Match", "If-None-Match", "If-Modified-Since",
 def _object_api(self, bucket, key, query, payload):
     cmd = self.command
     resource = f"{bucket}/{key}"
-    if UNSERVED & set(query):
-        raise S3Error("NotImplemented")
     if "tagging" in query:
         return self._object_tagging(bucket, key, query, payload)
     if "retention" in query:
         return self._object_retention(bucket, key, query, payload)
     if "legal-hold" in query:
         return self._object_legal_hold(bucket, key, query, payload)
+    if "acl" in query:
+        if cmd == "GET":
+            self._allow(iampol.GET_OBJECT_ACL, resource)
+            self.srv.layer.get_object_info(bucket, key)
+            return self._send(200, _canned_acl_xml())
+        if cmd == "PUT":
+            self._allow(iampol.PUT_OBJECT_ACL, resource)
+            if self.headers.get("x-amz-acl", "private") != "private":
+                raise S3Error("NotImplemented")
+            return self._send(200)
+        raise S3Error("MethodNotAllowed")
     if cmd == "POST" and "select" in query and \
             query.get("select-type") == ["2"]:
         self._allow(iampol.GET_OBJECT, resource)
@@ -237,10 +248,10 @@ def _lock_date(dt: datetime.datetime) -> str:
 # -- PutObjectTaggingHandler, PutObjectRetentionHandler,
 # -- PutObjectLegalHoldHandler): metadata updated in place -----------------
 
-def _update_meta(self, bucket, key, vid, updates, removes=()) -> None:
+def _update_meta(self, event, bucket, key, vid, updates, removes=()):
     oi = self.srv.layer.put_object_metadata(bucket, key, vid, updates,
                                             removes)
-    self.srv.mark_changed(bucket, oi)
+    self.srv.notify(event, bucket, oi)
 
 
 def _object_tagging(self, bucket, key, query, payload):
@@ -249,7 +260,7 @@ def _object_tagging(self, bucket, key, query, payload):
     if self.command == "PUT":
         self._allow(iampol.PUT_OBJECT_TAGGING, resource)
         tags = _try(lambda: btags.parse_xml(payload))
-        self._update_meta(bucket, key, vid,
+        self._update_meta("s3:ObjectCreated:PutTagging", bucket, key, vid,
                           {btags.TAG_KEY: btags.to_header(tags)})
         return self._send(200)
     if self.command == "GET":
@@ -260,7 +271,8 @@ def _object_tagging(self, bucket, key, query, payload):
             oi.user_defined.get(btags.TAG_KEY, ""))))
     if self.command == "DELETE":
         self._allow(iampol.DELETE_OBJECT_TAGGING, resource)
-        self._update_meta(bucket, key, vid, {}, removes=(btags.TAG_KEY,))
+        self._update_meta("s3:ObjectCreated:DeleteTagging", bucket, key,
+                          vid, {}, removes=(btags.TAG_KEY,))
         return self._send(204)
     raise S3Error("MethodNotAllowed")
 
@@ -284,7 +296,7 @@ def _object_retention(self, bucket, key, query, payload):
                 or cur.mode == olock.GOVERNANCE
                 and not self._governance_bypass(resource)):
             raise S3Error("ObjectLocked")
-        self._update_meta(bucket, key, vid, {
+        self._update_meta("s3:ObjectCreated:PutRetention", bucket, key, vid, {
             olock.AMZ_OBJECT_LOCK_MODE: ret.mode,
             olock.AMZ_OBJECT_LOCK_RETAIN_UNTIL: _lock_date(ret.retain_until)})
         return self._send(200)
@@ -306,7 +318,7 @@ def _object_legal_hold(self, bucket, key, query, payload):
         if self.srv.bucket_meta.get_config(bucket, "object-lock") is None:
             raise S3Error("InvalidRequest")
         status = _try(lambda: olock.legal_hold_from_xml(payload))
-        self._update_meta(bucket, key, vid,
+        self._update_meta("s3:ObjectCreated:PutLegalHold", bucket, key, vid,
                           {olock.AMZ_OBJECT_LOCK_LEGAL_HOLD: status})
         return self._send(200)
     if self.command == "GET":
@@ -366,16 +378,18 @@ def _restore_object(self, bucket, key, query, payload):
             raise S3Error("MalformedXML") from e
     if days < 1:
         raise S3Error("InvalidArgument")
+    vid = _version_id(query)
     try:
-        fresh = self.srv.transition.restore(bucket, key, days,
-                                            version_id=_version_id(query))
+        fresh = self.srv.transition.restore(bucket, key, days, version_id=vid)
     except tiering.TierError as e:
         # only "not archived" is the client's mistake; a tier that fails
         # is the server's
         if "archived state" in str(e):
             raise S3Error("InvalidObjectState") from e
         raise S3Error("InternalError") from e
-    self.srv.mark_changed(bucket, ol.ObjectInfo(name=key))
+    self.srv.notify("s3:ObjectRestore:Completed", bucket,
+                    self.srv.layer.get_object_info(
+                        bucket, key, ObjectOptions(version_id=vid)))
     return self._send(202 if fresh else 200, b"")
 
 
@@ -518,7 +532,7 @@ def _put_object(self, bucket, key, payload):
         parity=self._storage_class_parity(user_defined)))
     self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
-    self.srv.mark_changed(bucket, oi)
+    self.srv.notify("s3:ObjectCreated:Put", bucket, oi)
     self._send(200, headers=_put_headers(oi, user_defined))
 
 
@@ -738,7 +752,7 @@ def _complete_multipart(self, bucket, key, query, payload):
     with GOVERNOR.charge(staged, "multipart"):
         oi = self.srv.layer.complete_multipart_upload(bucket, key, uid,
                                                       parts)
-    self.srv.mark_changed(bucket, oi)
+    self.srv.notify("s3:ObjectCreated:CompleteMultipartUpload", bucket, oi)
     out = ET.Element("CompleteMultipartUploadResult", xmlns=S3_NS)
     ET.SubElement(out, "Location").text = \
         f"{self.srv.endpoint}/{bucket}/{key}"
@@ -777,7 +791,9 @@ def _delete_object(self, bucket, key, query):
     res = self.srv.layer.delete_object(bucket, key, self._delete_opts(
         bucket, key, vid, versioned))
     self._free_tier_copy(tiered)
-    self.srv.mark_changed(bucket, res)
+    self.srv.notify("s3:ObjectRemoved:DeleteMarkerCreated"
+                    if res.delete_marker else "s3:ObjectRemoved:Delete",
+                    bucket, res)
     hdrs = {}
     if res.delete_marker:
         hdrs["x-amz-delete-marker"] = "true"
@@ -929,7 +945,7 @@ def _copy_object(self, bucket, key):
     finally:
         body.close()
     self._charge_quota_usage(bucket, oi.size)
-    self.srv.mark_changed(bucket, oi)
+    self.srv.notify("s3:ObjectCreated:Copy", bucket, oi)
     root = ET.Element("CopyObjectResult", xmlns=S3_NS)
     ET.SubElement(root, "ETag").text = f'"{oi.etag}"'
     ET.SubElement(root, "LastModified").text = _iso_date(oi.mod_time)
@@ -1047,7 +1063,7 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
                     parity=self._storage_class_parity(user_defined)))
             self._free_tier_copy(tiered)
             self._charge_quota_usage(bucket, oi.size)
-            self.srv.mark_changed(bucket, oi)
+            self.srv.notify("s3:ObjectCreated:Put", bucket, oi)
             self._send(200, headers=_put_headers(oi))
     except Exception as e:  # noqa: BLE001 — XML, as in dispatch
         self._fail(e, path)
@@ -1207,6 +1223,8 @@ def _get_object(self, bucket, key, query, head: bool):
         hdrs["x-amz-tagging-count"] = str(len(urllib.parse.parse_qsl(
             tag_hdr, keep_blank_values=True)))
     ct = oi.content_type or "binary/octet-stream"
+    self.srv.notify("s3:ObjectAccessed:Head" if head
+                    else "s3:ObjectAccessed:Get", bucket, oi)
     if head:
         _close(body)
         if oi.delete_marker:

@@ -25,11 +25,19 @@ given or set in the ``tls`` subsystem, serves the front over TLS
 (``secure/certs.py``), and a request with SSE-C headers over plain HTTP
 is refused (InsecureSSECustomerRequest) before it is authenticated.
 Transitions to a remote tier and their restore (``transition``, the
-tiers registered in ``tiers/tiers.json``) and S3 Select are served.
-What the port does not serve (ACLs, the other bucket configs, the LDAP
-and web-identity STS calls, the web UI, the admin routes of
-``admin/handlers.py`` it lacks) answers the S3 ``NotImplemented`` error
-document.  The health probes are served:
+tiers registered in ``tiers/tiers.json``) and S3 Select are served, and
+so are the replication and notification configs (stored; replication
+acts on nothing yet), the canned private ACL, CORS's and the dummy
+subresources' fixed answers.  ``events`` is the notification system
+(``events/``): every object call that the reference notifies fires its
+event (``notify``) to the ListenNotification streams (GET ``?events``)
+and, through the bucket's notification config, to the registered
+targets, whose delivery engines (``egress``, ``obs/egress.py``) are
+built from the ``notify_webhook`` subsystem (``reload_egress_config``).
+What the port does not serve (the LDAP and web-identity STS calls, the
+web UI, the broker targets, the admin routes of ``admin/handlers.py`` it
+lacks) answers the S3 ``NotImplemented`` error document.  The health
+probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
@@ -45,8 +53,9 @@ read budget (``_DeadlineRFile``), also when the read-ahead thread of a
 streamed PUT reads it; past it the request answers 408
 ``RequestTimeout``.  A charge the memory governor refuses
 (``utils/memgov.py``) answers 503 ``SlowDown`` with ``Retry-After``.
-``stop()`` closes the listener, lets in-flight requests finish for
-``shutdown_drain_s``, then severs what is left.
+``stop()`` closes the listener, ends the ListenNotification streams,
+lets in-flight requests finish for ``shutdown_drain_s``, then severs
+what is left and closes the notification system and the targets.
 
 The control plane: ``/minio-tpu/metrics`` (Prometheus, GET only, no
 auth) and the admin API under ``/minio-tpu/admin/v1/`` (identities
@@ -66,9 +75,10 @@ The background plane (``attach_background``): the heal sweep
 rebalancer (``rebalancer``) start and stop with the server.  ``usage``
 is the hard quota's view of bucket usage, refreshed
 by every crawler cycle; ``tracker`` (``attach_tracker``) is the
-data-update tracker, marked by ``mark_changed`` where an S3 call changed
-an object (the reference's event points, for mutations only) and read
-by the crawler and the listing metacache.
+data-update tracker, marked by ``notify`` where an S3 call changed an
+object (the reference's event points, but the reads: a GET or HEAD
+keeps the cached listing) and read by the crawler and the listing
+metacache.
 """
 
 from __future__ import annotations
@@ -76,6 +86,7 @@ from __future__ import annotations
 import datetime
 import email.utils
 import hashlib
+import logging
 import os
 import re
 import socket
@@ -91,12 +102,14 @@ from ..admin import metrics as _metrics
 from ..background.crawler import UsageCache
 from ..crypto import sse as csse
 from ..crypto.kms import kms_from_env
+from ..events import NotificationSys, WebhookTarget
 from ..iam import sts as _sts
 from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..objectlayer.metacache import leaf_layers_of, managers_of
 from ..objectlayer.tiering import TransitionSys
+from ..obs.egress import EgressRegistry, config_queue_limit
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..secure.certs import CertManager, enable_server_tls
@@ -295,6 +308,21 @@ def _actual_size(oi) -> int:
     return oi.size
 
 
+def _canned_acl_xml() -> bytes:
+    """The one ACL the server reports: the owner's FULL_CONTROL
+    (cmd/bucket-handlers.go GetBucketACLHandler)."""
+    root = ET.Element("AccessControlPolicy", xmlns=S3_NS)
+    ET.SubElement(ET.SubElement(root, "Owner"), "ID").text = "minio-tpu"
+    grant = ET.SubElement(ET.SubElement(root, "AccessControlList"), "Grant")
+    grantee = ET.SubElement(
+        grant, "Grantee",
+        {"xmlns:xsi": "http://www.w3.org/2001/XMLSchema-instance",
+         "xsi:type": "CanonicalUser"})
+    ET.SubElement(grantee, "ID").text = "minio-tpu"
+    ET.SubElement(grant, "Permission").text = "FULL_CONTROL"
+    return _xml(root)
+
+
 def _try(fn):
     """Run a document's parser; its ValueError answers the S3 error its
     ``code`` names, MalformedXML without one."""
@@ -335,6 +363,10 @@ class S3Server:
         # registered at ``tiers/tiers.json`` in the system volume
         self.transition = TransitionSys(layer)
         self.transition.load()
+        self.events = NotificationSys(self.bucket_meta, region=region)
+        # bucket replication between servers (ROADMAP Queue 1 item
+        # 16.8b): none yet, so a replication config names no checked ARN
+        self.replication = None
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
@@ -371,6 +403,14 @@ class S3Server:
         # the hard quota's usage view: the last persisted crawler
         # snapshot plus the writes since
         self.usage = UsageCache(layer)
+        # the event targets' delivery engines: what the scrape, the admin
+        # ``targets`` routes and ``stop()`` walk
+        self.egress = EgressRegistry()
+        self._webhook = None            # the notify_webhook target
+        # one reload at a time: two SetConfigKV calls must not both
+        # rebuild the same target
+        self._egress_reload_mu = threading.Lock()
+        self.reload_egress_config()
 
     def reload_api_config(self) -> None:
         """Take the request plane's knobs from the ``api`` subsystem:
@@ -491,10 +531,47 @@ class S3Server:
                 svc.usage_cache = self.usage
         self.reload_background_config()
 
-    def mark_changed(self, bucket: str, oi) -> None:
-        """An S3 call changed ``bucket/oi.name``: mark the tracker."""
-        if self.tracker is not None and oi is not None:
+    def reload_egress_config(self) -> None:
+        """(Re)build the webhook event target from the ``notify_webhook``
+        subsystem, at construction and after a SetConfigKV of it.  The
+        target it replaces is closed (what it still queues goes to its
+        store).  A bad config is logged and leaves no target.  The
+        logger, audit and alert webhooks are not ported (ROADMAP Queue 1
+        item 11), nor are the broker targets."""
+        with self._egress_reload_mu:
+            old, self._webhook = self._webhook, None
+            if old is not None:
+                self.events.remove_target(old.arn)
+                self.egress.remove(old)
+                old.close()
+            cfg = self.config
+            try:
+                if cfg.get("notify_webhook", "enable") != "on":
+                    return
+                lim = config_queue_limit(cfg, "notify_webhook",
+                                         "queue_limit")
+                t = WebhookTarget(
+                    "arn:minio:sqs::1:webhook",
+                    cfg.get("notify_webhook", "endpoint"),
+                    auth_token=cfg.get("notify_webhook", "auth_token"),
+                    store_dir=cfg.get("notify_webhook", "queue_dir") or None,
+                    queue_limit=lim, store_limit=lim)
+                self.egress.register(t)
+                self.events.register_target(t)
+                self._webhook = t
+            except Exception as e:  # noqa: BLE001 — a bad subsystem config
+                logging.getLogger("minio_tpu_torch").error(
+                    "egress: building notify_webhook target failed: %s", e)
+
+    def notify(self, event_name: str, bucket: str, oi,
+               req_params: dict | None = None) -> None:
+        """Fire a bucket event (the reference's ``notify``).  A call
+        that changed the object (every event but ``s3:ObjectAccessed:*``)
+        also marks the tracker, so a read keeps the cached listing."""
+        if self.tracker is not None and oi is not None and \
+                not event_name.startswith("s3:ObjectAccessed:"):
             self.tracker.mark(bucket, getattr(oi, "name", ""))
+        self.events.send(event_name, bucket, oi, req_params or {})
 
     def lookup_secret(self, access_key: str) -> str | None:
         return self.iam.lookup_secret(access_key)
@@ -535,6 +612,8 @@ class S3Server:
         # the listener closes first: new connections are refused while
         # the requests in flight drain
         self.httpd.server_close()
+        # a listener's stream ends now, not at its timeout
+        self.events.pubsub.close()
         if self.shutdown_drain_s > 0:
             with self._conns_mu:
                 idle = [c for c in self._conns
@@ -549,6 +628,9 @@ class S3Server:
         with self._conns_mu:
             conns = list(self._conns)
         _sever(conns)
+        # no event worker or sender thread outlives the server; queued
+        # records go to the targets' stores
+        self.events.close()
         self.layer.close()
         self.shutdown.set()
 

@@ -66,6 +66,9 @@ register_subsys("api", {
     # stop(): how long in-flight requests may finish once the listener
     # has closed (0: sever at once)
     "shutdown_drain_s": "5s",
+    # registered so a SetConfigKV of it is accepted; read by nothing, as
+    # in the reference
+    "cors_allow_origin": "*",
     # the memory governor (utils/memgov.py): its watermark (0: admit
     # everything; sizes as 268435456, 256MiB, 1GiB) and the Retry-After
     # of a shed
@@ -147,6 +150,14 @@ register_subsys("commit", {
     "max_batch": "16",
     "pack_threshold": "1048576",
     "segment_max_bytes": "67108864",
+})
+register_subsys("notify_webhook", {
+    # the webhook event target (events/targets.py, ARN
+    # arn:minio:sqs::1:webhook), rebuilt live on a change
+    # (s3/server.py reload_egress_config): ``queue_dir`` gives it a disk
+    # store, ``queue_limit`` bounds its queue and that store
+    "enable": "off", "endpoint": "", "auth_token": "", "queue_dir": "",
+    "queue_limit": "10000",
 })
 
 

@@ -1,13 +1,17 @@
 """Shared set-up of the object-feature tests (``test_torch_copy.py``,
-``test_torch_tagging.py``, ``test_torch_objectlock.py``): the same
+``test_torch_tagging.py``, ``test_torch_objectlock.py``,
+``test_torch_bucket_configs.py``, ``test_torch_events.py``): the same
 request to ``minio_tpu``'s server and the port's (``_torch_control``),
 their answers compared whole; the drives of the two compared byte for
-byte; and one wall clock for both packages' object-lock modules, so a
-bucket's default retention stamps the same retain-until date on each."""
+byte; one wall clock for both packages' object-lock modules, so a
+bucket's default retention stamps the same retain-until date on each;
+and the check that no event thread outlives its servers."""
 
 import datetime
 import os
 import re
+import threading
+import time
 import types
 
 import minio_tpu.bucket.objectlock as ref_olock
@@ -106,3 +110,20 @@ def pin_lock_clock(mp, now: datetime.datetime | None = None
     for mod in (ref_olock, port_olock):
         mp.setattr(mod, "datetime", fake)
     return now
+
+
+def assert_no_event_threads(timeout: float = 5.0, before=()) -> None:
+    """No event worker (``mt-event-send``), delivery sender
+    (``mt-egress-*``) or pool worker of the reference's notifier
+    (``event-send``) outlives its servers and targets; threads in
+    ``before`` (alive before the servers were built) aside."""
+    names = ("mt-event-send", "mt-egress-", "event-send")
+    deadline = time.monotonic() + timeout
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.name.startswith(names) and t.is_alive()
+                and t not in before]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
+    assert not left, left

@@ -38,8 +38,9 @@ from minio_tpu_torch.storage.xl_storage import SYS_DIR
 from ._torch_control import AK, BS, PER, SK, both, client, drive_no, servers
 from ._torch_versions import body
 
-PORT_SUBSYS = ("api", "commit", "compression", "drive", "heal", "pipeline",
-               "quota", "rebalance", "scanner", "storage_class", "tls")
+PORT_SUBSYS = ("api", "commit", "compression", "drive", "heal",
+               "notify_webhook", "pipeline", "quota", "rebalance", "scanner",
+               "storage_class", "tls")
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,8 @@ from minio_tpu_torch.utils import kvconfig as port_kv
 
 PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
                      "read_header_timeout", "body_deadline", "body_min_rate",
-                     "shutdown_drain_s", "mem_limit", "mem_retry_after",
-                     "select_block_bytes"],
+                     "shutdown_drain_s", "cors_allow_origin", "mem_limit",
+                     "mem_retry_after", "select_block_bytes"],
              "heal": ["bitrotscan", "max_sleep"],
              "drive": ["slow_latency_multiple", "slow_min_samples"],
              "pipeline": ["depth", "queue_depth"],
@@ -24,7 +24,9 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "rebalance": ["enable", "max_workers", "bandwidth"],
              "storage_class": ["standard", "rrs"],
              "compression": ["enable", "extensions", "mime_types"],
-             "tls": ["enable", "certs_dir"]}
+             "tls": ["enable", "certs_dir"],
+             "notify_webhook": ["enable", "endpoint", "auth_token",
+                                "queue_dir", "queue_limit"]}
 
 
 def test_registers_only_the_keys_the_port_reads():
@@ -79,8 +81,7 @@ def test_keys_the_port_leaves_out_are_refused():
     cfg = port_kv.Config()
     for subsys, key in (("pipeline", "md5_lanes"), ("pipeline", "md5_backend"),
                         ("pipeline", "mesh_batch_bytes"), ("heal", "max_io"),
-                        ("commit", "enable"), ("commit", "group_window_us"),
-                        ("api", "cors_allow_origin")):
+                        ("commit", "enable"), ("commit", "group_window_us")):
         with pytest.raises(KeyError):
             cfg.set(subsys, key, "1")
 

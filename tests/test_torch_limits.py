@@ -33,7 +33,8 @@ API_DEFAULTS = {"requests_max": "0", "requests_queue": "0",
                 "requests_deadline": "10s", "body_deadline": "2m",
                 "body_min_rate": "1048576", "mem_limit": "0",
                 "mem_retry_after": "1s", "read_header_timeout": "30s",
-                "shutdown_drain_s": "5s", "select_block_bytes": "1048576"}
+                "shutdown_drain_s": "5s", "select_block_bytes": "1048576",
+                "cors_allow_origin": "*"}
 
 
 @pytest.fixture(scope="module")

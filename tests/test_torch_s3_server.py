@@ -695,11 +695,12 @@ def test_unserved_answers_not_implemented(pair, method, path, query,
                                           headers):
     """What the port does not serve answers NotImplemented.  Tagging,
     object lock, copy, SSE, the bucket's default encryption, storage
-    classes and restore are served now: those requests answer as
-    ``NOW_SERVED`` says (each is compared with the reference in
-    ``test_torch_copy.py``, ``test_torch_tagging.py``,
-    ``test_torch_objectlock.py``, ``test_torch_sse.py``,
-    ``test_torch_storage_class.py`` and ``test_torch_tiering.py``)."""
+    classes, restore, ACLs, CORS and the replication and notification
+    configs are served now: those requests answer as ``NOW_SERVED`` says
+    (each is compared with the reference in ``test_torch_copy.py``,
+    ``test_torch_tagging.py``, ``test_torch_objectlock.py``,
+    ``test_torch_sse.py``, ``test_torch_storage_class.py``,
+    ``test_torch_tiering.py`` and ``test_torch_bucket_configs.py``)."""
     url = f"http://127.0.0.1:{pair.port.port}{path}" + \
         (f"?{query}" if query else "")
     _, hdrs, body = signed("v4", method, url, b"", headers,
@@ -729,6 +730,11 @@ NOW_SERVED = {
     ("PUT", f"/{B}/k", "", "x-amz-server-side-encryption"): (200, None),
     ("PUT", f"/{B}/k", "", "x-amz-storage-class"): (200, None),
     ("POST", f"/{B}/k", "restore"): (404, "NoSuchKey"),
+    ("GET", f"/{B}", "cors"): (404, "NoSuchCORSConfiguration"),
+    ("GET", f"/{B}/rt/packed", "acl"): (200, None),
+    ("GET", f"/{B}", "replication"):
+        (404, "ReplicationConfigurationNotFoundError"),
+    ("GET", f"/{B}", "notification"): (200, None),
 }
 
 
