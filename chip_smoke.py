@@ -258,7 +258,30 @@
    replay launch nothing; no plain version.  The PUT's seconds with and
    without notification, the median and largest delay from a response
    to its record at the sink and at the listener, the replay's seconds.
-18. One JSON line of readings, one describing each kernel, the card line,
+18. Bucket replication, on phase 17's server before it stops: a second
+   ``build_server`` (16 drives, one 12 + 4 set, 10 MiB blocks, on the
+   card) in this process is the destination.  ``set-remote-target`` and
+   ``list-remote-targets``; a replication rule on ``in/`` naming an
+   unknown ARN refused, then one naming the target.  A 16 MiB PUT
+   outside the rule, its GET, and a 16 MiB PUT straight to the
+   destination, each alone; then under ``in/``, each step drained: a
+   16 MiB PUT with an ``x-amz-meta-*`` header and a content type, a
+   2 x 8 MiB upload, a copy, two PUTs of one key back to back, a DELETE
+   (a marker, DeleteMarkerReplication on) and a PUT outside the rule.
+   Every replica's GET equals the source's GET with its metadata, both
+   versions of the twice-written key arrive with the newer latest,
+   every source version is stamped COMPLETED, ``replication-stats``
+   holds the counts.  An SSE-S3 16 MiB object arrives as its GET gives
+   it.  ``set-bandwidth-limit`` at 8 MiB/s: a 16 MiB task sleeps at
+   least 0.9 s and ``bandwidth`` reports the bytes moved.  The
+   destination stopped, a PUT's task fails and stamps FAILED.  The
+   scrape carries ``mt_replication_*`` and ``background-status`` its
+   ``replication`` field.  Each replicated PUT launches what the PUT,
+   the source GET and the destination PUT launch alone, the throttled one
+   too; the registry, the replicated DELETE and a stamp launch nothing;
+   no plain version.  The seconds from each 16 MiB PUT's response to its
+   COMPLETED stamp (median and largest) and the throttled task's.
+19. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -2207,6 +2230,7 @@ def phase_listing(srv, root: str, card: str, gen, expected: dict):
     check(launched(s_ilm0, snapshot()) == 0, "an expiry launched a kernel")
     gone = sorted(k for b, k, _ in res.expired if b == ILM_BUCKET)
     check(gone == exp_keys, f"expired {gone}")
+    check(res.restubbed == [], f"stubs put back: {res.restubbed}")
     check([o["key"] for o in client.list_objects(ILM_BUCKET)["objects"]]
           == keep_keys, "listing after the expiry")
     on_drives = [f"d{d}/{ILM_BUCKET}/{k}" for d in range(2 * (K + M))
@@ -3111,6 +3135,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
         transform = phase_transform(srv, card, gen)
         tier_select = phase_tier_select(srv, card)
         events = phase_events(srv, card, gen)
+        replication = phase_replication(srv, card, gen)
     finally:
         srv.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -3138,7 +3163,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
           f"{readings['tag_call_ms']:.2f} ms; refusals "
           f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
     return ({k: v[0] for k, v in launches.items()}, readings, transform,
-            tier_select, events)
+            tier_select, events, replication)
 
 
 def text_body(size: int) -> bytes:
@@ -3394,6 +3419,7 @@ def phase_tier_select(srv, card: str):
             srv.crawler.transition_fn = transition
         check(sorted(res.transitioned) == sorted(
             ("tiered", k) for k in bodies), f"transitioned {res.transitioned}")
+        check(res.restubbed == [], f"stubs put back: {res.restubbed}")
         readings["transition_s"] = moves
         readings["crawler_cycle_s"] = t
         stub_select = select_request(SEL_AGG, "<CSV/>")
@@ -3981,6 +4007,261 @@ def phase_events(srv, card: str, gen):
           f"{readings['phase_s']:.1f} s")
     return {k: v[0] for k, v in launches.items()}, readings
 
+REPL_SRC, REPL_DST = "replsrc", "repldst"                        # phase 18
+REPL_OBJ, REPL_PART = 16 << 20, 8 << 20
+REPL_LIMIT = REPL_OBJ // 2          # a REPL_OBJ task sleeps about 1 s
+REPL_ARN = "arn:minio:replication::1:" + REPL_DST
+
+
+def replication_xml(arn: str, prefix: str) -> bytes:
+    return (b'<ReplicationConfiguration><Rule><ID>r1</ID><Status>Enabled'
+            b'</Status><Priority>1</Priority><DeleteMarkerReplication>'
+            b'<Status>Enabled</Status></DeleteMarkerReplication><Filter>'
+            b'<Prefix>' + prefix.encode() + b'</Prefix></Filter>'
+            b'<Destination><Bucket>' + arn.encode() + b'</Bucket>'
+            b'</Destination></Rule></ReplicationConfiguration>')
+
+
+def phase_replication(srv, card: str, gen):
+    """Phase 18: bucket replication from the running server of phases
+    14-17 to a second ``build_server`` (one set of 16 drives, 12 + 4),
+    both in this process on the one card.  Returns the launches and the
+    readings."""
+    import threading
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.background.replication import STATUS_KEY
+    from minio_tpu_torch.objectlayer.interface import ObjectOptions
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.server_main import build_server
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip-smoke-repl-")
+    dst = build_server([f"{root}/d{i}" for i in range(K + M)], "127.0.0.1:0",
+                       S3_KEY, S3_SECRET, BLOCK, device="cuda")
+    dst.start()
+    dst_up = True
+    c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    cd = S3Client(dst.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    blob = rand_bytes((10, REPL_OBJ), gen).cpu().numpy()
+    objs = [blob[i].tobytes() for i in range(len(blob))]
+    readings: dict = {}
+    steps: dict = {}
+    answered: dict = {}         # (key, version id) -> response time
+    done: dict = {}             # (key, version id) -> task end time
+    try:
+        for client, b in ((c, REPL_SRC), (cd, REPL_DST), (cd, "repllocal")):
+            client.make_bucket(b)
+            client.set_bucket_versioning(b, True)
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+
+        # 1: the target, then the rule, its ARN checked
+        def registry():
+            adm.set_remote_target(REPL_SRC, {
+                "arn": REPL_ARN, "endpoint": dst.endpoint,
+                "target_bucket": REPL_DST, "access_key": S3_KEY,
+                "secret_key": S3_SECRET})
+            return adm.list_remote_targets()
+        listed, _ = timed_step(steps, "registry", registry)
+        check(listed[REPL_SRC]["arn"] == REPL_ARN and
+              listed[REPL_SRC]["endpoint"] == dst.endpoint,
+              f"list-remote-targets: {listed}")
+        repl = srv.replication
+        check(repl is not None and len(repl._threads) == 2,
+              "set-remote-target started two workers")
+        check(s3_code(lambda: c.request(
+            "PUT", f"/{REPL_SRC}", "replication",
+            replication_xml("arn:minio:replication::1:nosuch", "in/"))) ==
+            "ReplicationDestinationNotFoundError", "an unknown ARN refused")
+        c.request("PUT", f"/{REPL_SRC}", "replication",
+                  replication_xml(REPL_ARN, "in/"))
+        # each task's end, for the seconds from a response to the stamp
+        run_one = repl._replicate_one
+
+        def timed_one(bucket, name, vid, delete):
+            out = run_one(bucket, name, vid, delete)
+            done[(name, vid)] = time.perf_counter()
+            return out
+        repl._replicate_one = timed_one
+
+        def drained(fn):
+            def run():
+                out = fn()
+                check(repl.drain(120), "replication drained")
+                return out
+            return run
+
+        def put(key, data, headers=None):
+            r = c.put_object(REPL_SRC, key, data, headers)
+            answered[(key, r.headers["x-amz-version-id"])] = \
+                time.perf_counter()
+            return r
+
+        # 2: the launches of what replication adds, each alone
+        _, t = timed_step(steps, "put_alone", lambda: put(
+            "out/alone", objs[0]))
+        readings["put_alone_s"] = t
+        r, _ = timed_step(steps, "get_alone", lambda: c.get_object(
+            REPL_SRC, "out/alone"))
+        check(r.body == objs[0], "GET out/alone")
+        timed_step(steps, "dest_put_alone", lambda: cd.put_object(
+            "repllocal", "k", objs[0]))
+        # 3: the replicated writes
+        _, t = timed_step(steps, "put", drained(lambda: put(
+            "in/one", objs[1], {"x-amz-meta-phase": "18",
+                                "Content-Type": "application/x-smoke"})))
+        readings["put_replicated_s"] = t
+
+        def multipart():
+            uid, parts, _ = c.upload_parts(REPL_SRC, "in/mp", objs[2],
+                                           REPL_PART, 2)
+            r = c.complete_multipart_upload(REPL_SRC, "in/mp", uid, parts)
+            answered[("in/mp", r.headers["x-amz-version-id"])] = \
+                time.perf_counter()
+        timed_step(steps, "multipart", drained(multipart))
+
+        def copy():
+            r = c.copy_object(REPL_SRC, "in/copy", REPL_SRC, "in/one")
+            answered[("in/copy", r.headers["x-amz-version-id"])] = \
+                time.perf_counter()
+        timed_step(steps, "copy", drained(copy))
+        timed_step(steps, "twice", drained(lambda: [
+            put("in/twice", objs[3]), put("in/twice", objs[4])]))
+        timed_step(steps, "delete", drained(lambda: c.delete_object(
+            REPL_SRC, "in/copy")))
+        timed_step(steps, "outside", drained(lambda: put(
+            "out/skip", objs[5])))
+        vid = srv.layer.get_object_info(REPL_SRC, "in/one").version_id
+        timed_step(steps, "stamp", lambda: srv.layer.put_object_metadata(
+            REPL_SRC, "in/one", vid, {STATUS_KEY: "COMPLETED"}))
+        # 4: what arrived
+        for key, want in (("in/one", objs[1]), ("in/mp", objs[2]),
+                          ("in/twice", objs[4])):
+            src_get, dst_get = (cl.get_object(b, key) for cl, b in (
+                (c, REPL_SRC), (cd, REPL_DST)))
+            check(src_get.body == want and dst_get.body == want,
+                  f"the replica of {key}")
+            for h, v in src_get.headers.items():
+                if h.lower().startswith("x-amz-meta-") or h == \
+                        "Content-Type":
+                    check(dst_get.headers.get(h) == v,
+                          f"{key}'s {h} on the replica")
+        check(cd.get_object(REPL_DST, "in/one").headers.get(
+            "x-amz-meta-phase") == "18", "metadata carried")
+        dvers = cd.list_object_versions(REPL_DST, "in/twice")
+        check([cd.get_object(REPL_DST, "in/twice", version_id=v[
+            "version_id"]).body for v in dvers] == [objs[4], objs[3]],
+            "both versions of in/twice, the newer latest")
+        check([v["delete_marker"] for v in cd.list_object_versions(
+            REPL_DST, "in/copy")] == [True, False], "the marker replicated")
+        check(cd.list_objects(REPL_DST, "out/")["objects"] == [],
+              "nothing outside the rule replicated")
+        for v in c.list_object_versions(REPL_SRC, "in/"):
+            if not v["delete_marker"]:
+                ud = srv.layer.get_object_info(REPL_SRC, v["key"], (
+                    ObjectOptions(version_id=v["version_id"]))).user_defined
+                check(ud.get(STATUS_KEY) == "COMPLETED",
+                      f"{v['key']} {v['version_id']}: {ud.get(STATUS_KEY)}")
+        st = adm.replication_stats()
+        check(st == {"queued": 6, "replicated": 5, "failed": 0,
+                     "deletesReplicated": 1, "replicaBytes": 5 * REPL_OBJ},
+              f"replication-stats {st}")
+        # 5: an SSE-S3 object reaches the destination as its GET gives it
+        _, t = timed_step(steps, "sse", drained(lambda: put(
+            "in/sse", objs[6], SSE_S3)))
+        check(srv.layer.get_object(REPL_SRC, "in/sse")[1] != objs[6],
+              "stored encrypted")
+        check(cd.get_object(REPL_DST, "in/sse").body == objs[6] ==
+              c.get_object(REPL_SRC, "in/sse").body, "the SSE-S3 replica")
+        readings["sse_put_replicated_s"] = t
+        # 6: the bandwidth limit
+        adm.set_bandwidth_limit(REPL_SRC, REPL_LIMIT)
+        _, t = timed_step(steps, "throttled", drained(lambda: put(
+            "in/slow", objs[7])))
+        vid = srv.layer.get_object_info(REPL_SRC, "in/slow").version_id
+        slow = done[("in/slow", vid)] - answered[("in/slow", vid)]
+        readings["throttled_s"] = slow
+        check(slow >= 0.9, f"throttled to {REPL_LIMIT} B/s: {slow:.3f} s")
+        bw = adm.bandwidth()[REPL_SRC]
+        check(bw == {"limitInBytesPerSecond": REPL_LIMIT,
+                     "totalBytesMoved": 7 * REPL_OBJ}, f"bandwidth {bw}")
+        adm.set_bandwidth_limit(REPL_SRC, 0)
+        # 7: the destination down: the task fails, its version FAILED
+        dst.stop()
+        dst_up = False
+        _, t = timed_step(steps, "failure", drained(lambda: put(
+            "in/lost", objs[8])))
+        vid = srv.layer.get_object_info(REPL_SRC, "in/lost").version_id
+        ud = srv.layer.get_object_info(REPL_SRC, "in/lost", ObjectOptions(
+            version_id=vid)).user_defined
+        check(ud.get(STATUS_KEY) == "FAILED", f"in/lost: {ud.get(STATUS_KEY)}")
+        check(adm.replication_stats()["failed"] == 1, "failed counted")
+        # 8: the scrape and background-status
+        scrape = parse_scrape(adm.metrics())
+        for fam, want in (("mt_replication_objects_total", 7),
+                          ("mt_replication_failed_total", 1),
+                          ("mt_replication_deletes_total", 1),
+                          ("mt_replication_pending", 0)):
+            check(scrape.get((fam, ())) == want,
+                  f"{fam} {scrape.get((fam, ()))}, want {want}")
+        bg = json.loads(c.request(
+            "GET", "/minio-tpu/admin/v1/background-status").body)
+        check(bg["replication"]["stats"]["replicated"] == 7,
+              f"background-status {bg['replication']}")
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+        check(not [t for t in threading.enumerate() if t.name.startswith(
+            "mt-repl-worker-") and t not in repl._threads],
+            "only the source's replication workers run")
+    finally:
+        if dst_up:
+            dst.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"replication path: {kernel} plain version ran")
+
+    def plus(*names):
+        return {k: tuple(sum(steps[n][k][i] for n in names) for i in (0, 1))
+                for k in KERNELS}
+    one = plus("put_alone", "get_alone", "dest_put_alone")
+    for name in ("put", "throttled"):
+        check(steps[name] == one, f"{name} launches {steps[name]}, want "
+              f"the PUT's, the source read's and the destination PUT's "
+              f"{one}")
+    check(steps["twice"] == {k: (2 * v[0], 2 * v[1]) for k, v in one.items()},
+          f"two PUTs of in/twice: {steps['twice']}")
+    check(steps["outside"] == steps["put_alone"],
+          f"a PUT outside the rule launched {steps['outside']}")
+    check(steps["failure"] == plus("put_alone", "get_alone"),
+          f"the failed task launched {steps['failure']}")
+    for name in ("multipart", "copy", "sse"):
+        for kernel in ("gf8_apply", "hh256"):
+            check(steps[name][kernel][0] > 0,
+                  f"{kernel} not launched in the {name} step")
+    for name in ("registry", "delete", "stamp"):
+        check(all(v == (0, 0) for v in steps[name].values()),
+              f"the {name} step launched a kernel: {steps[name]}")
+    lags = [done[k] - answered[k] for k in answered
+            if k[0] not in ("in/slow", "in/lost") and k in done]
+    readings.update(
+        response_to_completed_s={"median": float(np.median(lags)),
+                                 "max": max(lags), "all": lags},
+        phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    lag = readings["response_to_completed_s"]
+    print(f"replication path on {card}: a {REPL_OBJ / 2**20:g} MiB PUT "
+          f"{readings['put_alone_s']:.3f} s alone, "
+          f"{readings['put_replicated_s']:.3f} s with its replication "
+          f"drained; from a response to its COMPLETED stamp median "
+          f"{lag['median']:.3f} s, max {lag['max']:.3f} s over "
+          f"{len(lags)} PUTs; throttled to {REPL_LIMIT / 2**20:g} MiB/s "
+          f"{readings['throttled_s']:.3f} s; phase "
+          f"{readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -4023,8 +4304,8 @@ def main() -> int:
     id_path, id_readings = phase_identity(card, gen)
     pools_path, pools_readings = phase_pools(card, gen)
     copy_path, copy_readings, (tr_path, tr_readings), (
-        ts_path, ts_readings), (ev_path, ev_readings) = phase_copy_lock(
-            bodies, card, gen)
+        ts_path, ts_readings), (ev_path, ev_readings), (
+        repl_path, repl_readings) = phase_copy_lock(bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -4037,7 +4318,8 @@ def main() -> int:
                    "copy_lock_path": copy_path[k["name"]],
                    "transform_path": tr_path[k["name"]],
                    "tier_select_path": ts_path[k["name"]],
-                   "events_path": ev_path[k["name"]]}
+                   "events_path": ev_path[k["name"]],
+                   "replication_path": repl_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -4051,7 +4333,8 @@ def main() -> int:
                       "copy_lock_path": copy_readings,
                       "transform_path": tr_readings,
                       "tier_select_path": ts_readings,
-                      "events_path": ev_readings}))
+                      "events_path": ev_readings,
+                      "replication_path": repl_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

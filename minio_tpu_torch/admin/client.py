@@ -10,6 +10,8 @@ the metrics scrape.
     adm.set_bucket_quota("bucket", 1 << 30)
     usage = adm.data_usage_info()
     adm.pool_add(dirs, 1, 16, parity=4)       # a pools layer only
+    adm.set_remote_target("src", {"arn": arn, "endpoint": url,
+                                  "target_bucket": "dst", ...})
     text = adm.metrics()
 """
 
@@ -199,6 +201,35 @@ class AdminClient:
         """The rebalancer's state: enabled, draining pools, bandwidth,
         counters, cycle progress."""
         return self._call("GET", "rebalance-status")
+
+    # -- bucket replication --------------------------------------------------
+
+    def set_remote_target(self, source_bucket: str, target: dict) -> None:
+        """The bucket's replication target (madmin SetRemoteTarget):
+        ``target`` holds ``arn``, ``endpoint``, ``target_bucket``,
+        ``access_key``, ``secret_key`` and ``region``."""
+        self._call("POST", "set-remote-target", body=json.dumps(
+            {"sourceBucket": source_bucket, **target}).encode())
+
+    def list_remote_targets(self) -> dict:
+        return self._call("GET", "list-remote-targets")
+
+    def remove_remote_target(self, bucket: str) -> None:
+        """Detach the bucket's target (madmin RemoveRemoteTarget); its
+        queued tasks send nothing, and their versions stay PENDING."""
+        self._call("POST", "remove-remote-target", f"bucket={bucket}")
+
+    def replication_stats(self) -> dict:
+        return self._call("GET", "replication-stats")
+
+    def bandwidth(self) -> dict:
+        """Per bucket: the replication limit and the bytes moved."""
+        return self._call("GET", "bandwidth")
+
+    def set_bandwidth_limit(self, bucket: str, limit: int) -> None:
+        """Bytes/s for the bucket's replication; 0 lifts the limit."""
+        self._call("POST", "set-bandwidth-limit",
+                   f"bucket={bucket}&limit={limit}")
 
     def kms_key_status(self) -> dict:
         return self._call("GET", "kms-key-status")

@@ -48,9 +48,11 @@ AccessDenied.  They answer JSON:
   GET  get-bucket-quota?bucket=
   POST set-bucket-quota?bucket= {"quota": bytes, "quotatype": "hard"}
   POST clear-bucket-quota?bucket=
-  GET  background-status        the heal sweep's, the crawler's and the
-                                rebalancer's progress (replication and
-                                mrf null: the port has none)
+  GET  background-status        the heal sweep's, the crawler's, the
+                                replication plane's and the
+                                rebalancer's progress (mrf null: the
+                                port has none; replication null until a
+                                remote target is set or loaded)
   GET  pool-status              each pool's index, id, status, geometry,
                                 free bytes and, after a crawler cycle, its
                                 usedBytes and objects
@@ -64,13 +66,28 @@ AccessDenied.  They answer JSON:
                                 (``obs/egress.py`` ``status``)
   POST targets/replay           drain every target's store now;
                                 {"replayed": {"type/name": n}}
+  POST set-remote-target        {"sourceBucket", "arn", "endpoint",
+                                "target_bucket", "access_key",
+                                "secret_key", "region"}: the bucket's
+                                replication target (persisted in
+                                ``replication/targets.json``); starts
+                                the replication plane
+  GET  list-remote-targets      {bucket: target}
+  POST remove-remote-target?bucket=
+  GET  replication-stats        queued, replicated, replicaBytes,
+                                failed, deletesReplicated
+  GET  bandwidth                per bucket: limitInBytesPerSecond,
+                                totalBytesMoved
+  POST set-bandwidth-limit?bucket=&limit=  bytes/s; 0 lifts it
 
 These two answer for this server's targets only: the peers' rows are
 the distributed nodes' (ROADMAP Queue 1 item 18).
 
 An unknown user or policy answers 404, another IAM refusal 400, a
 malformed request 400, a pool route on a layer without pools 400 "not a
-pooled deployment", a refused pool change 400.  Every other admin route
+pooled deployment", a refused pool change 400, a replication route
+that needs the plane before it runs 400 "replication not enabled", the
+removal of a target a bucket does not have 404.  Every other admin route
 answers the S3 NotImplemented error.  The reference's heal route lists only latest
 versions and stops at 10,000 objects
 (``minio_tpu/admin/handlers.py:1427-1454``); this one pages and heals
@@ -121,7 +138,8 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
         body = metrics.render(srv.layer, healer=srv.healer,
                               config=srv.config, api_stats=srv.api_stats,
                               crawler=srv.crawler,
-                              rebalancer=srv.rebalancer, egress=srv.egress)
+                              rebalancer=srv.rebalancer, egress=srv.egress,
+                              replication=srv.replication)
         h._send(200, body.encode(),
                 content_type="text/plain; version=0.0.4")
         return True
@@ -177,6 +195,9 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
         quota_route = _QUOTA_ROUTES.get((h.command, route))
         if quota_route is not None:
             return quota_route(srv, q1, payload, send_json)
+        repl_route = _REPLICATION_ROUTES.get((h.command, route))
+        if repl_route is not None:
+            return repl_route(srv, q1, payload, send_json)
         if route == "service" and h.command == "POST":
             return _service(srv, q1, send_json)
         if route == "kms-key-status" and h.command == "GET":
@@ -421,10 +442,71 @@ _POOL_ROUTES = {
 }
 
 
+# -- bucket replication (cmd/admin-bucket-handlers.go remote targets,
+# -- cmd/admin-handlers.go bandwidth) -----------------------------------------
+
+def _not_enabled(send_json) -> bool:
+    return send_json({"error": "replication not enabled"}, 400)
+
+
+def _set_remote_target(srv, q1, payload, send_json) -> bool:
+    from ..background.replication import ReplicationTarget
+    doc = json.loads(payload)
+    bucket = doc.pop("sourceBucket")
+    srv.start_replication().set_target(bucket, ReplicationTarget(**doc))
+    return _ok(send_json)
+
+
+def _list_remote_targets(srv, q1, payload, send_json) -> bool:
+    repl = srv.replication
+    return send_json({b: t.to_dict() for b, t in repl.targets().items()}
+                     if repl else {})
+
+
+def _remove_remote_target(srv, q1, payload, send_json) -> bool:
+    repl = srv.replication
+    if repl is None:
+        return _not_enabled(send_json)
+    bucket = q1["bucket"]
+    if repl.get_target(bucket) is None:
+        return send_json({"error": f"no remote target for {bucket!r}"}, 404)
+    repl.remove_target(bucket)
+    return _ok(send_json)
+
+
+def _replication_stats(srv, q1, payload, send_json) -> bool:
+    repl = srv.replication
+    return send_json(repl.stats.to_dict() if repl else {})
+
+
+def _bandwidth(srv, q1, payload, send_json) -> bool:
+    repl = srv.replication
+    return send_json(repl.monitor.report() if repl else {})
+
+
+def _set_bandwidth_limit(srv, q1, payload, send_json) -> bool:
+    repl = srv.replication
+    if repl is None:
+        return _not_enabled(send_json)
+    repl.monitor.set_limit(q1["bucket"], int(q1.get("limit", "0")))
+    return _ok(send_json)
+
+
+_REPLICATION_ROUTES = {
+    ("POST", "set-remote-target"): _set_remote_target,
+    ("GET", "list-remote-targets"): _list_remote_targets,
+    ("POST", "remove-remote-target"): _remove_remote_target,
+    ("GET", "replication-stats"): _replication_stats,
+    ("GET", "bandwidth"): _bandwidth,
+    ("POST", "set-bandwidth-limit"): _set_bandwidth_limit,
+}
+
+
 def background_status(srv) -> dict:
     """The background loops' live progress (madmin BgHealState, ``mc
     admin scanner status``)."""
     healer, crawler, rb = srv.healer, srv.crawler, srv.rebalancer
+    repl = srv.replication
     return {
         "healing": {"progress": healer.progress.snapshot(),
                     "stats": healer.stats.to_dict()}
@@ -432,7 +514,10 @@ def background_status(srv) -> dict:
         "scanner": {"progress": crawler.progress.snapshot(),
                     "cycles": crawler.cycles}
         if crawler is not None else None,
-        "replication": None,
+        "replication": {"progress": repl.progress.snapshot(),
+                        "stats": repl.stats.to_dict(),
+                        "bandwidth": repl.monitor.report()}
+        if repl is not None else None,
         "mrf": None,
         "rebalance": rb.status() if rb is not None else None,
     }

@@ -25,6 +25,12 @@ families computed at scrape time from the live server:
                           overlap
   mt_heal_*               the heal sweep's counters and rates
   mt_scanner_*            the crawler's cycles, objects and rates
+  mt_replication_*        the replication plane's queued, replicated,
+                          failed and delete counts, bytes, pending
+                          tasks and rates (``background/replication.py``)
+  mt_bucket_bandwidth_*   per bucket: the replication bandwidth limit
+                          and the bytes moved
+                          (both none on a server without replication)
   mt_rebalance_*          the rebalancer's moves, failures, cycles and
                           rates
   mt_mem_*                the memory governor (``utils/memgov.py``):
@@ -139,12 +145,13 @@ def _memgov_gauges() -> list[str]:
 
 
 def render(layer=None, healer=None, config=None, api_stats=None,
-           crawler=None, rebalancer=None, egress=None) -> str:
+           crawler=None, rebalancer=None, egress=None,
+           replication=None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
     is the server's last-minute per-API ``OpWindows``; ``crawler`` and
     ``rebalancer`` the server's loops; ``egress`` its event targets'
-    registry.  Codec ops whose
+    registry; ``replication`` its replication plane.  Codec ops whose
     device time is still being measured are settled first (those whose
     kernels have finished)."""
     from ..ops import codec
@@ -200,6 +207,8 @@ def render(layer=None, healer=None, config=None, api_stats=None,
                     lambda: _progress_gauges("mt_heal", healer.progress)]
     if crawler is not None:
         sources.append(lambda: _scanner_gauges(crawler))
+    if replication is not None:
+        sources.append(lambda: _replication_gauges(replication))
     if rebalancer is not None:
         sources.append(lambda: _rebalance_metrics(rebalancer))
     if egress is not None:
@@ -301,6 +310,40 @@ def _scanner_gauges(crawler) -> list[str]:
         "# TYPE mt_scanner_cycle_objects gauge",
         f"mt_scanner_cycle_objects {n_objects}",
     ] + _progress_gauges("mt_scanner", prog)
+
+
+def _replication_gauges(replication) -> list[str]:
+    """The replication plane's counters, pending tasks and rates, and
+    each bucket's bandwidth limit and bytes moved."""
+    st = replication.stats
+    lines = [
+        "# TYPE mt_replication_queued_total counter",
+        f"mt_replication_queued_total {st.queued}",
+        "# TYPE mt_replication_objects_total counter",
+        f"mt_replication_objects_total {st.replicated}",
+        "# TYPE mt_replication_bytes_total counter",
+        f"mt_replication_bytes_total {st.replica_bytes}",
+        "# TYPE mt_replication_failed_total counter",
+        f"mt_replication_failed_total {st.failed}",
+        "# TYPE mt_replication_deletes_total counter",
+        f"mt_replication_deletes_total {st.deletes_replicated}",
+        "# TYPE mt_replication_pending gauge",
+        f"mt_replication_pending {replication.pending()}",
+    ] + _progress_gauges("mt_replication", replication.progress)
+    report = replication.monitor.report()
+    if report:
+        lines += [
+            "# TYPE mt_bucket_bandwidth_limit_bytes_per_second gauge",
+            "# TYPE mt_bucket_bandwidth_moved_bytes_total counter",
+        ]
+        for b in sorted(report):
+            r = report[b]
+            bl = _fmt_labels((("bucket", b),))
+            lines.append("mt_bucket_bandwidth_limit_bytes_per_second"
+                         f"{bl} {r['limitInBytesPerSecond']}")
+            lines.append("mt_bucket_bandwidth_moved_bytes_total"
+                         f"{bl} {r['totalBytesMoved']}")
+    return lines
 
 
 def _rebalance_metrics(rebalancer) -> list[str]:

@@ -7,9 +7,9 @@ A cycle lists every version of every bucket through the object layer and
 sums a ``DataUsageInfo``: per bucket the objects, versions, bytes and a
 size histogram, and on a pools layer each pool's bytes and objects
 (``poolsUsageInfo``, from the same listing pass).  Where the bucket has
-a lifecycle configuration and the data-update tracker saw it change
-since the last cycle, each version's
-due action is computed and the expiries are carried out (current
+a lifecycle configuration, each version's due action is computed in
+every cycle (a rule falls due with time alone, so a bucket nothing
+changed in is evaluated too), and the expiries are carried out (current
 versions, as a delete marker in a versioned bucket; noncurrent versions
 dated from their successor's write; delete markers that are their
 object's only version).  A version whose object lock refuses the delete
@@ -17,7 +17,9 @@ object's only version).  A version whose object lock refuses the delete
 (of the current version, or of a noncurrent one by its version id) goes
 to ``transition_fn`` with the rule's storage class, which names the tier
 (``objectlayer/tiering.py transition_fn``); one that fails is tried
-again next cycle.  The usage is persisted at
+again next cycle.  Every listed version goes to ``restub_fn``, which
+puts the stub back over a restore from the tier that has lapsed
+(``TransitionSys.put_stub_back``).  The usage is persisted at
 ``datausage/usage.json`` in the metadata set's system volume, the
 reference's bytes, where the admin ``datausageinfo`` route, the metrics
 scrape and the hard quota (``UsageCache``) read it.
@@ -136,17 +138,21 @@ class ScanResult:
     usage: DataUsageInfo
     expired: list[tuple[str, str, str]] = field(default_factory=list)
     transitioned: list[tuple[str, str]] = field(default_factory=list)
+    # (bucket, name, version id) of each lapsed restore put back as a stub
+    restubbed: list[tuple[str, str, str]] = field(default_factory=list)
 
 
 def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
-               transition_fn=None, tracker: DataUpdateTracker | None = None,
-               since_cycle: int | None = None,
+               transition_fn=None, restub_fn=None,
                progress: CycleProgress | None = None) -> ScanResult:
-    """One cycle: the usage of every bucket, and the lifecycle expiries
-    and transitions (``transition_fn(bucket, oi, storage_class)``) that
-    are due.  With a tracker and ``since_cycle``, a bucket that did
-    not change since that cycle skips the lifecycle pass; its usage is
-    counted all the same (the listing is the truth).  ``progress``
+    """One cycle: the usage of every bucket, the lifecycle expiries and
+    transitions (``transition_fn(bucket, oi, storage_class)``) that are
+    due, and the stubs put back over lapsed restores
+    (``restub_fn(bucket, oi)`` for every version, True when it put one
+    back).  The rules
+    of every bucket with a lifecycle configuration are evaluated, since
+    a rule falls due with time alone (the reference skips a bucket its
+    tracker saw no change in, ROADMAP Queue 3 item 49).  ``progress``
     advances once per bucket."""
     res = ScanResult(DataUsageInfo(last_update_ns=now_ns()))
     info = res.usage
@@ -162,8 +168,6 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
                 lc = None
             if lc is not None:
                 versioned = bucket_meta.versioning_enabled(b.name)
-        skip_ilm = (tracker is not None and since_cycle is not None
-                    and not tracker.changed_since(since_cycle, b.name))
         versions, per_pool = _list_versions_with_pools(layer, b.name)
         for pid, acc in (per_pool or {}).items():
             pu = info.pools_usage.setdefault(pid, {"bytes": 0, "objects": 0})
@@ -187,7 +191,10 @@ def scan_usage(layer, bucket_meta=None, apply_lifecycle: bool = True,
                 bu.histogram[h] = bu.histogram.get(h, 0) + 1
                 if oi.is_latest:
                     bu.objects_count += 1
-            if lc is None or skip_ilm:
+            if restub_fn is not None and not oi.delete_marker and \
+                    restub_fn(b.name, oi):
+                res.restubbed.append((b.name, oi.name, oi.version_id))
+            if lc is None:
                 continue
             oopts = ObjectOpts(
                 name=oi.name, mod_time_ns=oi.mod_time,
@@ -346,14 +353,16 @@ def load_usage(layer) -> DataUsageInfo | None:
 class Crawler:
     """The scan loop (initDataCrawler, cmd/server-main.go:499): a cycle
     every ``interval_s`` plus the ``scanner`` pacing, usage persisted,
-    the tracker advanced so the next cycle can skip unchanged buckets."""
+    the tracker advanced (the listing caches read its history)."""
 
     def __init__(self, layer, bucket_meta=None, interval_s: float = 60.0,
-                 transition_fn=None, tracker: DataUpdateTracker | None = None):
+                 transition_fn=None, tracker: DataUpdateTracker | None = None,
+                 restub_fn=None):
         self.layer = layer
         self.bucket_meta = bucket_meta
         self.interval_s = interval_s
         self.transition_fn = transition_fn
+        self.restub_fn = restub_fn
         self.tracker = tracker or DataUpdateTracker()
         self.last: ScanResult | None = None
         self.cycles = 0
@@ -375,13 +384,12 @@ class Crawler:
                                      self.delay_mult * self._last_cycle_s)
 
     def run_cycle(self) -> ScanResult:
-        since = self.tracker.cycle - 1 if self.cycles else None
         t0 = time.monotonic()
         self.progress.begin()
         try:
             res = scan_usage(self.layer, self.bucket_meta,
                              transition_fn=self.transition_fn,
-                             tracker=self.tracker, since_cycle=since,
+                             restub_fn=self.restub_fn,
                              progress=self.progress)
         except BaseException:
             # a partial walk is not a cycle

@@ -6,9 +6,8 @@ priority, a Destination ARN, an optional filter and the
 DeleteMarkerReplication and DeleteReplication switches; ``to_xml``
 writes it back as the reference does (rules by falling priority).
 ``replicate`` is the data path's decision (mustReplicate,
-cmd/bucket-replication.go:100).  The server stores and returns the
-document; nothing acts on it until replication between two servers is
-ported (ROADMAP Queue 1 item 16.8b).
+cmd/bucket-replication.go:100), which the server's replication plane
+(``background/replication.py``) takes for every write and delete.
 """
 
 from __future__ import annotations

@@ -163,6 +163,13 @@ def restore_valid(user_defined: dict) -> bool:
     return restore_expiry(user_defined) > time.time()
 
 
+def restore_lapsed(user_defined: dict) -> bool:
+    """A transitioned version restored here whose restore has run out:
+    its stub is due back."""
+    return is_transitioned(user_defined) and bool(
+        restore_expiry(user_defined)) and not restore_valid(user_defined)
+
+
 def restore_header(user_defined: dict) -> str:
     """The ``x-amz-restore`` value of a stub's HEAD and GET."""
     exp = restore_expiry(user_defined)
@@ -262,8 +269,9 @@ class TransitionSys:
 
     def sweep_expired_restores(self, bucket: str) -> int:
         """Put the stub back over every restored copy of ``bucket`` whose
-        window has lapsed, across all versions; returns how many.  No
-        loop calls it (ROADMAP Queue 3)."""
+        window has lapsed, across all versions; returns how many.  The
+        crawler does the same from its own listing (``put_stub_back``
+        as its ``restub_fn``)."""
         from ..background.heal import iter_versions
         n = 0
         for oi in list(iter_versions(self.layer, bucket)):
@@ -272,22 +280,25 @@ class TransitionSys:
             # "" is the null version here: None would read the latest
             full = self.layer.get_object_info(
                 bucket, oi.name, ObjectOptions(version_id=oi.version_id))
-            ud = full.user_defined
-            if is_transitioned(ud) and restore_expiry(ud) and \
-                    not restore_valid(ud):
-                stub = dict(ud)
-                stub.pop(META_RESTORE_EXPIRY, None)
-                try:
-                    self.layer.put_object(
-                        bucket, oi.name, b"", PutObjectOptions(
-                            user_defined=stub,
-                            version_id=full.version_id or "",
-                            mod_time=full.mod_time,
-                            replaces=(full.etag, full.mod_time)))
-                except PreconditionFailed:
-                    continue        # rewritten or deleted since the read
-                n += 1
+            n += self.put_stub_back(bucket, full)
         return n
+
+    def put_stub_back(self, bucket: str, oi) -> bool:
+        """Rewrite version ``oi`` as its stub when its restore has lapsed
+        (``restore_lapsed``); True when it did.  Only the version read
+        is replaced: one rewritten or deleted since is left."""
+        ud = oi.user_defined
+        if not restore_lapsed(ud):
+            return False
+        stub = dict(ud)
+        stub.pop(META_RESTORE_EXPIRY, None)
+        try:
+            self.layer.put_object(bucket, oi.name, b"", PutObjectOptions(
+                user_defined=stub, version_id=oi.version_id or "",
+                mod_time=oi.mod_time, replaces=(oi.etag, oi.mod_time)))
+        except PreconditionFailed:
+            return False
+        return True
 
     def delete_tiered(self, user_defined: dict) -> None:
         """Free the tier copy of a transitioned version that was deleted

@@ -130,6 +130,8 @@ _ERRORS = {e.code: e for e in (
              "file. Check the file and try again.", 400),
     APIError("ReplicationConfigurationNotFoundError",
              "The replication configuration was not found", 404),
+    APIError("ReplicationDestinationNotFoundError",
+             "The replication destination bucket does not exist", 404),
     APIError("NoSuchWebsiteConfiguration",
              "The specified bucket does not have a website configuration",
              404),

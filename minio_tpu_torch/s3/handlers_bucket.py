@@ -6,8 +6,9 @@ bucket cannot be suspended), PUT, GET and DELETE ``?policy`` (the bucket
 policy, ``bucket/policy.py``), ``?lifecycle`` (``bucket/lifecycle.py``),
 ``?tagging`` (``bucket/tags.py``), ``?encryption`` (the bucket's default
 encryption, ``bucket/encryption.py``) and ``?replication``
-(``bucket/replication.py``: stored and returned, acting on nothing yet;
-a bucket without versioning refuses it), PUT and GET ``?object-lock``
+(``bucket/replication.py``: a bucket without versioning refuses it,
+and once the server replicates each rule's destination ARN must name a
+registered remote target), PUT and GET ``?object-lock``
 (``bucket/objectlock.py``: the default retention of a lock bucket),
 ``?quota`` (``bucket/quota.py``) and ``?notification``
 (``bucket/notification.py``: each ARN must name a registered target, an
@@ -201,8 +202,10 @@ def _bucket_config(self, bucket, name, payload):
     (cmd/bucket-replication-handlers.go; InvalidRequest on a bucket
     without versioning): authorised before the bucket's existence is
     checked, so a caller cannot tell a missing bucket from a refused
-    one.  The stored document is the parsed one written back.  No
-    replication ARN is checked: there are no remote targets yet."""
+    one.  The stored document is the parsed one written back.  Once the
+    server replicates (``srv.replication``), a replication rule whose
+    destination ARN names no registered target is refused
+    (ReplicationDestinationNotFoundError)."""
     get_act, put_act, parse, bad, missing, ctype = CONFIGS[name]
     cmd = self.command
     if cmd not in ("PUT", "GET", "DELETE"):
@@ -214,9 +217,14 @@ def _bucket_config(self, bucket, name, payload):
             doc = parse(payload, bucket).decode()
         except (ValueError, KeyError) as e:
             raise S3Error(getattr(e, "code", bad)) from e
-        if name == "replication" and \
-                not self.srv.bucket_meta.versioning_enabled(bucket):
-            raise S3Error("InvalidRequest")
+        if name == "replication":
+            if not self.srv.bucket_meta.versioning_enabled(bucket):
+                raise S3Error("InvalidRequest")
+            repl = self.srv.replication
+            if repl is not None and not all(
+                    repl.arn_exists(r.destination_arn)
+                    for r in replication.Config.parse(payload).rules):
+                raise S3Error("ReplicationDestinationNotFoundError")
         self.srv.bucket_meta.set_config(bucket, name, doc)
         return self._send(200)
     if cmd == "GET":
@@ -417,6 +425,7 @@ def _post_policy_upload(self, bucket, payload):
     self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
     self.srv.notify("s3:ObjectCreated:Post", bucket, oi)
+    self.srv.replicate(bucket, oi)
     hdrs = {"ETag": f'"{oi.etag}"', **csse.response_headers(user_defined)}
     if oi.version_id:
         hdrs["x-amz-version-id"] = oi.version_id

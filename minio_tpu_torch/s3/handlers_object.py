@@ -533,6 +533,7 @@ def _put_object(self, bucket, key, payload):
     self._free_tier_copy(tiered)
     self._charge_quota_usage(bucket, oi.size)
     self.srv.notify("s3:ObjectCreated:Put", bucket, oi)
+    self.srv.replicate(bucket, oi)
     self._send(200, headers=_put_headers(oi, user_defined))
 
 
@@ -753,6 +754,7 @@ def _complete_multipart(self, bucket, key, query, payload):
         oi = self.srv.layer.complete_multipart_upload(bucket, key, uid,
                                                       parts)
     self.srv.notify("s3:ObjectCreated:CompleteMultipartUpload", bucket, oi)
+    self.srv.replicate(bucket, oi)
     out = ET.Element("CompleteMultipartUploadResult", xmlns=S3_NS)
     ET.SubElement(out, "Location").text = \
         f"{self.srv.endpoint}/{bucket}/{key}"
@@ -794,6 +796,7 @@ def _delete_object(self, bucket, key, query):
     self.srv.notify("s3:ObjectRemoved:DeleteMarkerCreated"
                     if res.delete_marker else "s3:ObjectRemoved:Delete",
                     bucket, res)
+    self.srv.replicate(bucket, res, delete=True)
     hdrs = {}
     if res.delete_marker:
         hdrs["x-amz-delete-marker"] = "true"
@@ -946,6 +949,7 @@ def _copy_object(self, bucket, key):
         body.close()
     self._charge_quota_usage(bucket, oi.size)
     self.srv.notify("s3:ObjectCreated:Copy", bucket, oi)
+    self.srv.replicate(bucket, oi)
     root = ET.Element("CopyObjectResult", xmlns=S3_NS)
     ET.SubElement(root, "ETag").text = f'"{oi.etag}"'
     ET.SubElement(root, "LastModified").text = _iso_date(oi.mod_time)
@@ -1064,6 +1068,7 @@ def _try_stream_put(self, path, bucket, key, query) -> bool:
             self._free_tier_copy(tiered)
             self._charge_quota_usage(bucket, oi.size)
             self.srv.notify("s3:ObjectCreated:Put", bucket, oi)
+            self.srv.replicate(bucket, oi)
             self._send(200, headers=_put_headers(oi))
     except Exception as e:  # noqa: BLE001 — XML, as in dispatch
         self._fail(e, path)
@@ -1393,6 +1398,40 @@ class _Closing:
             self._it.close()
         finally:
             self._close()
+
+
+class _Reads:
+    """What ``_fetch_plain_chunks`` needs of its handler, for a read on
+    the server's own behalf (``read_version``)."""
+
+    _decrypted_chunks = _decrypted_chunks
+
+    def __init__(self, srv):
+        self.srv = srv
+
+
+def read_version(srv, bucket: str, key: str, version_id: str) -> tuple:
+    """(info, the version's plain bytes, whole), decoded as a GET of it
+    decodes them: the replication worker's read.  A version transitioned
+    to a tier without a valid restored copy is InvalidObjectState and a
+    delete marker MethodNotAllowed; an SSE-C version cannot be opened
+    without the client's key (SSEEncryptedObject)."""
+    oi, stored = srv.layer.get_object_reader(
+        bucket, key, 0, -1, ObjectOptions(version_id=version_id))
+    try:
+        ud = oi.user_defined
+        if oi.delete_marker:
+            raise ol.MethodNotAllowed(f"{bucket}/{key} is a delete marker")
+        if _stubbed(ud):
+            raise S3Error("InvalidObjectState")
+        if _transformed(ud):
+            enc = csse.ObjectEncryption.open(ud, bucket, key, {}, srv.kms) \
+                if csse.is_encrypted(ud) else None
+            stored = _fetch_plain_chunks(_Reads(srv), bucket, key, oi, enc, 0,
+                                         _actual_size(oi), stored=stored)
+        return oi, b"".join(stored)
+    finally:
+        _close(stored)
 
 
 def _preconditions_304(self, oi) -> bool:

@@ -26,9 +26,12 @@ given or set in the ``tls`` subsystem, serves the front over TLS
 is refused (InsecureSSECustomerRequest) before it is authenticated.
 Transitions to a remote tier and their restore (``transition``, the
 tiers registered in ``tiers/tiers.json``) and S3 Select are served, and
-so are the replication and notification configs (stored; replication
-acts on nothing yet), the canned private ACL, CORS's and the dummy
-subresources' fixed answers.  ``events`` is the notification system
+so are the replication and notification configs, the canned private
+ACL, CORS's and the dummy subresources' fixed answers.  ``replication``
+(``background/replication.py``, built by ``start_replication`` once a
+remote target is set or loaded) replicates every write and delete the
+reference replicates (``replicate``) to the bucket's remote target.
+``events`` is the notification system
 (``events/``): every object call that the reference notifies fires its
 event (``notify``) to the ListenNotification streams (GET ``?events``)
 and, through the bucket's notification config, to the registered
@@ -72,8 +75,9 @@ body into ``mt_s3_rx_bytes_total``; S3 API requests (not the
 
 The background plane (``attach_background``): the heal sweep
 (``healer``), the crawler (``crawler``) and, over a pools layer, the
-rebalancer (``rebalancer``) start and stop with the server.  ``usage``
-is the hard quota's view of bucket usage, refreshed
+rebalancer (``rebalancer``) start and stop with the server; ``stop()``
+also joins the replication workers.  ``usage`` is the hard quota's view
+of bucket usage, refreshed
 by every crawler cycle; ``tracker`` (``attach_tracker``) is the
 data-update tracker, marked by ``notify`` where an S3 call changed an
 object (the reference's event points, but the reads: a GET or HEAD
@@ -100,6 +104,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from ..admin import handlers as admin_handlers
 from ..admin import metrics as _metrics
 from ..background.crawler import UsageCache
+from ..background.replication import ReplicationSys
 from ..crypto import sse as csse
 from ..crypto.kms import kms_from_env
 from ..events import NotificationSys, WebhookTarget
@@ -364,9 +369,11 @@ class S3Server:
         self.transition = TransitionSys(layer)
         self.transition.load()
         self.events = NotificationSys(self.bucket_meta, region=region)
-        # bucket replication between servers (ROADMAP Queue 1 item
-        # 16.8b): none yet, so a replication config names no checked ARN
-        self.replication = None
+        # bucket replication to remote targets: None until a target is
+        # set or loaded (``start_replication``), and until then a
+        # replication config's ARNs are not checked
+        self.replication: ReplicationSys | None = None
+        self._replication_mu = threading.Lock()
         self.region = region
         self.max_body_size = max_body_size
         self._stopping = False
@@ -573,6 +580,25 @@ class S3Server:
             self.tracker.mark(bucket, getattr(oi, "name", ""))
         self.events.send(event_name, bucket, oi, req_params or {})
 
+    def replicate(self, bucket: str, oi, delete: bool = False) -> None:
+        """Queue the replication of a write (or with ``delete`` of a
+        delete's result) when the bucket's config asks for it."""
+        if self.replication is not None:
+            self.replication.queue(bucket, oi, delete=delete)
+
+    def start_replication(self) -> ReplicationSys:
+        """The replication plane, built over this server's layer (its
+        targets read from the drives) and started on first use."""
+        with self._replication_mu:
+            if self.replication is None:
+                from .handlers_object import read_version
+                repl = ReplicationSys(
+                    self.layer, self.bucket_meta,
+                    lambda b, k, v: read_version(self, b, k, v))
+                repl.start()
+                self.replication = repl
+            return self.replication
+
     def lookup_secret(self, access_key: str) -> str | None:
         return self.iam.lookup_secret(access_key)
 
@@ -595,7 +621,8 @@ class S3Server:
     def stop(self) -> None:
         """Stop the background loops and listening, let in-flight requests
         finish for ``shutdown_drain_s`` (idle keep-alive connections are
-        cut at once), cut the rest, and close the layer (its drive
+        cut at once), cut the rest, stop the event and replication
+        workers, and close the layer (its drive
         monitor stops, its writer threads join; cmd/server-main.go's
         shutdown).  A second call returns at once; ``shutdown`` is set
         when the server has stopped."""
@@ -631,6 +658,10 @@ class S3Server:
         # no event worker or sender thread outlives the server; queued
         # records go to the targets' stores
         self.events.close()
+        # nor a replication worker (a task in flight finishes; tasks
+        # still queued stay PENDING on the drives)
+        if self.replication is not None:
+            self.replication.stop()
         self.layer.close()
         self.shutdown.set()
 

@@ -7,8 +7,9 @@ the N drives as the reference lays them out: sets of the largest size in
 format.json loaded or written, each drive behind a health proxy, a drive
 monitor that reconnects returning drives and heals their set, the
 background heal sweep, the crawler (data usage, lifecycle expiry and
-transitions to the server's tiers, the hard quotas' usage) with its
-data-update tracker, the request plane's
+transitions to the server's tiers, stubs put back over lapsed restores,
+the hard quotas' usage) with its data-update tracker, bucket
+replication to the remote targets the drives hold, the request plane's
 limits and deadlines, IAM (users, service accounts, STS sessions,
 policies) loaded from the drives, and the control plane: the live
 kvconfig (``MT_<SUBSYS>_<KEY>`` environment overrides), the admin API
@@ -29,6 +30,7 @@ import sys
 
 from .background.crawler import Crawler
 from .background.heal import BackgroundHealer
+from .background.replication import load_targets
 from .background.tracker import DataUpdateTracker
 from .device import resolve
 from .objectlayer.erasure_object import DEFAULT_BLOCK_SIZE
@@ -72,7 +74,8 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
     (``MT_HEAL_INTERVAL_S``, ``MT_HEAL_DEEP_EVERY``) attached, a
     data-update tracker shared by the crawler and the listing caches,
     and the kvconfig's api, pipeline, commit, heal and scanner knobs
-    applied; not started.  Raises RuntimeError when libcrypto cannot be
+    applied; not started, but for the replication workers, started when
+    the drives hold remote targets.  Raises RuntimeError when libcrypto cannot be
     bound (nothing is sealed in the clear)."""
     access_key = access_key or os.environ.get("MT_ROOT_USER", "minioadmin")
     secret_key = secret_key or os.environ.get("MT_ROOT_PASSWORD",
@@ -105,11 +108,16 @@ def build_server(dirs: list[str], address: str = "127.0.0.1:9000",
     srv.crawler = Crawler(
         layer, bucket_meta=srv.bucket_meta,
         interval_s=float(os.environ.get("MT_CRAWL_INTERVAL_S", "60")),
-        transition_fn=transition_fn(srv.transition), tracker=tracker)
+        transition_fn=transition_fn(srv.transition), tracker=tracker,
+        restub_fn=srv.transition.put_stub_back)
     srv.healer = BackgroundHealer(
         layer, interval_s=float(os.environ.get("MT_HEAL_INTERVAL_S", "3600")),
         deep_every=int(os.environ.get("MT_HEAL_DEEP_EVERY", "8")))
     srv.attach_background(srv.crawler, srv.healer)
+    if load_targets(layer):
+        # replication goes on after a restart (the reference builds it
+        # only on a set-remote-target call)
+        srv.start_replication()
     srv.reload_pipeline_config()
     srv.reload_commit_config()
     return srv

@@ -6,7 +6,10 @@ formats pinned (``_torch_versions.pin``), so placement, version ids and
 drive ids agree.  The reference's hot-read cache is off (the port has
 none) and its crawler never runs in a test's time.  On exit the
 reference's drive monitor and fan-out pools are stopped too, which its
-``stop()`` leaves running."""
+``stop()`` leaves running.  ``replication_pairs`` builds a source and a
+destination pair for the replication tests and stops every replication
+plane on exit; ``start_replication`` gives a server of either package a
+plane of a chosen worker count."""
 
 import contextlib
 import os
@@ -16,9 +19,12 @@ import pytest
 
 import minio_tpu.s3.handlers_object as ref_ho
 from minio_tpu import server_main as ref_main
+from minio_tpu.background import replication as ref_repl
 from minio_tpu.objectlayer import hotread as ref_hotread
 from minio_tpu.storage import commit as ref_commit
 from minio_tpu_torch import server_main as port_main
+from minio_tpu_torch.background import replication as port_repl
+from minio_tpu_torch.s3 import server as port_server
 from minio_tpu_torch.s3 import handlers_object as port_ho
 from minio_tpu_torch.s3.client import S3Client
 from minio_tpu_torch.storage import commit as port_commit
@@ -74,6 +80,40 @@ def servers(root, mp: pytest.MonkeyPatch, sets: int = SETS, per: int = PER):
         ref_hotread.CONFIG.__dict__.update(saved[0])
         ref_commit.CONFIG.__dict__.update(saved[1])
         port_commit.CONFIG.__dict__.update(saved[2])
+
+
+@contextlib.contextmanager
+def replication_pairs(root, mp: pytest.MonkeyPatch):
+    """(reference source, port source, reference destination, port
+    destination): two ``servers`` pairs, started.  On exit every
+    server's replication plane is stopped (the reference's ``stop()``
+    leaves its workers running), then the servers."""
+    with servers(root / "src", mp) as (rsrc, psrc), \
+            servers(root / "dst", mp) as (rdst, pdst):
+        try:
+            yield rsrc, psrc, rdst, pdst
+        finally:
+            for srv in (rsrc, psrc, rdst, pdst):
+                if srv.replication is not None:
+                    srv.replication.stop()
+
+
+def start_replication(srv, workers: int = 1, start: bool = True):
+    """A replication plane of ``workers`` for ``srv`` (either package),
+    attached as ``srv.replication`` and, with ``start``, started; the
+    targets on its drives are loaded."""
+    if isinstance(srv, port_server.S3Server):
+        repl = port_repl.ReplicationSys(
+            srv.layer, srv.bucket_meta,
+            lambda b, k, v: port_ho.read_version(srv, b, k, v),
+            workers=workers)
+    else:
+        repl = ref_repl.ReplicationSys(srv.layer, srv.bucket_meta,
+                                       workers=workers)
+    if start:
+        repl.start()
+    srv.replication = repl
+    return repl
 
 
 def client(srv, key: str = AK, secret: str = SK) -> S3Client:

@@ -1,11 +1,13 @@
 """Shared set-up of the object-feature tests (``test_torch_copy.py``,
 ``test_torch_tagging.py``, ``test_torch_objectlock.py``,
-``test_torch_bucket_configs.py``, ``test_torch_events.py``): the same
+``test_torch_bucket_configs.py``, ``test_torch_events.py``,
+``test_torch_replication.py``): the same
 request to ``minio_tpu``'s server and the port's (``_torch_control``),
 their answers compared whole; the drives of the two compared byte for
 byte; one wall clock for both packages' object-lock modules, so a
 bucket's default retention stamps the same retain-until date on each;
-and the check that no event thread outlives its servers."""
+and the checks that no event or replication thread outlives its
+servers."""
 
 import datetime
 import os
@@ -97,6 +99,13 @@ class _Clock(datetime.datetime):
         return cls.NOW if tz is None else cls.NOW.astimezone(tz)
 
 
+def assert_no_replication_threads(before, timeout: float = 5.0) -> None:
+    """No replication worker (``mt-repl-worker-*``, either package's)
+    outlives its servers; threads in ``before`` aside (the reference's
+    own tests leave the workers of the planes they start running)."""
+    assert_no_event_threads(timeout, before, names=("mt-repl-worker-",))
+
+
 def pin_lock_clock(mp, now: datetime.datetime | None = None
                    ) -> datetime.datetime:
     """Both object-lock modules read ``now`` (the present second, UTC, by
@@ -112,12 +121,14 @@ def pin_lock_clock(mp, now: datetime.datetime | None = None
     return now
 
 
-def assert_no_event_threads(timeout: float = 5.0, before=()) -> None:
+def assert_no_event_threads(timeout: float = 5.0, before=(),
+                            names=("mt-event-send", "mt-egress-",
+                                   "event-send")) -> None:
     """No event worker (``mt-event-send``), delivery sender
     (``mt-egress-*``) or pool worker of the reference's notifier
     (``event-send``) outlives its servers and targets; threads in
-    ``before`` (alive before the servers were built) aside."""
-    names = ("mt-event-send", "mt-egress-", "event-send")
+    ``before`` (alive before the servers were built) aside.  ``names``:
+    the thread name prefixes checked."""
     deadline = time.monotonic() + timeout
     while True:
         left = [t.name for t in threading.enumerate()

@@ -241,8 +241,12 @@ def test_usage_json_reads_across(tmp_path, pinned):
 
 
 def test_crawler_cycles_skip_unchanged_buckets(tmp_path, pinned):
-    """The second cycle skips the lifecycle pass of a bucket the tracker
-    saw no change in, in both packages; a marked bucket is scanned."""
+    """The reference's second cycle skips the lifecycle pass of a bucket
+    the tracker saw no change in, though ``cur/a`` (written at the
+    pinned 2025 clock) is due under the real one; the port evaluates the
+    rules of every bucket and expires it there (ROADMAP Queue 3 item
+    49).  A marked bucket is scanned in both, and the cycle and tracker
+    counts agree."""
     ref, port = ref_layer(tmp_path / "ref"), port_layer(tmp_path / "port")
     try:
         out = []
@@ -261,8 +265,10 @@ def test_crawler_cycles_skip_unchanged_buckets(tmp_path, pinned):
             out.append((skipped.expired, done.expired, crawler.cycles,
                         crawler.tracker.cycle,
                         crawler.progress.snapshot()["lastCycle"]["objects"]))
-        assert out[1] == out[0]
-        assert out[1][0] == [] and out[1][2] == 4
+        assert out[0][0] == []                      # [ref] item 49
+        assert out[1][0] == [("cyc", "cur/a", "")]
+        assert out[1][1:] == out[0][1:]
+        assert out[1][2] == 4
     finally:
         close(ref, port)
 

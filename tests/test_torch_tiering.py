@@ -174,9 +174,9 @@ def _lapse(lay, root, mp):
 
 def test_the_sweep_puts_the_stub_back_over_a_lapsed_restore(
         tmp_path, monkeypatch):
-    """``sweep_expired_restores`` (no loop calls it: ROADMAP Queue 3
-    record 44) re-stubs a restored copy whose days have run out, alike
-    in both packages."""
+    """``sweep_expired_restores`` (the port's crawler does the same per
+    version, ROADMAP Queue 3 item 44) re-stubs a restored copy whose
+    days have run out, alike in both packages."""
     pin(monkeypatch)
     pin_tier_clock(monkeypatch)
     port, ref = port_layer(tmp_path / "port"), ref_layer(tmp_path / "ref")
