@@ -258,6 +258,7 @@
    replay launch nothing; no plain version.  The PUT's seconds with and
    without notification, the median and largest delay from a response
    to its record at the sink and at the listener, the replay's seconds.
+   Last, ``notify_webhook`` is turned off before its ``queue_dir`` goes.
 18. Bucket replication, on phase 17's server before it stops: a second
    ``build_server`` (16 drives, one 12 + 4 set, 10 MiB blocks, on the
    card) in this process is the destination.  ``set-remote-target`` and
@@ -281,7 +282,34 @@
    too; the registry, the replicated DELETE and a stamp launch nothing;
    no plain version.  The seconds from each 16 MiB PUT's response to its
    COMPLETED stamp (median and largest) and the throttled task's.
-19. One JSON line of readings, one describing each kernel, the card line,
+19. The broker targets, on phase 18's server before it stops: a 16 MiB
+   PUT, its GET and a GET with four data-shard drives wiped, timed and
+   counted with no broker target; then the nine frame-parsing stubs of
+   ``tests/broker_stubs.py`` in this process on free local ports (AMQP,
+   Kafka, MQTT, NATS, NSQ, Redis, MySQL, PostgreSQL, Elasticsearch; the
+   MySQL one checks the scramble with the port's function), the nine
+   ``notify_<kind>`` subsystems set through SetConfigKV (namespace format
+   for Redis, MySQL and PostgreSQL, access for Elasticsearch, MQTT at QoS
+   1, a ``queue_dir`` each), and a notification config on ``br/`` naming
+   the nine ARNs (an unknown ARN refused first).  Under ``br/``: a 16 MiB
+   PUT, its GET, a degraded GET, a second PUT of the key and a DELETE,
+   each awaited at every stub, then a key outside ``br/``.  The
+   message-per-event stubs and the access index hold the expected event
+   names, keys, sizes and ETags in request order, MQTT at QoS 1; the
+   namespace rows are set by the PUT and removed by the DELETE; nothing
+   arrives for the outside key.  The Kafka stub down, two PUTs:
+   ``targets`` shows Kafka offline with both records in its
+   ``queue_dir`` while the other eight deliver them; the stub back on its
+   port, ``targets/replay`` delivers both in order and empties the store;
+   the scrape carries ``mt_target_*`` of the nine, each having sent every
+   record.  Each PUT, GET and degraded GET launches what it launched with
+   no target; the deliveries, the storing and the replay launch nothing;
+   no plain version.  The delay from each response to its record at each
+   stub (per step; median and largest per kind over the PUTs and the
+   DELETE, since a GET's record comes before its body ends), each
+   target's mean delivery seconds, a 16 MiB PUT and GET with the nine
+   targets and without in alternating pairs, the replay's seconds.
+20. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -3136,6 +3164,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
         tier_select = phase_tier_select(srv, card)
         events = phase_events(srv, card, gen)
         replication = phase_replication(srv, card, gen)
+        brokers = phase_brokers(srv, card, gen)
     finally:
         srv.stop()
         shutil.rmtree(root, ignore_errors=True)
@@ -3163,7 +3192,7 @@ def phase_copy_lock(bodies: dict, card: str, gen):
           f"{readings['tag_call_ms']:.2f} ms; refusals "
           f"{readings['refusal_ms']} ms; phase {readings['phase_s']:.1f} s")
     return ({k: v[0] for k, v in launches.items()}, readings, transform,
-            tier_select, events, replication)
+            tier_select, events, replication, brokers)
 
 
 def text_body(size: int) -> bytes:
@@ -3959,6 +3988,9 @@ def phase_events(srv, card: str, gen):
               "the paired steps' records: one PUT and one GET per pair on")
         torch.cuda.synchronize()
         launches = delta(s0, snapshot())
+        # the target goes before its queue_dir does
+        adm.set_config_kv("notify_webhook", "enable", "off")
+        check(EV_ARN not in srv.events.valid_arns(), "the webhook closed")
     finally:
         sink.stop()
         shutil.rmtree(qdir, ignore_errors=True)
@@ -4262,6 +4294,470 @@ def phase_replication(srv, card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+BR_BUCKET, BR_OBJ, BR_PAIRS = "brokers", 16 << 20, 6               # phase 19
+BR_KINDS = ("amqp", "kafka", "mqtt", "nats", "nsq", "redis", "mysql",
+            "postgresql", "elasticsearch")
+BR_ARNS = {k: f"arn:minio:sqs::1:{k}" for k in BR_KINDS}
+BR_NS_KEY = f"{BR_BUCKET}/br/obj"       # the namespace kinds' entry
+
+
+def broker_stubs() -> dict:
+    """kind -> stub class: the frame-parsing brokers of
+    ``tests/broker_stubs.py``, which imports neither package but in its
+    MySQL stub's session, where it checks the client's scramble with
+    ``minio_tpu``'s function; the smoke's MySQL stub walks the same
+    protocol and checks it with the port's."""
+    import struct
+    from minio_tpu_torch.events.sqlwire import mysql_native_scramble
+    from tests import broker_stubs as bs
+
+    class MySQLStub(bs.MySQLStubBroker):
+        def _session(self, conn):
+            recv_exact, _ = self._reader(conn)
+            seq = [0]
+
+            def send_pkt(payload):
+                n = len(payload)
+                conn.sendall(bytes([n & 255, (n >> 8) & 255,
+                                    (n >> 16) & 255, seq[0]]) + payload)
+                seq[0] = (seq[0] + 1) & 255
+
+            def read_pkt():
+                hdr = recv_exact(4)
+                seq[0] = (hdr[3] + 1) & 255
+                return recv_exact(hdr[0] | (hdr[1] << 8) | (hdr[2] << 16))
+
+            def err(code, msg):
+                send_pkt(b"\xff" + struct.pack("<H", code) + b"#42000" +
+                         msg.encode())
+
+            salt = bytes(b % 255 + 1 for b in os.urandom(20))   # no NUL
+            send_pkt(b"\x0a8.0-stub\x00" + struct.pack("<I", 7) + salt[:8] +
+                     b"\x00" + struct.pack("<H", 0xFFFF) + b"\x21" +
+                     struct.pack("<HH", 2, 0xFFFF) + bytes([21]) +
+                     b"\x00" * 10 + salt[8:] + b"\x00mysql_native_password"
+                     b"\x00")
+            resp = read_pkt()
+            end = resp.index(b"\x00", 32)
+            user = resp[32:end].decode()
+            token = resp[end + 2:end + 2 + resp[end + 1]]
+            if user != self.user or \
+                    token != mysql_native_scramble(self.password, salt):
+                self.auth_failures += 1
+                err(1045, f"Access denied for user '{user}'")
+                return
+            send_pkt(b"\x00\x00\x00" + struct.pack("<HH", 2, 0))
+            while True:
+                pkt = read_pkt()
+                if not pkt or pkt[0] == 0x01:          # COM_QUIT
+                    return
+                try:
+                    tag = self.sql.apply(pkt[1:].decode())
+                    n = 1 if tag.startswith(("INSERT", "DELETE 1")) else 0
+                    send_pkt(b"\x00" + bytes([n]) + b"\x00" +
+                             struct.pack("<HH", 2, 0))
+                except ValueError as e:
+                    err(1050 if "already exists" in str(e) else 1064, str(e))
+
+    return {"amqp": bs.AMQPStubBroker, "kafka": bs.KafkaStubBroker,
+            "mqtt": bs.MQTTStubBroker, "nats": bs.NATSStubBroker,
+            "nsq": bs.NSQStubBroker, "redis": bs.RedisStubBroker,
+            "mysql": MySQLStub, "postgresql": bs.PostgresStubBroker,
+            "elasticsearch": bs.ESStubServer}
+
+
+def broker_settings(kind: str, port: int, qdir: str) -> dict:
+    """The ``notify_<kind>`` keys for a stub on ``port``: the namespace
+    format for Redis, MySQL and PostgreSQL, the access format for
+    Elasticsearch, MQTT at QoS 1, a ``queue_dir`` for each."""
+    addr = f"127.0.0.1:{port}"
+    return dict({
+        "amqp": {"url": f"amqp://minio:secret@{addr}/", "exchange": "ev",
+                 "routing_key": "bucketlogs"},
+        "kafka": {"brokers": addr, "topic": "minio-events"},
+        "mqtt": {"broker": f"tcp://{addr}", "topic": "minio/events",
+                 "qos": "1"},
+        "nats": {"address": addr, "subject": "bucketevents",
+                 "username": "evuser", "password": "evpass"},
+        "nsq": {"nsqd_address": addr, "topic": "minio"},
+        "redis": {"address": addr, "key": "minio_events",
+                  "format": "namespace"},
+        "mysql": {"dsn_string": f"evuser:evpass@tcp({addr})/minio",
+                  "table": "events_ns", "format": "namespace"},
+        "postgresql": {"connection_string": f"host=127.0.0.1 port={port} "
+                       "user=evuser password=evpass dbname=minio",
+                       "table": "events_ns", "format": "namespace"},
+        "elasticsearch": {"url": f"http://{addr}", "index": "minio-log",
+                          "format": "access"},
+    }[kind], queue_dir=qdir, enable="on")
+
+
+def broker_count(kind: str, stub) -> int:
+    """The records a stub holds so far (a keyed kind: its writes)."""
+    if kind == "kafka":
+        return len(stub.produced)
+    if kind == "redis":
+        return sum(c[0] in ("HSET", "HDEL") for c in stub.commands)
+    if kind in ("mysql", "postgresql"):
+        return sum(not s.startswith("CREATE") for s in stub.sql.statements)
+    if kind == "elasticsearch":
+        return sum(len(ix) for ix in stub.indices.values())
+    return len(stub.published)
+
+
+def broker_records(kind: str, stub) -> list:
+    """The event records a message-per-event stub (or the access index)
+    holds, in arrival order."""
+    if kind == "amqp":
+        bodies = [b for _, _, b, _ in stub.published]
+    elif kind == "kafka":
+        bodies = [v for _, _, v in stub.produced]
+    elif kind == "mqtt":
+        bodies = [p for _, p, _ in stub.published]
+    elif kind == "elasticsearch":
+        return [d["Records"][0] for d in stub.indices["minio-log"].values()]
+    else:
+        bodies = [p for _, p in stub.published]
+    return [json.loads(b)["Records"][0] for b in bodies]
+
+
+def broker_ops(kind: str, stub) -> list:
+    """A namespace kind's writes in order: "set" or "del"."""
+    if kind == "redis":
+        return [{"HSET": "set", "HDEL": "del"}[c[0]] for c in stub.commands
+                if c[0] in ("HSET", "HDEL")]
+    return ["del" if s.startswith("DELETE") else "set"
+            for s in stub.sql.statements if not s.startswith("CREATE")]
+
+
+def broker_rows(kind: str, stub) -> dict:
+    """A namespace kind's entries: {bucket/object: record}."""
+    rows = stub.hashes.get("minio_events", {}) if kind == "redis" else \
+        stub.sql.tables.get("events_ns", {})
+    return {k: json.loads(v)["Records"][0] for k, v in rows.items()}
+
+
+def stub_down(stub) -> None:
+    """Stop a stub and wait until its port refuses: its accept thread,
+    blocked on the closed socket, takes one more connection (this one)
+    before it sees the stop."""
+    import socket
+    stub.stop()
+    try:
+        socket.create_connection(("127.0.0.1", stub.port), timeout=1).close()
+    except OSError:
+        pass
+    stub._thread.join(5)
+    check(not stub._thread.is_alive(), "the stub stopped")
+
+
+def stub_up_on(cls, port: int):
+    """A new stub of ``cls`` listening on ``port``."""
+    import socket
+    stub = cls()
+    stub.sock.close()
+    stub.sock = socket.socket()
+    stub.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    stub.sock.bind(("127.0.0.1", port))
+    stub.sock.listen(8)
+    stub.port = port
+    return stub.start()
+
+
+def broker_notification_xml(prefix: str) -> bytes:
+    return (b'<NotificationConfiguration xmlns="http://s3.amazonaws.com/doc/'
+            b'2006-03-01/">' + b"".join(
+                b"<QueueConfiguration><Id>%s</Id><Queue>%s</Queue>"
+                b"<Event>s3:ObjectCreated:*</Event>"
+                b"<Event>s3:ObjectAccessed:*</Event>"
+                b"<Event>s3:ObjectRemoved:*</Event><Filter><S3Key><FilterRule>"
+                b"<Name>prefix</Name><Value>%s</Value></FilterRule></S3Key>"
+                b"</Filter></QueueConfiguration>" % (
+                    k.encode(), arn.encode(), prefix.encode())
+                for k, arn in BR_ARNS.items()) +
+            b"</NotificationConfiguration>")
+
+
+class StubWatch:
+    """A thread that polls the stubs, from before a request on, until each
+    kind's holds ``want[kind]`` records: ``seen[kind]`` is when it first
+    saw them (perf_counter, at most one 0.5 ms poll late)."""
+
+    def __init__(self, stubs: dict, want: dict, timeout: float = 30.0):
+        import threading
+        self.seen: dict = {}
+        self._stubs, self._want = stubs, want
+        self._deadline = time.monotonic() + timeout
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        pending = set(self._want)
+        while pending and time.monotonic() < self._deadline:
+            for kind in list(pending):
+                if broker_count(kind, self._stubs[kind]) >= self._want[kind]:
+                    self.seen[kind] = time.perf_counter()
+                    pending.discard(kind)
+            time.sleep(0.0005)
+
+    def join(self) -> dict:
+        self._thread.join()
+        missing = sorted(set(self._want) - set(self.seen))
+        check(not missing, "records missing at " + ", ".join(
+            f"{k} ({broker_count(k, self._stubs[k])} of {self._want[k]})"
+            for k in missing))
+        return self.seen
+
+
+def phase_brokers(srv, card: str, gen):
+    """Phase 19: the nine broker targets, on the running server of phases
+    14-18.  Returns the launches and the readings."""
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.s3.client import S3Client
+    t_phase = time.perf_counter()
+    c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+    adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+    layer = srv.layer
+    blob = rand_bytes((5, BR_OBJ), gen).cpu().numpy()
+    base, obj, obj2, out1, out2 = (blob[i].tobytes() for i in range(5))
+    readings: dict = {}
+    steps: dict = {}
+    classes = broker_stubs()
+    stubs: dict = {}
+    qroot = tempfile.mkdtemp(prefix="chip-smoke-brokers-")
+    try:
+        # 1: without a broker target, the requests to compare with
+        c.make_bucket(BR_BUCKET)
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        _, readings["put_16mib_before_s"] = timed_step(
+            steps, "put_before", lambda: c.put_object(BR_BUCKET, "br/base",
+                                                      base))
+        r, readings["get_16mib_before_s"] = timed_step(
+            steps, "get_before", lambda: c.get_object(BR_BUCKET, "br/base"))
+        check(r.body == base, "GET before")
+        wipe_data_shards(layer, BR_BUCKET, "br/base")
+        r, readings["degraded_get_16mib_before_s"] = timed_step(
+            steps, "degraded_get_before", lambda: c.get_object(
+                BR_BUCKET, "br/base"))
+        check(r.body == base, "degraded GET before")
+        # 2: the nine stubs and the nine subsystems, through SetConfigKV
+        for kind in BR_KINDS:
+            stubs[kind] = classes[kind]().start()
+        t0 = time.perf_counter()
+        for kind in BR_KINDS:
+            for key, value in broker_settings(
+                    kind, stubs[kind].port, f"{qroot}/{kind}").items():
+                adm.set_config_kv(f"notify_{kind}", key, value)
+        readings["configure_s"] = time.perf_counter() - t0
+        check(set(BR_ARNS.values()) <= srv.events.valid_arns(),
+              f"the nine targets: {sorted(srv.events.valid_arns())}")
+        # 3: the notification config, an unknown ARN refused first
+        check(s3_code(lambda: c.request(
+            "PUT", f"/{BR_BUCKET}", "notification",
+            broker_notification_xml("br/").replace(b"::1:kafka",
+                                                   b"::9:kafka")))
+            == "MalformedXML", "an unknown ARN refused")
+        c.request("PUT", f"/{BR_BUCKET}", "notification",
+                  broker_notification_xml("br/"))
+        # 4: the requests, each awaited at every stub before the next
+        expect: list = []           # (event name, size, etag)
+        delays: dict = {}
+        rows_after_put: dict = {}
+
+        def etag(r):
+            return r.headers["ETag"].strip('"')
+
+        def step(name, fn, event, size, etag_of):
+            watch = StubWatch(stubs, {k: len(expect) + 1 for k in BR_KINDS})
+            r, t = timed_step(steps, name, fn)
+            done = time.perf_counter()
+            expect.append((event, size, etag_of(r)))
+            s = snapshot()
+            for kind, at in watch.join().items():
+                delays.setdefault(kind, {})[name] = at - done
+            torch.cuda.synchronize()
+            steps[f"delivery_{name}"] = delta(s, snapshot())
+            return r, t
+
+        r, readings["put_16mib_s"] = step(
+            "put", lambda: c.put_object(BR_BUCKET, "br/obj", obj),
+            "ObjectCreated:Put", BR_OBJ, etag)
+        first_etag = etag(r)
+        for kind in ("redis", "mysql", "postgresql"):
+            rows_after_put[kind] = broker_rows(kind, stubs[kind])
+        r, readings["get_16mib_s"] = step(
+            "get", lambda: c.get_object(BR_BUCKET, "br/obj"),
+            "ObjectAccessed:Get", BR_OBJ, etag)
+        check(r.body == obj, "GET body")
+        wipe_data_shards(layer, BR_BUCKET, "br/obj")
+        r, readings["degraded_get_16mib_s"] = step(
+            "degraded_get", lambda: c.get_object(BR_BUCKET, "br/obj"),
+            "ObjectAccessed:Get", BR_OBJ, etag)
+        check(r.body == obj, "degraded GET body")
+        r, readings["put2_16mib_s"] = step(
+            "put2", lambda: c.put_object(BR_BUCKET, "br/obj", obj2),
+            "ObjectCreated:Put", BR_OBJ, etag)
+        check(etag(r) != first_etag, "the second PUT's ETag")
+        step("delete", lambda: c.delete_object(BR_BUCKET, "br/obj"),
+             "ObjectRemoved:Delete", None, lambda r: None)
+        timed_step(steps, "outside", lambda: c.put_object(
+            BR_BUCKET, "other/k", out1[:64 * 1024]))
+        for t in srv.egress.targets():
+            if t.name in BR_ARNS.values():
+                t.flush(30.0)
+
+        def same(rec, want) -> bool:
+            o = rec["s3"]["object"]
+            event, size, et = want
+            return (rec["eventName"], o["key"]) == (event, "br/obj") and \
+                (size is None or o["size"] == size) and \
+                (et is None or o["eTag"] == et)
+
+        for kind in BR_KINDS:
+            check(broker_count(kind, stubs[kind]) == len(expect),
+                  f"{kind}: {broker_count(kind, stubs[kind])} records, "
+                  f"want {len(expect)} (none for the key outside br/)")
+            if kind in ("redis", "mysql", "postgresql"):
+                rows = rows_after_put[kind]
+                check(list(rows) == [BR_NS_KEY] and same(
+                    rows[BR_NS_KEY], expect[0]), f"{kind}: the PUT's row")
+                check(broker_ops(kind, stubs[kind]) == ["set"] * 4 + ["del"]
+                      and broker_rows(kind, stubs[kind]) == {},
+                      f"{kind}: four writes, then the DELETE removed the row")
+                continue
+            got = broker_records(kind, stubs[kind])
+            check(len(got) == len(expect) and all(
+                same(g, w) for g, w in zip(got, expect)),
+                f"{kind}: the records in request order")
+        check([q for _, _, q in stubs["mqtt"].published] == [1] * len(expect),
+              "MQTT at QoS 1")
+        # a GET's record comes before its 16 MiB body has left: the median
+        # and the largest are the writes'
+        writes = ("put", "put2", "delete")
+        readings["delay_s"] = {
+            k: {"median": float(np.median([v[n] for n in writes])),
+                "max": max(v[n] for n in writes), "by_step": v}
+            for k, v in delays.items()}
+        # 5: the outage: the Kafka stub down, two PUTs stored, replayed
+        kafka_port = stubs["kafka"].port
+        stub_down(stubs["kafka"])
+        _, readings["outage_puts_s"] = timed_step(
+            steps, "outage_puts", lambda: (
+                c.put_object(BR_BUCKET, "br/out1", out1),
+                c.put_object(BR_BUCKET, "br/out2", out2)))
+        torch.cuda.synchronize()
+        s_store = snapshot()
+        kafka_arn = BR_ARNS["kafka"]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            rows = {r["target"]: r for r in json.loads(c.request(
+                "GET", "/minio-tpu/admin/v1/targets").body)["targets"]}
+            if rows[kafka_arn]["stored"] == 2 and \
+                    not rows[kafka_arn]["online"]:
+                break
+            time.sleep(0.05)
+        check(rows[kafka_arn]["stored"] == 2 and not
+              rows[kafka_arn]["online"], f"Kafka offline: {rows[kafka_arn]}")
+        check(len(os.listdir(f"{qroot}/kafka")) == 2,
+              f"Kafka's queue_dir: {os.listdir(f'{qroot}/kafka')}")
+        others = [k for k in BR_KINDS if k != "kafka"]
+        StubWatch(stubs, {k: len(expect) + 2 for k in others}).join()
+        torch.cuda.synchronize()
+        steps["storing"] = delta(s_store, snapshot())
+        stubs["kafka"] = stub_up_on(classes["kafka"], kafka_port)
+        torch.cuda.synchronize()
+        s_rep = snapshot()
+        t0 = time.perf_counter()
+        doc = json.loads(c.request(
+            "POST", "/minio-tpu/admin/v1/targets/replay").body)
+        readings["replay_s"] = time.perf_counter() - t0
+        readings["replayed"] = doc["replayed"].get(f"notify/{kafka_arn}")
+        StubWatch(stubs, {"kafka": 2}).join()
+        torch.cuda.synchronize()
+        steps["replay"] = delta(s_rep, snapshot())
+        check([r["s3"]["object"]["key"] for r in
+               broker_records("kafka", stubs["kafka"])] ==
+              ["br/out1", "br/out2"], "the stored records replayed in order")
+        check(os.listdir(f"{qroot}/kafka") == [], "queue_dir emptied")
+        # 6: the scrape: every target's families, its deliveries counted
+        scrape = parse_scrape(adm.metrics())
+        for kind, arn in BR_ARNS.items():
+            lab = (("target", arn), ("target_type", "notify"))
+            check(scrape.get(("mt_target_sent_total", lab)) ==
+                  len(expect) + 2 and scrape.get(("mt_target_online", lab))
+                  == 1 and ("mt_target_store_length", lab) in scrape,
+                  f"mt_target_* of {arn}")
+        readings["delivery_mean_s"] = {
+            kind: scrape[("mt_target_delivery_seconds_sum",
+                          (("target", arn), ("target_type", "notify")))] /
+            scrape[("mt_target_delivery_seconds_count",
+                    (("target", arn), ("target_type", "notify")))]
+            for kind, arn in BR_ARNS.items()}
+        # 7: the cost of nine targets: a 16 MiB PUT and GET with the
+        # notification config and without, in alternating pairs
+        paired: dict = {"on": {"put": [], "get": []},
+                        "off": {"put": [], "get": []}}
+        for i in range(BR_PAIRS):
+            for side in (("on", "off") if i % 2 else ("off", "on")):
+                c.request("PUT", f"/{BR_BUCKET}", "notification",
+                          broker_notification_xml("br/") if side == "on"
+                          else b"<NotificationConfiguration/>")
+                key = f"br/pair{i}{side}"
+                _, t = timed_step(steps, f"pair_put_{side}{i}", lambda:
+                                  c.put_object(BR_BUCKET, key, obj))
+                paired[side]["put"].append(t)
+                r, t = timed_step(steps, f"pair_get_{side}{i}", lambda:
+                                  c.get_object(BR_BUCKET, key))
+                check(r.body == obj, f"GET {key}")
+                paired[side]["get"].append(t)
+        readings["paired_s"] = paired
+        StubWatch(stubs, {k: (2 if k == "kafka" else len(expect) + 2) +
+                          2 * BR_PAIRS for k in BR_KINDS}, timeout=60.0).join()
+        torch.cuda.synchronize()
+        launches = delta(s0, snapshot())
+    finally:
+        for stub in stubs.values():
+            stub.stop()
+        shutil.rmtree(qroot, ignore_errors=True)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"brokers path: {kernel} plain version ran")
+    for name in ("put", "get", "degraded_get", "put2"):
+        want = steps["put_before" if name == "put2" else f"{name}_before"]
+        check(steps[name] == want,
+              f"{name} launches {steps[name]} against {want} without "
+              f"broker targets")
+    for kernel in ("gf8_apply", "hh256"):
+        check(steps["outage_puts"][kernel][0] > 0,
+              f"{kernel} not launched in the outage PUTs")
+    for name in [n for n in steps if n.startswith("delivery_")] + [
+            "delete", "storing", "replay"]:
+        check(all(v == (0, 0) for v in steps[name].values()),
+              f"the {name} step launched a kernel: {steps[name]}")
+    for op in ("put", "get"):
+        for i in range(BR_PAIRS):
+            check(steps[f"pair_{op}_on{i}"] == steps[f"pair_{op}_off{i}"]
+                  == steps[f"{op}_before"], f"pair {i}: {op} launches")
+    med = {side: {op: float(np.median(v)) for op, v in ops.items()}
+           for side, ops in readings["paired_s"].items()}
+    readings.update(
+        paired_median_s=med, phase_s=time.perf_counter() - t_phase,
+        launches={step: {k: v[0] for k, v in got.items()}
+                  for step, got in steps.items()})
+    d = readings["delay_s"]
+    print(f"brokers path on {card}: {BR_PAIRS} alternating pairs, median "
+          f"16 MiB PUT {med['on']['put']:.4f} s with nine targets, "
+          f"{med['off']['put']:.4f} s without, GET {med['on']['get']:.4f} / "
+          f"{med['off']['get']:.4f} s; delay from a write's response to its "
+          f"record, median (max) ms: " + ", ".join(
+              f"{k} {d[k]['median'] * 1e3:.2f} ({d[k]['max'] * 1e3:.2f})"
+              for k in BR_KINDS) +
+          f"; replay of 2 {readings['replay_s'] * 1e3:.2f} ms; phase "
+          f"{readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -4305,7 +4801,8 @@ def main() -> int:
     pools_path, pools_readings = phase_pools(card, gen)
     copy_path, copy_readings, (tr_path, tr_readings), (
         ts_path, ts_readings), (ev_path, ev_readings), (
-        repl_path, repl_readings) = phase_copy_lock(bodies, card, gen)
+        repl_path, repl_readings), (
+        br_path, br_readings) = phase_copy_lock(bodies, card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -4319,7 +4816,8 @@ def main() -> int:
                    "transform_path": tr_path[k["name"]],
                    "tier_select_path": ts_path[k["name"]],
                    "events_path": ev_path[k["name"]],
-                   "replication_path": repl_path[k["name"]]}
+                   "replication_path": repl_path[k["name"]],
+                   "brokers_path": br_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -4334,7 +4832,8 @@ def main() -> int:
                       "transform_path": tr_readings,
                       "tier_select_path": ts_readings,
                       "events_path": ev_readings,
-                      "replication_path": repl_readings}))
+                      "replication_path": repl_readings,
+                      "brokers_path": br_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -105,6 +105,7 @@ import time
 from ..background.crawler import load_usage
 from ..background.heal import iter_versions
 from ..bucket.quota import Quota
+from ..events.brokers import NOTIFY_SUBSYSTEMS
 from ..iam import policy as iampol
 from ..iam.sys import IAMError, NoSuchPolicy, NoSuchUser
 from ..objectlayer import interface as ol
@@ -119,14 +120,15 @@ METRICS_PATH = "/minio-tpu/metrics"
 _START = time.time()
 
 # kvconfig subsystem -> the server hook that pushes its keys into what
-# reads them (the drive knobs are read at every scrape)
+# reads them (the drive knobs are read at every scrape); a notify_*
+# subsystem rebuilds its event target
 _RELOADS = {"api": "reload_api_config",
             "pipeline": "reload_pipeline_config",
             "commit": "reload_commit_config",
             "heal": "reload_background_config",
             "scanner": "reload_background_config",
             "rebalance": "reload_background_config",
-            "notify_webhook": "reload_egress_config"}
+            **{sub: "reload_egress_config" for sub in NOTIFY_SUBSYSTEMS}}
 
 
 def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:

@@ -268,14 +268,16 @@ class ReplicationSys:
             try:
                 moved = self._replicate_one(bucket, name, vid, delete)
             except Exception:  # noqa: BLE001 — the task fails, the worker
-                with self._mu:  # goes on
-                    self.stats.failed += 1
-                if not delete:
+                if not delete:  # goes on
                     try:
                         self.layer.put_object_metadata(
                             bucket, name, vid, {STATUS_KEY: "FAILED"})
                     except Exception:  # noqa: BLE001 — best effort: the
                         pass           # version may be gone
+                # counted once stamped, as a task that succeeds: a caller
+                # that waits on the counts reads the stamp
+                with self._mu:
+                    self.stats.failed += 1
             finally:
                 q.task_done()
             self.progress.update(bucket, name, nbytes=moved)

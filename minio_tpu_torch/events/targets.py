@@ -1,8 +1,8 @@
 """Notification targets (``minio_tpu/events/targets.py``,
 pkg/event/target/*): the webhook, which POSTs each record, and an
-in-memory target for tests and diagnostics.  The reference's broker
-targets (AMQP, Kafka, MQTT, NATS, NSQ, Redis, MySQL, PostgreSQL,
-Elasticsearch) are not ported yet (ROADMAP Queue 1 item 16.8c).
+in-memory target for tests and diagnostics.  The broker targets (AMQP,
+Kafka, MQTT, NATS, NSQ, Redis, MySQL, PostgreSQL, Elasticsearch) are in
+``brokers.py``, on the same ``StoreForwardTarget``.
 
 A network target rides the store-and-forward engine (``obs/egress.py``):
 ``send`` queues without waiting, a sender thread retries with backoff,

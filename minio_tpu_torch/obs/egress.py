@@ -553,6 +553,17 @@ class EgressRegistry:
 
     def replay_all(self) -> Dict[str, int]:
         """A replay of every target with a store: {"type/name":
-        delivered}."""
-        return {f"{t.target_type}/{t.name}": t.replay()
-                for t in self.targets() if t.store is not None}
+        delivered}.  A target whose store fails (its ``queue_dir``
+        removed, say) counts a store error and 0, and the others replay
+        all the same (ROADMAP Queue 3 record 59; the reference's raises,
+        so its admin replay answers 500)."""
+        out = {}
+        for t in self.targets():
+            if t.store is None:
+                continue
+            try:
+                out[f"{t.target_type}/{t.name}"] = t.replay()
+            except Exception as e:  # noqa: BLE001 — a store fault
+                t._note_store_error(e)
+                out[f"{t.target_type}/{t.name}"] = 0
+        return out

@@ -36,11 +36,11 @@ reference replicates (``replicate``) to the bucket's remote target.
 event (``notify``) to the ListenNotification streams (GET ``?events``)
 and, through the bucket's notification config, to the registered
 targets, whose delivery engines (``egress``, ``obs/egress.py``) are
-built from the ``notify_webhook`` subsystem (``reload_egress_config``).
-What the port does not serve (the LDAP and web-identity STS calls, the
-web UI, the broker targets, the admin routes of ``admin/handlers.py`` it
-lacks) answers the S3 ``NotImplemented`` error document.  The health
-probes are served:
+built from the ``notify_webhook`` and ``notify_<broker kind>``
+subsystems (``reload_egress_config``).  What the port does not serve
+(the LDAP and web-identity STS calls, the web UI, the admin routes of
+``admin/handlers.py`` it lacks) answers the S3 ``NotImplemented`` error
+document.  The health probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
 ``/minio/health/cluster`` from the layer's write quorum.
 
@@ -108,6 +108,7 @@ from ..background.replication import ReplicationSys
 from ..crypto import sse as csse
 from ..crypto.kms import kms_from_env
 from ..events import NotificationSys, WebhookTarget
+from ..events.brokers import NOTIFY_SUBSYSTEMS, target_from_config
 from ..iam import sts as _sts
 from ..iam.sys import IAMSys
 from ..objectlayer import interface as ol
@@ -413,7 +414,9 @@ class S3Server:
         # the event targets' delivery engines: what the scrape, the admin
         # ``targets`` routes and ``stop()`` walk
         self.egress = EgressRegistry()
-        self._webhook = None            # the notify_webhook target
+        # notify_* subsystem -> (the values its target was built from,
+        # the target or None)
+        self._notify: dict[str, tuple] = {}
         # one reload at a time: two SetConfigKV calls must not both
         # rebuild the same target
         self._egress_reload_mu = threading.Lock()
@@ -539,36 +542,47 @@ class S3Server:
         self.reload_background_config()
 
     def reload_egress_config(self) -> None:
-        """(Re)build the webhook event target from the ``notify_webhook``
-        subsystem, at construction and after a SetConfigKV of it.  The
-        target it replaces is closed (what it still queues goes to its
-        store).  A bad config is logged and leaves no target.  The
-        logger, audit and alert webhooks are not ported (ROADMAP Queue 1
-        item 11), nor are the broker targets."""
+        """(Re)build the event target of each ``notify_*`` subsystem whose
+        values changed since it was last built: at construction every
+        one, after a SetConfigKV the one it changed (the reference
+        rebuilds them all, ROADMAP Queue 3 record 55).  The target it
+        replaces is closed (what it still queues goes to its store).  A
+        bad config is logged and leaves no target.  The logger, audit
+        and alert webhooks are not ported (ROADMAP Queue 1 item 11)."""
         with self._egress_reload_mu:
-            old, self._webhook = self._webhook, None
-            if old is not None:
-                self.events.remove_target(old.arn)
-                self.egress.remove(old)
-                old.close()
-            cfg = self.config
-            try:
-                if cfg.get("notify_webhook", "enable") != "on":
-                    return
-                lim = config_queue_limit(cfg, "notify_webhook",
-                                         "queue_limit")
-                t = WebhookTarget(
-                    "arn:minio:sqs::1:webhook",
-                    cfg.get("notify_webhook", "endpoint"),
-                    auth_token=cfg.get("notify_webhook", "auth_token"),
-                    store_dir=cfg.get("notify_webhook", "queue_dir") or None,
-                    queue_limit=lim, store_limit=lim)
-                self.egress.register(t)
-                self.events.register_target(t)
-                self._webhook = t
-            except Exception as e:  # noqa: BLE001 — a bad subsystem config
-                logging.getLogger("minio_tpu_torch").error(
-                    "egress: building notify_webhook target failed: %s", e)
+            for sub in NOTIFY_SUBSYSTEMS:
+                values = self.config.get_subsys(sub)
+                built_from, old = self._notify.get(sub, (None, None))
+                if values == built_from:
+                    continue
+                if old is not None:
+                    self.events.remove_target(old.arn)
+                    self.egress.remove(old)
+                    old.close()
+                t = None
+                try:
+                    t = self._notify_target(sub)
+                except Exception as e:  # noqa: BLE001 — a bad subsystem config
+                    logging.getLogger("minio_tpu_torch").error(
+                        "egress: building %s target failed: %s", sub, e)
+                self._notify[sub] = (values, t)
+                if t is not None:
+                    self.egress.register(t)
+                    self.events.register_target(t)
+
+    def _notify_target(self, sub: str):
+        """The target ``sub`` configures, None when it is not enabled."""
+        cfg = self.config
+        if sub != "notify_webhook":
+            return target_from_config(sub[len("notify_"):], cfg)
+        if cfg.get(sub, "enable") != "on":
+            return None
+        lim = config_queue_limit(cfg, sub, "queue_limit")
+        return WebhookTarget(
+            "arn:minio:sqs::1:webhook", cfg.get(sub, "endpoint"),
+            auth_token=cfg.get(sub, "auth_token"),
+            store_dir=cfg.get(sub, "queue_dir") or None,
+            queue_limit=lim, store_limit=lim)
 
     def notify(self, event_name: str, bucket: str, oi,
                req_params: dict | None = None) -> None:

@@ -159,6 +159,23 @@ register_subsys("notify_webhook", {
     "enable": "off", "endpoint": "", "auth_token": "", "queue_dir": "",
     "queue_limit": "10000",
 })
+# the broker event targets (events/brokers.py target_from_config, ARN
+# arn:minio:sqs::1:<kind>), each rebuilt live on a change of its own
+# subsystem; the keys are the reference's (cmd/config/notify)
+for _kind, _keys in (
+        ("amqp", ("url", "exchange", "routing_key")),
+        ("kafka", ("brokers", "topic")),
+        ("mqtt", ("broker", "topic", "qos")),
+        ("nats", ("address", "subject", "username", "password")),
+        ("nsq", ("nsqd_address", "topic")),
+        ("redis", ("address", "key", "format", "password")),
+        ("mysql", ("dsn_string", "table", "format")),
+        ("postgresql", ("connection_string", "table", "format")),
+        ("elasticsearch", ("url", "index", "format"))):
+    register_subsys(f"notify_{_kind}", {
+        "enable": "off",
+        **{k: {"qos": "0", "format": "namespace"}.get(k, "") for k in _keys},
+        "queue_dir": "", "queue_limit": "10000"})
 
 
 CONFIG_PATH = "config/config.json"          # in the system volume

@@ -26,7 +26,25 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "compression": ["enable", "extensions", "mime_types"],
              "tls": ["enable", "certs_dir"],
              "notify_webhook": ["enable", "endpoint", "auth_token",
-                                "queue_dir", "queue_limit"]}
+                                "queue_dir", "queue_limit"],
+             "notify_amqp": ["enable", "url", "exchange", "routing_key",
+                             "queue_dir", "queue_limit"],
+             "notify_kafka": ["enable", "brokers", "topic", "queue_dir",
+                              "queue_limit"],
+             "notify_mqtt": ["enable", "broker", "topic", "qos",
+                             "queue_dir", "queue_limit"],
+             "notify_nats": ["enable", "address", "subject", "username",
+                             "password", "queue_dir", "queue_limit"],
+             "notify_nsq": ["enable", "nsqd_address", "topic", "queue_dir",
+                            "queue_limit"],
+             "notify_redis": ["enable", "address", "key", "format",
+                              "password", "queue_dir", "queue_limit"],
+             "notify_mysql": ["enable", "dsn_string", "table", "format",
+                              "queue_dir", "queue_limit"],
+             "notify_postgresql": ["enable", "connection_string", "table",
+                                   "format", "queue_dir", "queue_limit"],
+             "notify_elasticsearch": ["enable", "url", "index", "format",
+                                      "queue_dir", "queue_limit"]}
 
 
 def test_registers_only_the_keys_the_port_reads():
