@@ -309,7 +309,35 @@
    DELETE, since a GET's record comes before its body ends), each
    target's mean delivery seconds, a 16 MiB PUT and GET with the nine
    targets and without in alternating pairs, the replay's seconds.
-20. One JSON line of readings, one describing each kernel, the card line,
+20. The external identities, on a fresh ``build_server`` of 16 drives
+   (12 + 4, 10 MiB blocks, on the card) built with ``identity_ldap``,
+   ``identity_openid`` (an HS256 secret and an inline RS256 JWKS whose key
+   the script makes itself: two Miller-Rabin primes from ``secrets``) and
+   ``etcd`` set in the environment, the environment cleared after the
+   build.  In this process on free local ports: an LDAP stub of the
+   script's own (the directory of ``tests/ldap_stub.py``, decoded with the
+   port's BER codec), ``tests/etcd_stub.py`` and an OPA stub that allows
+   only ``s3:GetObject``.  etcd: a policy and a user added through the
+   admin API land under ``config/iam/`` in the stub, and no drive gains
+   ``config/iam.json``.  LDAP: a group DN mapped to ``readwrite`` through
+   ``set-user-policy``; unsigned AssumeRoleWithLDAPIdentity calls; with the
+   session, a 16 MiB PUT, its GET and a GET with four data-shard drives
+   wiped launch exactly the Kernel A and B counts that the same three
+   requests launch with the root credential; a wrong password is refused
+   (InvalidParameterValue, as the reference answers) and launches nothing.
+   OpenID: an HS256 and an RS256 token each get a session whose GET
+   returns the body; an expired token, a wrong ``aud`` and a flipped
+   signature byte are refused.  OPA, armed through ``SetConfigKV
+   policy_opa url``: the user's GET allowed, its 16 MiB PUT denied
+   without a launch, root never sent to the webhook, a 16 MiB GET with
+   the webhook and without in alternating pairs, the GET denied with the
+   stub down within ``timeout`` x ``retry_attempts``,
+   ``mt_policy_webhook_total`` equal per verdict to the decisions made,
+   and local policy back with an empty ``url``.  Then a second server on
+   the same drives and etcd serves the user's GET.  Printed beside the
+   card: the median LDAP and web-identity STS call, the GET pairs, an
+   etcd-persisted IAM mutation's seconds and the phase's.
+21. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -4758,6 +4786,458 @@ def phase_brokers(srv, card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+FED_OBJ = 16 << 20                                   # phase 20
+FED_REPS, FED_PAIRS = 5, 4
+FED_BASE = "dc=example,dc=org"
+FED_USERS, FED_GROUPS = f"ou=users,{FED_BASE}", f"ou=groups,{FED_BASE}"
+FED_READERS = f"cn=readers,{FED_GROUPS}"
+FED_ISSUER, FED_CLIENT = "https://idp.example.test", "minio-tpu-app"
+FED_HS_SECRET = "oidc-shared-secret"
+FED_OPA_TIMEOUT_S, FED_OPA_ATTEMPTS = 0.5, 2
+
+
+def fed_directory() -> dict:
+    """The directory of ``tests/ldap_stub.py``'s ``standard_directory``:
+    DN -> {attribute: [values]}, passwords in ``userPassword``."""
+    def user(uid, pw):
+        return {"uid": [uid], "userPassword": [pw], "objectClass": ["person"]}
+    return {
+        f"cn=lookup,{FED_BASE}": {"userPassword": ["lookup-secret"]},
+        f"uid=svc-alice,{FED_USERS}": user("svc-alice", "alice-pass"),
+        f"uid=svc-bob,{FED_USERS}": user("svc-bob", "bob-pass"),
+        FED_READERS: {"objectClass": ["groupOfNames"], "member": [
+            f"uid=svc-alice,{FED_USERS}", f"uid=svc-bob,{FED_USERS}"]},
+        f"cn=admins,{FED_GROUPS}": {"objectClass": ["groupOfNames"],
+                                    "member": [f"uid=svc-alice,{FED_USERS}"]}}
+
+
+def ldap_stub(directory: dict):
+    """A directory server for simple bind and search (equality, presence,
+    and, or, not) on a free local port, speaking BER through the port's
+    codec; (server, thread, "host:port")."""
+    import socketserver
+    import threading
+    from minio_tpu_torch.iam import ldap as L
+
+    def tlvs(content):
+        r, out = L.BERReader(content), []
+        while not r.eof():
+            out.append(r.read_tlv())
+        return out
+
+    def match(filt, attrs) -> bool:
+        tag, content = filt
+        if tag == L.FILTER_AND:
+            return all(match(f, attrs) for f in tlvs(content))
+        if tag == L.FILTER_OR:
+            return any(match(f, attrs) for f in tlvs(content))
+        if tag == L.FILTER_NOT:
+            return not match(tlvs(content)[0], attrs)
+        if tag == L.FILTER_PRESENT:
+            return content.decode() in attrs
+        (_, attr), (_, value) = tlvs(content)
+        return value.decode() in attrs.get(attr.decode(), [])
+
+    def answer(mid, op):
+        return L.ber(L.SEQUENCE, L.ber_int(mid) + op)
+
+    def result(tag, code):
+        return L.ber(tag, L.ber_int(code, L.ENUMERATED) + L.ber_str("")
+                     + L.ber_str(""))
+
+    class Handler(socketserver.BaseRequestHandler):
+        def handle(self):
+            f = self.request.makefile("rb")
+            while True:
+                head = f.read(2)
+                if len(head) < 2:
+                    return
+                n = head[1]
+                if n & 0x80:
+                    n = int.from_bytes(f.read(n & 0x7F), "big")
+                (_, mid), (op, body) = tlvs(f.read(n))
+                mid = L.decode_int(mid)
+                if op == L.APP_BIND_REQUEST:
+                    _, (_, dn), (_, pw) = tlvs(body)
+                    ok = pw.decode() in directory.get(
+                        dn.decode(), {}).get("userPassword", [])
+                    self.request.sendall(answer(mid, result(
+                        L.APP_BIND_RESPONSE, 0 if ok else 49)))
+                elif op == L.APP_SEARCH_REQUEST:
+                    parts = tlvs(body)
+                    base, filt = parts[0][1].decode(), parts[6]
+                    out = []
+                    for dn, attrs in directory.items():
+                        if not dn.endswith(base) or not match(filt, attrs):
+                            continue
+                        battrs = b"".join(
+                            L.ber(L.SEQUENCE, L.ber_str(k) + L.ber(
+                                L.SET, b"".join(L.ber_str(v) for v in vs)))
+                            for k, vs in attrs.items() if k != "userPassword")
+                        out.append(answer(mid, L.ber(
+                            L.APP_SEARCH_ENTRY,
+                            L.ber_str(dn) + L.ber(L.SEQUENCE, battrs))))
+                    # one write: a second small one would wait for the
+                    # client's delayed ACK (Nagle)
+                    self.request.sendall(b"".join(out) + answer(
+                        mid, result(L.APP_SEARCH_DONE, 0)))
+                else:                       # unbind, or what is not served
+                    return
+
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    t = threading.Thread(target=srv.serve_forever, name="smoke-ldap-stub")
+    t.start()
+    host, port = srv.server_address
+    return srv, t, f"{host}:{port}"
+
+
+def opa_stub():
+    """An OPA webhook on a free local port that allows only
+    ``s3:GetObject``; (server, thread, URL).  ``server.posts`` counts the
+    decisions asked."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            doc = json.loads(self.rfile.read(
+                int(self.headers["Content-Length"])))
+            self.server.posts += 1
+            body = json.dumps({"result": doc["input"]["action"] ==
+                               "s3:GetObject"}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    srv.posts = 0
+    t = threading.Thread(target=srv.serve_forever, name="smoke-opa-stub")
+    t.start()
+    return srv, t, f"http://127.0.0.1:{srv.server_address[1]}/v1/data/allow"
+
+
+def stop_stub(srv, t) -> None:
+    srv.shutdown()
+    srv.server_close()
+    t.join(10)
+    check(not t.is_alive(), "a stub's thread did not stop")
+
+
+def probable_prime(bits: int) -> int:
+    """A random ``bits``-bit prime from ``secrets``: 40 Miller-Rabin rounds
+    with random bases."""
+    import secrets
+    small = [p for p in range(3, 2000, 2)
+             if all(p % q for q in range(3, int(p ** 0.5) + 1, 2))]
+    while True:
+        n = secrets.randbits(bits) | (1 << (bits - 1)) | 1
+        if any(n % p == 0 for p in small):
+            continue
+        d, r = n - 1, 0
+        while d % 2 == 0:
+            d, r = d // 2, r + 1
+        for _ in range(40):
+            x = pow(secrets.randbelow(n - 3) + 2, d, n)
+            if x in (1, n - 1):
+                continue
+            for _ in range(r - 1):
+                x = pow(x, 2, n)
+                if x == n - 1:
+                    break
+            else:
+                break
+        else:
+            return n
+
+
+def rsa_keypair(bits: int = 2048) -> tuple:
+    """(n, e, d) with e = 65537."""
+    e = 65537
+    while True:
+        p, q = probable_prime(bits // 2), probable_prime(bits // 2)
+        phi = (p - 1) * (q - 1)
+        if p != q and phi % e and (p * q).bit_length() == bits:
+            return p * q, e, pow(e, -1, phi)
+
+
+def b64url(b: bytes) -> str:
+    return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+
+
+def jwt(claims: dict, key=None) -> str:
+    """An HS256 JWT under the shared secret, or with ``key`` = (n, e, d)
+    an RS256 one (RSASSA-PKCS1-v1_5 with SHA-256, kid ``k1``)."""
+    import hmac
+    from minio_tpu_torch.iam.openid import SHA256_DIGEST_INFO
+    head = {"alg": "RS256", "kid": "k1"} if key else {"alg": "HS256"}
+    h = b64url(json.dumps({**head, "typ": "JWT"}).encode())
+    c = b64url(json.dumps(claims).encode())
+    msg = f"{h}.{c}".encode()
+    if key is None:
+        sig = hmac.new(FED_HS_SECRET.encode(), msg, hashlib.sha256).digest()
+    else:
+        n, _, d = key
+        k = (n.bit_length() + 7) // 8
+        t = SHA256_DIGEST_INFO + hashlib.sha256(msg).digest()
+        em = b"\x00\x01" + b"\xff" * (k - len(t) - 3) + b"\x00" + t
+        sig = pow(int.from_bytes(em, "big"), d, n).to_bytes(k, "big")
+    return f"{h}.{c}.{b64url(sig)}"
+
+
+def sts_refusal(client, form: dict) -> tuple:
+    """(status, error code) of an unsigned STS form POST."""
+    import re
+    import urllib.parse
+    r = client.request("POST", "/", body=urllib.parse.urlencode(
+        form).encode(), headers={
+            "Content-Type": "application/x-www-form-urlencoded"},
+        sign=False, expect=())
+    m = re.search(rb"<Code>([^<]*)</Code>", r.body)
+    return r.status, m and m.group(1).decode()
+
+
+def phase_federation(card: str, gen):
+    """Phase 20 on a fresh ``build_server`` of 16 drives: IAM on etcd, LDAP
+    and OpenID sessions with their federated 16 MiB PUT, GET and degraded
+    GET held to the root credential's launches, and the OPA webhook armed
+    live.  Returns the launches and the readings."""
+    import statistics
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.s3.client import S3Client
+    from minio_tpu_torch.server_main import build_server
+    from tests.etcd_stub import StubEtcd
+    t_phase = time.perf_counter()
+    readings: dict = {}
+    root = tempfile.mkdtemp(prefix="chip-smoke-fed-")
+    dirs = [f"{root}/d{i}" for i in range(K + M)]
+    key = rsa_keypair()
+    n_len = (key[0].bit_length() + 7) // 8
+    jwks = {"keys": [{"kty": "RSA", "kid": "k1", "alg": "RS256",
+                      "n": b64url(key[0].to_bytes(n_len, "big")),
+                      "e": b64url(key[1].to_bytes(3, "big"))}]}
+    etcd = StubEtcd()
+    etcd_ep = etcd.start()
+    ldap_srv, ldap_t, ldap_addr = ldap_stub(fed_directory())
+    opa_srv, opa_t, opa_url = opa_stub()
+    opa_up = True
+    env = {"MT_IDENTITY_LDAP_SERVER_ADDR": ldap_addr,
+           "MT_IDENTITY_LDAP_LOOKUP_BIND_DN": f"cn=lookup,{FED_BASE}",
+           "MT_IDENTITY_LDAP_LOOKUP_BIND_PASSWORD": "lookup-secret",
+           "MT_IDENTITY_LDAP_USER_DN_SEARCH_BASE_DN": FED_USERS,
+           "MT_IDENTITY_LDAP_USER_DN_SEARCH_FILTER": "(uid=%s)",
+           "MT_IDENTITY_LDAP_GROUP_SEARCH_FILTER":
+               "(&(objectClass=groupOfNames)(member=%d))",
+           "MT_IDENTITY_LDAP_GROUP_SEARCH_BASE_DN": FED_GROUPS,
+           "MT_IDENTITY_OPENID_ENABLE": "on",
+           "MT_IDENTITY_OPENID_ISSUER": FED_ISSUER,
+           "MT_IDENTITY_OPENID_CLIENT_ID": FED_CLIENT,
+           "MT_IDENTITY_OPENID_HS256_SECRET": FED_HS_SECRET,
+           "MT_IDENTITY_OPENID_JWKS": json.dumps(jwks),
+           "MT_ETCD_ENDPOINTS": etcd_ep}
+
+    def build(names):
+        os.environ.update({k: env[k] for k in names})
+        try:
+            return build_server(dirs, "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                                device="cuda")
+        finally:
+            for k in names:
+                os.environ.pop(k, None)
+    srv = srv2 = None
+    try:
+        srv = build(env)
+        check(srv.ldap is not None and srv.openid is not None and
+              srv.etcd is not None and srv.layer.sets[0].device.type ==
+              "cuda", "the identities' server")
+        srv.start()
+        root_c = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        adm = AdminClient(srv.endpoint, S3_KEY, S3_SECRET)
+        anon = S3Client(srv.endpoint, "", "")
+        root_c.make_bucket("fed")
+        body = rand_bytes((FED_OBJ,), gen).cpu().numpy().tobytes()
+        torch.cuda.synchronize()
+        reset_counts()
+        s0 = snapshot()
+        # 1: IAM on etcd
+        t0 = time.perf_counter()
+        adm.add_policy("fed-rw", {"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Action": ["s3:*"],
+            "Resource": ["arn:aws:s3:::fed", "arn:aws:s3:::fed/*"]}]})
+        readings["etcd_policy_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        adm.add_user("eve", "eve-secret-key", ["fed-rw"])
+        readings["etcd_mutation_s"] = time.perf_counter() - t0
+        check(b"config/iam/users/eve" in etcd.kv and
+              b"config/iam/policies/fed-rw" in etcd.kv,
+              f"IAM keys in etcd: {sorted(etcd.kv)}")
+        check(not any(os.path.exists(f"{d}/.mt.sys/config/iam.json")
+                      for d in dirs), "iam.json written beside etcd")
+        eve = S3Client(srv.endpoint, "eve", "eve-secret-key")
+        eve.put_object("fed", "eve/big", body)
+        # 2: LDAP
+        adm.set_user_policy(FED_READERS, ["readwrite"])
+        check(FED_READERS.encode() in etcd.kv.get(
+            b"config/iam/ldap-policies.json", b""), "the LDAP mapping in etcd")
+        times = []
+        for _ in range(FED_REPS):
+            t0 = time.perf_counter()
+            ldap_c = anon.assume_role_with_ldap_identity("svc-alice",
+                                                         "alice-pass")
+            times.append(time.perf_counter() - t0)
+        readings["ldap_sts_ms"] = [t * 1e3 for t in times]
+        steps = {}
+        for who, c in (("root", root_c), ("ldap", ldap_c)):
+            torch.cuda.synchronize()
+            a = snapshot()
+            c.put_object("fed", f"{who}/obj", body)
+            torch.cuda.synchronize()
+            b = snapshot()
+            check(c.get_object("fed", f"{who}/obj").body == body,
+                  f"{who} GET byte-exact")
+            torch.cuda.synchronize()
+            g = snapshot()
+            wipe_data_shards(srv.layer, "fed", f"{who}/obj")
+            check(c.get_object("fed", f"{who}/obj").body == body,
+                  f"{who} degraded GET byte-exact")
+            torch.cuda.synchronize()
+            steps[who] = {"put": delta(a, b), "get": delta(b, g),
+                          "degraded_get": delta(g, snapshot())}
+        for step in ("put", "get", "degraded_get"):
+            for kernel in ("gf8_apply", "hh256"):
+                check(steps["ldap"][step][kernel] ==
+                      steps["root"][step][kernel],
+                      f"LDAP {step} launches {steps['ldap'][step]} against "
+                      f"root's {steps['root'][step]}")
+            check(steps["root"][step]["hh256"][0] > 0,
+                  f"hh256 not launched in the {step} step")
+        check(steps["root"]["put"]["gf8_apply"][0] > 0 and
+              steps["root"]["degraded_get"]["gf8_apply"][0] > 0,
+              f"gf8_apply not launched: {steps['root']}")
+        a = snapshot()
+        got = sts_refusal(anon, {"Action": "AssumeRoleWithLDAPIdentity",
+                                 "LDAPUsername": "svc-alice",
+                                 "LDAPPassword": "wrong"})
+        check(got == (400, "InvalidParameterValue") and
+              delta(a, snapshot()) == {k: (0, 0) for k in KERNELS},
+              f"a wrong LDAP password answered {got}")
+        # 3: OpenID
+        now = int(time.time())
+        claims = {"iss": FED_ISSUER, "aud": FED_CLIENT, "sub": "user-42",
+                  "exp": now + 600, "policy": "readonly"}
+        times = []
+        for i in range(FED_REPS):
+            tok = jwt(claims, key if i % 2 else None)
+            t0 = time.perf_counter()
+            web_c = anon.assume_role_with_web_identity(tok)
+            times.append(time.perf_counter() - t0)
+            check(web_c.get_object("fed", "eve/big").body == body,
+                  f"web identity GET ({'RS256' if i % 2 else 'HS256'})")
+        readings["web_identity_sts_ms"] = [t * 1e3 for t in times]
+        rs = jwt(claims, key)
+        flipped = rs[:-6] + ("A" if rs[-6] != "A" else "B") + rs[-5:]
+        for what, tok in (("expired", jwt({**claims, "exp": now - 10})),
+                          ("wrong aud", jwt({**claims, "aud": "other"})),
+                          ("flipped signature", flipped)):
+            got = sts_refusal(anon, {"Action": "AssumeRoleWithWebIdentity",
+                                     "WebIdentityToken": tok})
+            check(got == (403, "AccessDenied"), f"{what} token: {got}")
+        # 4: OPA
+        def verdicts():
+            return by_label(parse_scrape(adm.metrics()),
+                            "mt_policy_webhook_total", "verdict")
+        v0 = verdicts()
+        adm.set_config_kv("policy_opa", "timeout",
+                          f"{int(FED_OPA_TIMEOUT_S * 1000)}ms")
+        adm.set_config_kv("policy_opa", "retry_attempts",
+                          str(FED_OPA_ATTEMPTS))
+        adm.set_config_kv("policy_opa", "url", opa_url)
+        check(srv.iam.authorizer is not None, "the webhook armed")
+        check(eve.get_object("fed", "eve/big").body == body,
+              "GET allowed by the webhook")
+        torch.cuda.synchronize()
+        a = snapshot()
+        r = eve.request("PUT", "/fed/eve/denied", body=body, expect=())
+        torch.cuda.synchronize()
+        check(r.status == 403 and r.xml().findtext("Code") ==
+              "AccessDenied" and delta(a, snapshot()) ==
+              {k: (0, 0) for k in KERNELS},
+              f"the PUT the webhook denies answered {r.status}")
+        posts = opa_srv.posts
+        root_c.put_object("fed", "root/small", body[:4096])
+        check(opa_srv.posts == posts, "root was sent to the webhook")
+        pairs = {"opa": [], "local": []}
+        for i in range(FED_PAIRS):
+            for mode in (("opa", "local") if i % 2 == 0 else
+                         ("local", "opa")):
+                adm.set_config_kv("policy_opa", "url",
+                                  opa_url if mode == "opa" else "")
+                t0 = time.perf_counter()
+                check(eve.get_object("fed", "eve/big").body == body,
+                      f"GET ({mode})")
+                pairs[mode].append(time.perf_counter() - t0)
+        readings["get_16mib_opa_s"] = pairs["opa"]
+        readings["get_16mib_local_s"] = pairs["local"]
+        adm.set_config_kv("policy_opa", "url", opa_url)
+        stop_stub(opa_srv, opa_t)
+        opa_up = False
+        t0 = time.perf_counter()
+        r = eve.request("GET", "/fed/eve/big", expect=())
+        readings["opa_down_deny_s"] = time.perf_counter() - t0
+        check(r.status == 403 and readings["opa_down_deny_s"] <
+              FED_OPA_TIMEOUT_S * FED_OPA_ATTEMPTS,
+              f"with the webhook down: {r.status} after "
+              f"{readings['opa_down_deny_s']:.3f} s")
+        v1 = verdicts()
+        got = {k: v1.get(k, 0) - v0.get(k, 0) for k in
+               ("allow", "deny", "error")}
+        want = {"allow": 1 + FED_PAIRS, "deny": 1, "error": 1}
+        check(got == want, f"mt_policy_webhook_total {got}, want {want}")
+        adm.set_config_kv("policy_opa", "url", "")
+        check(srv.iam.authorizer is None and eve.put_object(
+            "fed", "eve/after", body[:4096]).status == 200,
+            "local policy back")
+        srv.stop()
+        # 5: a second server on the same drives and etcd
+        srv2 = build(["MT_ETCD_ENDPOINTS"])
+        srv2.start()
+        check(S3Client(srv2.endpoint, "eve", "eve-secret-key").get_object(
+            "fed", "eve/big").body == body, "eve after the restart")
+        torch.cuda.synchronize()
+        s_end = snapshot()
+    finally:
+        for s in (srv, srv2):
+            if s is not None:
+                s.stop()
+        if opa_up:
+            stop_stub(opa_srv, opa_t)
+        stop_stub(ldap_srv, ldap_t)
+        etcd.stop()
+        etcd._thread.join(10)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = delta(s0, s_end)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"identities path: {kernel} plain version ran")
+    readings.update(
+        phase_s=time.perf_counter() - t_phase,
+        launches={f"{who}_{step}": {k: v[0] for k, v in got.items()}
+                  for who, by in steps.items() for step, got in by.items()})
+    med = statistics.median
+    print(f"identities path on {card}: LDAP STS median "
+          f"{med(readings['ldap_sts_ms']):.2f} ms, web-identity STS median "
+          f"{med(readings['web_identity_sts_ms']):.2f} ms; 16 MiB GET with "
+          f"OPA median {med(pairs['opa']):.4f} s, without "
+          f"{med(pairs['local']):.4f} s ({FED_PAIRS} alternating pairs); "
+          f"etcd-persisted add-user {readings['etcd_mutation_s']:.4f} s; "
+          f"phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -4803,6 +5283,7 @@ def main() -> int:
         ts_path, ts_readings), (ev_path, ev_readings), (
         repl_path, repl_readings), (
         br_path, br_readings) = phase_copy_lock(bodies, card, gen)
+    fed_path, fed_readings = phase_federation(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -4817,7 +5298,8 @@ def main() -> int:
                    "tier_select_path": ts_path[k["name"]],
                    "events_path": ev_path[k["name"]],
                    "replication_path": repl_path[k["name"]],
-                   "brokers_path": br_path[k["name"]]}
+                   "brokers_path": br_path[k["name"]],
+                   "identities_path": fed_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -4833,7 +5315,8 @@ def main() -> int:
                       "tier_select_path": ts_readings,
                       "events_path": ev_readings,
                       "replication_path": repl_readings,
-                      "brokers_path": br_readings}))
+                      "brokers_path": br_readings,
+                      "identities_path": fed_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

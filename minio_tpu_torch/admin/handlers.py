@@ -32,7 +32,8 @@ AccessDenied.  They answer JSON:
   GET  list-users
   POST remove-user?accessKey=   (its service accounts go too)
   POST set-user-status?accessKey=&status=enabled|disabled
-  POST set-user-policy?accessKey=&policies=a,b
+  POST set-user-policy?accessKey=&policies=a,b  (an unknown key holding
+                                '=' maps an LDAP DN when LDAP is set)
   POST add-service-account      {"parent", "accessKey", "secretKey"}
   GET  list-service-accounts[?parent=]
   POST delete-service-account?accessKey=
@@ -128,6 +129,7 @@ _RELOADS = {"api": "reload_api_config",
             "heal": "reload_background_config",
             "scanner": "reload_background_config",
             "rebalance": "reload_background_config",
+            "policy_opa": "reload_policy_config",
             **{sub: "reload_egress_config" for sub in NOTIFY_SUBSYSTEMS}}
 
 
@@ -253,8 +255,17 @@ def _set_user_status(h, srv, q1, payload, send_json) -> bool:
 
 
 def _set_user_policy(h, srv, q1, payload, send_json) -> bool:
+    """An unknown access key that looks like a DN (it holds ``=``) maps
+    the LDAP user or group DN when LDAP is configured
+    (cmd/admin-handlers-users.go, the LDAP sys type)."""
+    target = q1["accessKey"]
     pols = [p for p in q1.get("policies", "").split(",") if p]
-    srv.iam.attach_policy(q1["accessKey"], pols)
+    try:
+        srv.iam.attach_policy(target, pols)
+    except NoSuchUser:
+        if "=" not in target or srv.ldap is None:
+            raise
+        srv.iam.set_ldap_policy(target, pols)
     return _ok(send_json)
 
 

@@ -35,6 +35,9 @@ families computed at scrape time from the live server:
                           rates
   mt_mem_*                the memory governor (``utils/memgov.py``):
                           watermark, bytes in use per kind, peak, sheds
+  mt_policy_webhook_total per verdict (allow, deny, error): the OPA
+                          webhook's decisions (``secure/opa.py``); none
+                          on a server that never asked one
   mt_target_*             each event target's deliveries, failures,
                           drops, dead letters, queue and store lengths,
                           state and delivery seconds (``obs/egress.py``);

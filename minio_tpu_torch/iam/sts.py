@@ -72,9 +72,12 @@ def verify_token(token: str, secret: str) -> dict:
 
 
 def mint(parent_access_key: str, root_secret: str,
-         duration_s: int = DEFAULT_DURATION_S) -> TempCredentials:
+         duration_s: int = DEFAULT_DURATION_S,
+         extra_claims: dict | None = None) -> TempCredentials:
     """The credential triple (cmd/auth-handler.go GetNewCredentials):
-    access keys of 20 characters, secrets of 40."""
+    access keys of 20 characters, secrets of 40.  ``extra_claims`` are an
+    identity provider's own token claims (the LDAP path's ``ldapUser`` and
+    ``ldapUsername``, cmd/sts-handlers.go:502)."""
     if not MIN_DURATION_S <= duration_s <= MAX_DURATION_S:
         raise STSError("InvalidParameterValue",
                        f"DurationSeconds must be in "
@@ -82,6 +85,7 @@ def mint(parent_access_key: str, root_secret: str,
     ak = "STS" + pysecrets.token_hex(9).upper()[:17]
     sk = pysecrets.token_urlsafe(30)[:40]
     exp = int(time.time()) + duration_s
-    claims = {"accessKey": ak, "parent": parent_access_key, "exp": exp}
+    claims = {"accessKey": ak, "parent": parent_access_key, "exp": exp,
+              **(extra_claims or {})}
     token = sign_token(claims, root_secret)
     return TempCredentials(ak, sk, token, exp, parent_access_key)

@@ -11,10 +11,17 @@ S3 front asks ``lookup_secret`` to authenticate a request and
 ``is_allowed`` (with ``session_policy_allows`` where a bucket policy
 grants) to authorise it.
 
-The reference's LDAP and OpenID identities, its OPA webhook and its etcd
-store are not ported (ROADMAP Queue 1 item 14); the LDAP policy map the
-reference keeps in the same document is carried through unchanged.
-Service-account keys come from ``secrets``, so from ``os.urandom``.
+With an etcd client attached (``attach_etcd``, from the ``etcd``
+subsystem) the state lives in etcd instead, one key per entity under
+``<path_prefix>/config/iam/`` (cmd/iam-etcd-store.go), and no
+``iam.json`` is written to the drives.  Federated identities get STS
+sessions of their own: an OpenID subject (``assume_role_web_identity``)
+with the policies its token names, an LDAP user
+(``assume_role_ldap_identity``) with the policies mapped to its DN and
+its groups' DNs (``set_ldap_policy``).  With an ``authorizer`` (the
+OPA webhook of ``secure/opa.py``), ``is_allowed`` asks it instead of the
+local policy documents, but for the root credential.  Service-account
+keys come from ``secrets``, so from ``os.urandom``.
 """
 
 from __future__ import annotations
@@ -80,9 +87,75 @@ class IAMSys:
         self._users: dict[str, UserIdentity] = {}
         self._policies: dict[str, iampolicy.Policy] = dict(iampolicy.CANNED)
         self._group_policies: dict[str, list[str]] = {}
-        self._ldap_policies: dict = {}  # the reference's, carried through
+        # LDAP user or group DN -> policy names (cmd/iam.go mappedPolicy)
+        self._ldap_policies: dict[str, list[str]] = {}
         self._mu = threading.RLock()
         self._save_mu = threading.Lock()   # one snapshot-and-write at a time
+        # the OPA webhook (secure/opa.py): when set, every decision but
+        # root's is its; swapped live by S3Server.reload_policy_config
+        self.authorizer = None
+        # the etcd store (cmd/iam-etcd-store.go), when attached
+        self._etcd = None
+        self._etcd_prefix = "config/iam/"
+        self._etcd_written: dict[str, bytes] = {}
+
+    # -- at rest in etcd (cmd/iam-etcd-store.go) ----------------------------
+
+    def attach_etcd(self, client, path_prefix: str = "") -> None:
+        """Keep the state in etcd from now on, one key per user and per
+        policy under ``<path_prefix>/config/iam/``, and load it."""
+        self._etcd = client
+        self._etcd_prefix = (path_prefix.rstrip("/") + "/"
+                             if path_prefix else "") + "config/iam/"
+        self.load()
+
+    def _etcd_save(self, doc: dict) -> None:
+        """Write the entities that changed since this process last wrote
+        or loaded them, and delete those it removed since; what other
+        servers sharing the etcd wrote is left alone."""
+        pfx = self._etcd_prefix
+        now: dict[str, bytes] = {}
+        for k, u in doc["users"].items():
+            now[f"{pfx}users/{k}"] = json.dumps(u).encode()
+        for name, p in doc["policies"].items():
+            now[f"{pfx}policies/{name}"] = json.dumps(p).encode()
+        now[f"{pfx}groups.json"] = json.dumps(doc["groups"]).encode()
+        now[f"{pfx}ldap-policies.json"] = \
+            json.dumps(doc["ldap_policies"]).encode()
+        prev = self._etcd_written
+        for key, blob in now.items():
+            if prev.get(key) != blob:
+                self._etcd.put(key, blob)
+        for key in prev:
+            if key not in now:
+                self._etcd.delete(key)
+        self._etcd_written = now
+
+    def _etcd_load(self) -> dict | None:
+        """The document the keys under the prefix make; None when there
+        are none.  What is read becomes the baseline of the next save."""
+        pfx = self._etcd_prefix
+        kvs = self._etcd.get_prefix(pfx)
+        self._etcd_written = {k.decode(): bytes(v) for k, v in kvs}
+        if not kvs:
+            return None
+        doc: dict = {"users": {}, "policies": {}, "groups": {},
+                     "ldap_policies": {}}
+        for key, val in kvs:
+            k = key.decode()[len(pfx):]
+            try:
+                parsed = json.loads(val)
+            except json.JSONDecodeError:
+                continue
+            if k.startswith("users/"):
+                doc["users"][k[len("users/"):]] = parsed
+            elif k.startswith("policies/"):
+                doc["policies"][k[len("policies/"):]] = parsed
+            elif k == "groups.json":
+                doc["groups"] = parsed
+            elif k == "ldap-policies.json":
+                doc["ldap_policies"] = parsed
+        return doc
 
     # -- at rest (IAMObjectStore) ------------------------------------------
 
@@ -100,6 +173,9 @@ class IAMSys:
                     "groups": self._group_policies,
                     "ldap_policies": self._ldap_policies,
                 }
+            if self._etcd is not None:
+                self._etcd_save(doc)
+                return
             blob = configcrypt.encrypt_data(self.root.secret_key,
                                             json.dumps(doc).encode())
             er = self._layer.meta_set
@@ -109,20 +185,23 @@ class IAMSys:
     def load(self) -> None:
         from ..secure import configcrypt
         doc, reseal = None, False
-        olds = configcrypt.old_secrets_from_env()
-        er = self._layer.meta_set
-        res, _ = er._fanout(lambda d: d.read_all(SYS_DIR, IAM_PATH),
-                            er.disks)
-        for r in res:
-            if r is None:
-                continue
-            try:
-                blob, reseal = configcrypt.maybe_decrypt(
-                    self.root.secret_key, r, olds)
-                doc = json.loads(blob)
-                break
-            except (configcrypt.DecryptError, json.JSONDecodeError):
-                continue            # sealed under a secret not offered
+        if self._etcd is not None:
+            doc = self._etcd_load()
+        else:
+            olds = configcrypt.old_secrets_from_env()
+            er = self._layer.meta_set
+            res, _ = er._fanout(lambda d: d.read_all(SYS_DIR, IAM_PATH),
+                                er.disks)
+            for r in res:
+                if r is None:
+                    continue
+                try:
+                    blob, reseal = configcrypt.maybe_decrypt(
+                        self.root.secret_key, r, olds)
+                    doc = json.loads(blob)
+                    break
+                except (configcrypt.DecryptError, json.JSONDecodeError):
+                    continue        # sealed under a secret not offered
         with self._mu:
             if doc:
                 self._users = {k: UserIdentity.from_dict(u)
@@ -238,6 +317,82 @@ class IAMSys:
         self._save()
         return creds
 
+    # -- federated identities (cmd/sts-handlers.go) ------------------------
+
+    def assume_role_web_identity(self, subject: str,
+                                 policy_names: list[str],
+                                 duration_s: int | None = None
+                                 ) -> sts.TempCredentials:
+        """A session for an OpenID subject: no IAM user stands behind
+        it, so it carries the policies its token named."""
+        self._check_policies(policy_names)
+        creds = sts.mint(f"oidc:{subject}", self.root.secret_key,
+                         sts.DEFAULT_DURATION_S if duration_s is None
+                         else duration_s)
+        self._register_temp_identity(creds, list(policy_names),
+                                     f"oidc:{subject}")
+        return creds
+
+    def _register_temp_identity(self, creds, policies: list[str],
+                                parent: str, groups: list[str] = (),
+                                session_policy: str = "") -> None:
+        """Sweep the expired sessions and keep a federated one."""
+        with self._mu:
+            for k in [k for k, u in self._users.items() if u.expired()]:
+                del self._users[k]
+            self._users[creds.access_key] = UserIdentity(
+                creds.access_key, creds.secret_key, policies=policies,
+                parent_user=parent, groups=list(groups),
+                expiration=creds.expiration, session_policy=session_policy)
+        self._save()
+
+    def set_ldap_policy(self, dn: str, policy_names: list[str]) -> None:
+        """Map an LDAP user or group DN to policies (no names: unmap)."""
+        self._check_policies(policy_names)
+        with self._mu:
+            if policy_names:
+                self._ldap_policies[dn] = list(policy_names)
+            else:
+                self._ldap_policies.pop(dn, None)
+        self._save()
+
+    def list_ldap_policies(self) -> dict[str, list[str]]:
+        with self._mu:
+            return {k: list(v) for k, v in self._ldap_policies.items()}
+
+    def assume_role_ldap_identity(self, user_dn: str, username: str,
+                                  groups: list[str],
+                                  duration_s: int | None = None,
+                                  session_policy: str | None = None
+                                  ) -> sts.TempCredentials:
+        """A session for a user the directory vouched for
+        (cmd/sts-handlers.go:436): the policies mapped to its DN and its
+        groups' DNs now, within ``session_policy``; its token carries
+        ``ldapUser`` and ``ldapUsername``."""
+        with self._mu:
+            pols: list[str] = []
+            for dn in [user_dn, *groups]:
+                for p in self._ldap_policies.get(dn, []):
+                    if p not in pols:
+                        pols.append(p)
+        if not pols:
+            raise IAMError(f"no policy mapped for LDAP identity {user_dn} "
+                           "or its groups")
+        if session_policy:
+            try:
+                iampolicy.Policy.from_json(session_policy)
+            except Exception as e:  # noqa: BLE001 — any malformed document
+                raise sts.STSError("MalformedPolicyDocument",
+                                   str(e)) from e
+        creds = sts.mint(f"ldap:{user_dn}", self.root.secret_key,
+                         sts.DEFAULT_DURATION_S if duration_s is None
+                         else duration_s,
+                         extra_claims={"ldapUser": user_dn,
+                                       "ldapUsername": username})
+        self._register_temp_identity(creds, pols, f"ldap:{user_dn}",
+                                     groups, session_policy or "")
+        return creds
+
     def purge_expired(self) -> int:
         """Drop expired sessions; how many went."""
         with self._mu:
@@ -346,10 +501,25 @@ class IAMSys:
                    resource: str = "", context: dict | None = None) -> bool:
         """IAMSys.IsAllowed: root may do everything; a user by its own
         and its groups' policies; a service account by the policies it
-        took from its parent; an STS session as its parent, within its
-        session policy.  Deny anywhere wins."""
+        took from its parent; an STS session as its parent (a federated
+        one by the policies it carries), within its session policy.
+        Deny anywhere wins.  With an ``authorizer`` the decision is the
+        webhook's, bounded by a session policy; whether the key
+        authenticates is still decided here."""
         if access_key == self.root.access_key:
             return True
+        authorizer = self.authorizer
+        if authorizer is not None:
+            with self._mu:
+                u = self._users.get(access_key)
+                if u is None or u.status != "enabled" or u.expired():
+                    return False
+            if not self.session_policy_allows(access_key, action,
+                                              resource, context):
+                return False
+            from ..secure.opa import auth_args
+            return authorizer.is_allowed(auth_args(
+                access_key, action, resource, context, owner=False))
         with self._mu:
             u = self._users.get(access_key)
             if u is None or u.status != "enabled" or u.expired():
@@ -358,6 +528,8 @@ class IAMSys:
             if u.parent_user and u.expiration:
                 if u.parent_user == self.root.access_key:
                     names = None        # root's session: allow-all base
+                elif u.parent_user.startswith(("oidc:", "ldap:")):
+                    names = list(u.policies)    # a federated session's own
                 else:
                     p = self._users.get(u.parent_user)
                     if p is None or p.status != "enabled":

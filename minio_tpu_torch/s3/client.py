@@ -372,10 +372,29 @@ class S3Client:
                 "DurationSeconds": str(duration_s)}
         if policy is not None:
             form["Policy"] = json.dumps(policy)
+        return self._sts(form, sign=True)
+
+    def assume_role_with_ldap_identity(self, username: str,
+                                       password: str) -> "S3Client":
+        """STS AssumeRoleWithLDAPIdentity, unsigned: a client of the
+        session the directory's user gets."""
+        return self._sts({"Action": "AssumeRoleWithLDAPIdentity",
+                          "Version": "2011-06-15", "LDAPUsername": username,
+                          "LDAPPassword": password}, sign=False)
+
+    def assume_role_with_web_identity(self, token: str) -> "S3Client":
+        """STS AssumeRoleWithWebIdentity, unsigned: a client of the
+        session an OpenID token gets."""
+        return self._sts({"Action": "AssumeRoleWithWebIdentity",
+                          "Version": "2011-06-15",
+                          "WebIdentityToken": token}, sign=False)
+
+    def _sts(self, form: dict, sign: bool) -> "S3Client":
+        """POST an STS form; a client of the credentials it answers."""
         root = self.request("POST", "/", body=urllib.parse.urlencode(
-            form).encode(), headers={
+            form).encode(), sign=sign, headers={
                 "Content-Type": "application/x-www-form-urlencoded"}).xml()
-        ce = root.find(f"{STS_NS}AssumeRoleResult/{STS_NS}Credentials")
+        ce = root.find(f"{STS_NS}{form['Action']}Result/{STS_NS}Credentials")
         return S3Client(self.endpoint,
                         ce.findtext(f"{STS_NS}AccessKeyId"),
                         ce.findtext(f"{STS_NS}SecretAccessKey"),

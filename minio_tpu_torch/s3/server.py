@@ -37,8 +37,13 @@ event (``notify``) to the ListenNotification streams (GET ``?events``)
 and, through the bucket's notification config, to the registered
 targets, whose delivery engines (``egress``, ``obs/egress.py``) are
 built from the ``notify_webhook`` and ``notify_<broker kind>``
-subsystems (``reload_egress_config``).  What the port does not serve
-(the LDAP and web-identity STS calls, the web UI, the admin routes of
+subsystems (``reload_egress_config``).  The federated STS calls,
+AssumeRoleWithLDAPIdentity and AssumeRoleWithWebIdentity, are served
+unsigned through the providers built from the ``identity_ldap`` and
+``identity_openid`` subsystems (``ldap``, ``openid``); ``etcd``, from the
+``etcd`` subsystem, holds IAM's state in place of the drives; the OPA
+webhook of ``policy_opa`` decides for IAM (``reload_policy_config``,
+live).  What the port does not serve (the web UI, the admin routes of
 ``admin/handlers.py`` it lacks) answers the S3 ``NotImplemented`` error
 document.  The health probes are served:
 ``/minio/health/live`` and ``ready`` while the process serves,
@@ -109,8 +114,10 @@ from ..crypto import sse as csse
 from ..crypto.kms import kms_from_env
 from ..events import NotificationSys, WebhookTarget
 from ..events.brokers import NOTIFY_SUBSYSTEMS, target_from_config
+from ..iam import ldap as _ldap
+from ..iam import openid as _oidc
 from ..iam import sts as _sts
-from ..iam.sys import IAMSys
+from ..iam.sys import IAMSys, NoSuchPolicy
 from ..objectlayer import interface as ol
 from ..objectlayer.bucket_meta import BucketMetadataSys
 from ..objectlayer.metacache import leaf_layers_of, managers_of
@@ -119,8 +126,10 @@ from ..obs.egress import EgressRegistry, config_queue_limit
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockTimeout
 from ..secure.certs import CertManager, enable_server_tls
+from ..secure.opa import OpaWebhook
 from ..storage import commit as _commit
 from ..utils import memgov
+from ..utils.etcd import from_config as etcd_from_config
 from ..utils.kvconfig import Config, parse_duration
 from . import errors as s3err
 from . import sigv2, sigv4
@@ -365,6 +374,17 @@ class S3Server:
         self.tls = tls if tls is not None else \
             CertManager.from_config(self.config)
         self.kms = kms_from_env(layer)
+        # IAM's store is etcd when the ``etcd`` subsystem names endpoints
+        # (cmd/iam-etcd-store.go); the identity providers of the
+        # federated STS calls; all three built here, once
+        self.etcd = etcd_from_config(self.config)
+        if self.etcd is not None:
+            self.iam.attach_etcd(self.etcd,
+                                 self.config.get("etcd", "path_prefix"))
+        self.openid = _oidc.OpenIDProvider.from_config(self.config)
+        ldap_cfg = _ldap.LDAPConfig.from_config(self.config)
+        self.ldap = _ldap.LDAPIdentity(ldap_cfg) if ldap_cfg.enabled \
+            else None
         # the remote tiers (cmd/bucket-lifecycle.go transitionObject),
         # registered at ``tiers/tiers.json`` in the system volume
         self.transition = TransitionSys(layer)
@@ -421,6 +441,7 @@ class S3Server:
         # rebuild the same target
         self._egress_reload_mu = threading.Lock()
         self.reload_egress_config()
+        self.reload_policy_config()
 
     def reload_api_config(self) -> None:
         """Take the request plane's knobs from the ``api`` subsystem:
@@ -540,6 +561,16 @@ class S3Server:
             if hasattr(svc, "usage_cache"):
                 svc.usage_cache = self.usage
         self.reload_background_config()
+
+    def reload_policy_config(self) -> None:
+        """(Re)build the OPA webhook from the ``policy_opa`` subsystem and
+        put it under ``IAMSys.is_allowed``: at construction and after a
+        SetConfigKV of it.  An empty ``url`` gives local policy back; a
+        value that fails to build leaves the webhook as it was."""
+        try:
+            self.iam.authorizer = OpaWebhook.from_config(self.config)
+        except Exception:  # noqa: BLE001 — a bad value keeps the server up
+            pass
 
     def reload_egress_config(self) -> None:
         """(Re)build the event target of each ``notify_*`` subsystem whose
@@ -1154,7 +1185,8 @@ def _make_handler(srv: S3Server):
                     if admin_handlers.handle(self, srv, path, query,
                                              payload):
                         return
-                    raise S3Error("NotImplemented")       # the web UI
+                    # the web UI, next in ROADMAP Queue 1
+                    raise S3Error("NotImplemented")
                 if bucket in RESERVED_BUCKETS:
                     # isMinioReservedBucket (cmd/generic-handlers.go)
                     raise S3Error("AccessDenied")
@@ -1192,22 +1224,20 @@ def _make_handler(srv: S3Server):
         def _sts_api(self, payload: bytes):
             """AssumeRole (cmd/sts-handlers.go:205): a signed request
             gets temporary credentials of its own key, within the form's
-            ``Policy``.  The LDAP and web-identity calls answer
-            NotImplemented, as the reference does with no provider
-            configured (ROADMAP Queue 1 item 14)."""
+            ``Policy``.  AssumeRoleWithWebIdentity (and
+            AssumeRoleWithClientGrants) and AssumeRoleWithLDAPIdentity
+            need no signature: the token or the password is the
+            credential.  Without a provider configured they answer
+            NotImplemented."""
             form = {k: v[0] for k, v in urllib.parse.parse_qs(
                 payload.decode("utf-8", "replace"),
                 keep_blank_values=True).items()}
             action = form.get("Action", "")
             if action in ("AssumeRoleWithWebIdentity",
                           "AssumeRoleWithClientGrants"):
-                return self._sts_fail(
-                    "NotImplemented",
-                    "no OpenID provider configured (identity_openid)")
+                return self._sts_web_identity(form, action)
             if action == "AssumeRoleWithLDAPIdentity":
-                return self._sts_fail(
-                    "NotImplemented",
-                    "no LDAP provider configured (identity_ldap)")
+                return self._sts_ldap_identity(form)
             if action != "AssumeRole":
                 return self._sts_fail("InvalidAction", action)
             if not self.access_key:
@@ -1226,6 +1256,94 @@ def _make_handler(srv: S3Server):
                 return self._sts_fail(e.code, str(e))
             root = ET.Element("AssumeRoleResponse", xmlns=STS_NS)
             result = ET.SubElement(root, "AssumeRoleResult")
+            self._sts_answer(root, result, creds)
+
+        def _sts_ldap_identity(self, form: dict):
+            """AssumeRoleWithLDAPIdentity (cmd/sts-handlers.go:436): the
+            directory checks the username and password, and the session
+            carries the policies mapped to the user's DN and groups."""
+            if srv.ldap is None or not srv.ldap.config.enabled:
+                return self._sts_fail(
+                    "NotImplemented",
+                    "no LDAP provider configured (identity_ldap)")
+            username = form.get("LDAPUsername", "")
+            password = form.get("LDAPPassword", "")
+            if not username or not password:
+                return self._sts_fail(
+                    "MissingParameter",
+                    "LDAPUsername and LDAPPassword cannot be empty")
+            policy = form.get("Policy") or None
+            if policy and len(policy) > 2048:
+                return self._sts_fail(
+                    "InvalidParameterValue",
+                    "session policy exceeds 2048 characters")
+            try:
+                duration = int(form.get(
+                    "DurationSeconds", str(srv.ldap.config.sts_expiry_s)))
+            except ValueError:
+                return self._sts_fail("InvalidParameterValue",
+                                      "DurationSeconds")
+            try:
+                user_dn, groups = srv.ldap.bind(username, password)
+            except _ldap.LDAPError as e:
+                return self._sts_fail("InvalidParameterValue",
+                                      f"LDAP server error: {e}")
+            try:
+                creds = srv.iam.assume_role_ldap_identity(
+                    user_dn, username, groups, duration,
+                    session_policy=policy)
+            except _sts.STSError as e:
+                return self._sts_fail(e.code, str(e))
+            except Exception as e:  # noqa: BLE001 — as the reference answers
+                return self._sts_fail("InvalidParameterValue", str(e))
+            root = ET.Element("AssumeRoleWithLDAPIdentityResponse",
+                              xmlns=STS_NS)
+            result = ET.SubElement(root, "AssumeRoleWithLDAPIdentityResult")
+            self._sts_answer(root, result, creds)
+
+        def _sts_web_identity(self, form: dict, action: str):
+            """AssumeRoleWithWebIdentity (cmd/sts-handlers.go): the
+            provider's JWT checks out, and the session carries the
+            policies of its claim."""
+            if srv.openid is None:
+                return self._sts_fail(
+                    "NotImplemented",
+                    "no OpenID provider configured (identity_openid)")
+            token = form.get("WebIdentityToken") or form.get("Token", "")
+            if not token:
+                return self._sts_fail("InvalidParameterValue",
+                                      "WebIdentityToken required")
+            try:
+                duration = int(form.get("DurationSeconds",
+                                        str(_sts.DEFAULT_DURATION_S)))
+            except ValueError:
+                return self._sts_fail("InvalidParameterValue",
+                                      "DurationSeconds")
+            try:
+                claims = srv.openid.authenticate(token)
+            except _oidc.OpenIDError as e:
+                return self._sts_fail("AccessDenied", str(e))
+            policies = srv.openid.policies_of(claims)
+            if not policies:
+                return self._sts_fail(
+                    "AccessDenied",
+                    f"token carries no {srv.openid.claim_name!r} claim")
+            try:
+                creds = srv.iam.assume_role_web_identity(
+                    claims["sub"], policies, duration)
+            except NoSuchPolicy as e:
+                return self._sts_fail("AccessDenied",
+                                      f"unknown policy: {e}")
+            except _sts.STSError as e:
+                return self._sts_fail(e.code, str(e))
+            root = ET.Element(f"{action}Response", xmlns=STS_NS)
+            result = ET.SubElement(root, f"{action}Result")
+            self._sts_answer(root, result, creds,
+                             subject=claims["sub"])
+
+        def _sts_answer(self, root, result, creds, subject=None):
+            """The credentials under ``result`` (and the web identity's
+            subject), the request id, 200."""
             ce = ET.SubElement(result, "Credentials")
             ET.SubElement(ce, "AccessKeyId").text = creds.access_key
             ET.SubElement(ce, "SecretAccessKey").text = creds.secret_key
@@ -1234,6 +1352,9 @@ def _make_handler(srv: S3Server):
                 datetime.datetime.fromtimestamp(
                     creds.expiration, datetime.timezone.utc).strftime(
                         "%Y-%m-%dT%H:%M:%SZ")
+            if subject is not None:
+                ET.SubElement(result, "SubjectFromWebIdentityToken").text = \
+                    subject
             meta = ET.SubElement(root, "ResponseMetadata")
             ET.SubElement(meta, "RequestId").text = uuid.uuid4().hex[:16]
             self._send(200, _xml(root))

@@ -176,6 +176,48 @@ for _kind, _keys in (
         "enable": "off",
         **{k: {"qos": "0", "format": "namespace"}.get(k, "") for k in _keys},
         "queue_dir": "", "queue_limit": "10000"})
+register_subsys("policy_opa", {
+    # the external policy webhook (secure/opa.py): with a ``url``, every
+    # authorisation but root's is the webhook's, and any failure denies;
+    # ``timeout`` bounds each of ``retry_attempts``; rebuilt live
+    # (s3/server.py reload_policy_config)
+    "url": "",
+    "auth_token": "",
+    "timeout": "2s",
+    "retry_attempts": "2",
+})
+register_subsys("etcd", {
+    # IAM's store (utils/etcd.py, iam/sys.py attach_etcd): with
+    # ``endpoints`` (comma-separated http://host:port) IAM keeps its state
+    # under <path_prefix>/config/iam/ there instead of on the drives;
+    # read when the server is built
+    "endpoints": "",
+    "path_prefix": "",
+})
+register_subsys("identity_ldap", {
+    # AssumeRoleWithLDAPIdentity's directory (iam/ldap.py, the
+    # reference's keys); read when the server is built, as the
+    # reference's server reads them (ROADMAP Queue 3 record 60)
+    "server_addr": "",
+    "sts_expiry": "1h",
+    "lookup_bind_dn": "",
+    "lookup_bind_password": "",
+    "user_dn_search_base_dn": "",
+    "user_dn_search_filter": "",        # %s: the username
+    "group_search_filter": "",          # %s: the username, %d: its DN
+    "group_search_base_dn": "",
+})
+register_subsys("identity_openid", {
+    # AssumeRoleWithWebIdentity's provider (iam/openid.py); read when the
+    # server is built
+    "enable": "off",
+    "issuer": "",                   # the expected iss claim
+    "client_id": "",                # the expected aud or azp
+    "claim_name": "policy",         # the claim naming the IAM policies
+    "jwks_file": "",                # a JWKS document's path (RS256)
+    "jwks": "",                     # an inline JWKS (wins over the file)
+    "hs256_secret": "",             # the shared secret of HS256 tokens
+})
 
 
 CONFIG_PATH = "config/config.json"          # in the system volume

@@ -44,7 +44,17 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "notify_postgresql": ["enable", "connection_string", "table",
                                    "format", "queue_dir", "queue_limit"],
              "notify_elasticsearch": ["enable", "url", "index", "format",
-                                      "queue_dir", "queue_limit"]}
+                                      "queue_dir", "queue_limit"],
+             "policy_opa": ["url", "auth_token", "timeout", "retry_attempts"],
+             "etcd": ["endpoints", "path_prefix"],
+             "identity_ldap": ["server_addr", "sts_expiry", "lookup_bind_dn",
+                               "lookup_bind_password",
+                               "user_dn_search_base_dn",
+                               "user_dn_search_filter", "group_search_filter",
+                               "group_search_base_dn"],
+             "identity_openid": ["enable", "issuer", "client_id",
+                                 "claim_name", "jwks_file", "jwks",
+                                 "hs256_secret"]}
 
 
 def test_registers_only_the_keys_the_port_reads():
