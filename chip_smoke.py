@@ -337,7 +337,26 @@
    the same drives and etcd serves the user's GET.  Printed beside the
    card: the median LDAP and web-identity STS call, the GET pairs, an
    etcd-persisted IAM mutation's seconds and the phase's.
-21. One JSON line of readings, one describing each kernel, the card line,
+21. Distributed nodes: four ``python -m minio_tpu_torch node --device
+   cuda`` processes on free loopback ports, sharing the card, each with
+   4 temporary drives: one set of 16 (12 + 4, 10 MiB blocks) over every
+   node's drives, the shards crossing the internode RPC.  Four 16 MiB
+   objects and one of 256 MiB PUT through node 1 and read through node 3
+   byte for byte; the first 16 MiB PUT, its GET and (later) its degraded
+   GET launch, by the serving node's ``mt_tpu_kernel_launches_total``,
+   what the same requests launch on a ``build_server`` of 16 drives in
+   this process.  Two PUTs of one key at once through nodes 1 and 2 leave
+   one whole version, the same through every node.  A user and a bucket
+   policy added through node 1 authorise a GET through node 2 at once.
+   Node 4 killed (SIGKILL): every body read through node 2, the degraded
+   16 MiB GET launching Kernel A.  Node 4 started again on wiped drives:
+   its own start formats them and heals its set onto them, every
+   ``part.1`` it held back byte for byte.  Printed beside the card: the
+   256 MiB PUT and GET through the cluster (GiB/s, median of three), the
+   degraded GET's, the heal's, a node boot's and the phase's seconds,
+   and an RPC ping's median milliseconds.  Every node process is stopped
+   and waited for, also when a check fails.
+22. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -5238,6 +5257,324 @@ def phase_federation(card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+CL_NODES, CL_PER = 4, 4                               # phase 21
+CL_OBJ, CL_BIG, CL_OBJS = 16 << 20, 256 << 20, 4
+CL_REPS, CL_PINGS = 3, 50
+CL_SECRET = "smoke-cluster-secret"
+CL_BOOT_S, CL_HEAL_S = 180.0, 120.0
+
+
+def free_ports(n: int) -> list:
+    """Free ports below the ephemeral range: a node restarted on its ports
+    finds them free, whatever connections the phase opened meanwhile."""
+    import random
+    import socket
+    rng = random.Random(os.getpid())
+    ports: list = []
+    while len(ports) < n:
+        port = rng.randrange(20000, 32000)
+        with socket.socket() as sk:
+            try:
+                sk.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        if port not in ports:
+            ports.append(port)
+    return ports
+
+
+def node_launches(port: int) -> dict:
+    """A node process's {kernel: (launches, plain runs)} from its scrape
+    (``mt_tpu_kernel_launches_total``; zeros before its first launch)."""
+    import urllib.request
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/minio-tpu/metrics", timeout=30) as r:
+        samples = parse_scrape(r.read().decode())
+    out = {k: [0, 0] for k in KERNELS}
+    for (name, labels), v in samples.items():
+        if name == "mt_tpu_kernel_launches_total":
+            lab = dict(labels)
+            out[lab["kernel"]][lab["engine"] == "plain"] = int(v)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def node_part_files(dirs: list, bucket: str) -> dict:
+    """{(drive, path): bytes} of every part.1 under ``bucket``."""
+    out = {}
+    for d in dirs:
+        for base, _, files in os.walk(f"{d}/{bucket}"):
+            for f in files:
+                if f == "part.1":
+                    with open(f"{base}/{f}", "rb") as fh:
+                        out[(d, os.path.relpath(f"{base}/{f}", d))] = \
+                            fh.read()
+    return out
+
+
+def holds_data_shard(dirs: list, bucket: str, key: str) -> bool:
+    """Whether a drive of ``dirs`` holds one of ``key``'s data shards."""
+    from minio_tpu_torch.storage.xl_meta import XLMeta
+    for d in dirs:
+        with open(f"{d}/{bucket}/{key}/xl.meta", "rb") as fh:
+            fi = XLMeta.load(fh.read()).to_fileinfo(bucket, key, None)
+        if fi.erasure.index <= K:
+            return True
+    return False
+
+
+def phase_cluster(card: str, gen):
+    """Phase 21: four node processes over one set of 16 drives on the
+    card.  Returns the launches (the node processes' and this process's
+    comparison server's) and the readings."""
+    import statistics
+    import threading
+    from minio_tpu_torch.admin.client import AdminClient
+    from minio_tpu_torch.parallel.rpc import RPCClient
+    from minio_tpu_torch.s3.client import S3Client, S3ClientError
+    from minio_tpu_torch.server_main import build_server
+    t_phase = time.perf_counter()
+    readings: dict = {}
+    root = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    ids = [f"n{i + 1}" for i in range(CL_NODES)]
+    ports = free_ports(2 * CL_NODES)
+    rpc, s3 = ports[:CL_NODES], ports[CL_NODES:]
+    dirs = {nid: [f"{root}/{nid}/d{j}" for j in range(CL_PER)]
+            for nid in ids}
+    peers = [f"{nid}=127.0.0.1:{rpc[i]}={','.join(dirs[nid])}"
+             for i, nid in enumerate(ids)]
+    env = dict(os.environ, MT_CLUSTER_SECRET=CL_SECRET,
+               MT_ROOT_USER=S3_KEY, MT_ROOT_PASSWORD=S3_SECRET,
+               MT_HEAL_INTERVAL_S=str(24 * 3600))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs: dict = {}
+
+    def start(nid: str) -> None:
+        i = ids.index(nid)
+        with open(f"{root}/{nid}.log", "ab") as log:
+            procs[nid] = subprocess.Popen(
+                [sys.executable, "-m", "minio_tpu_torch", "node",
+                 "--node-id", nid, "--device", "cuda",
+                 "--address", f"127.0.0.1:{s3[i]}", *peers],
+                cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def log_tail(nid: str) -> str:
+        with open(f"{root}/{nid}.log", "rb") as fh:
+            return fh.read()[-2000:].decode(errors="replace")
+
+    def wait(nid: str) -> None:
+        import urllib.request
+        deadline = time.monotonic() + CL_BOOT_S
+        while True:
+            check(procs[nid].poll() is None,
+                  f"node {nid} exited: {log_tail(nid)}")
+            try:
+                urllib.request.urlopen(
+                    f"http://127.0.0.1:{s3[ids.index(nid)]}/minio/health/"
+                    "live", timeout=5).close()
+                return
+            except OSError:
+                check(time.monotonic() < deadline,
+                      f"node {nid} never served: {log_tail(nid)}")
+                time.sleep(0.2)
+
+    def client(nid: str, key=S3_KEY, secret=S3_SECRET) -> S3Client:
+        return S3Client(f"http://127.0.0.1:{s3[ids.index(nid)]}", key,
+                        secret)
+
+    def served(nid: str, fn) -> dict:
+        """{kernel: (launches, plain)} that ``fn`` made ``nid`` run."""
+        port = s3[ids.index(nid)]
+        a = node_launches(port)
+        fn()
+        return delta(a, node_launches(port))
+
+    def local(fn) -> dict:
+        torch.cuda.synchronize()
+        a = snapshot()
+        fn()
+        torch.cuda.synchronize()
+        return delta(a, snapshot())
+
+    srv = None
+    s_begin = s_end = None
+    node_totals: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for nid in ids:
+            start(nid)
+        for nid in ids:
+            wait(nid)
+        readings["boot_s"] = time.perf_counter() - t0
+        bodies = {f"o{i}": rand_bytes((CL_OBJ,), gen).cpu().numpy().tobytes()
+                  for i in range(CL_OBJS)}
+        big = rand_bytes((CL_BIG,), gen).cpu().numpy().tobytes()
+        c1, c2, c3 = client("n1"), client("n2"), client("n3")
+        c1.make_bucket("clu")
+        # the same requests on one process's set of 16 drives
+        srv = build_server([f"{root}/single/d{i}" for i in range(K + M)],
+                           "127.0.0.1:0", S3_KEY, S3_SECRET, BLOCK,
+                           device="cuda")
+        srv.start()
+        cs = S3Client(srv.endpoint, S3_KEY, S3_SECRET)
+        cs.make_bucket("clu")
+        torch.cuda.synchronize()
+        reset_counts()
+        s_begin = snapshot()
+        want, got = {}, {}
+        want["put"] = local(lambda: cs.put_object("clu", "o0", bodies["o0"]))
+        want["get"] = local(lambda: check(
+            cs.get_object("clu", "o0").body == bodies["o0"], "single GET"))
+        got["put"] = served("n1", lambda: c1.put_object("clu", "o0",
+                                                        bodies["o0"]))
+        got["get"] = served("n3", lambda: check(
+            c3.get_object("clu", "o0").body == bodies["o0"],
+            "cluster GET of o0"))
+        for name, body in bodies.items():
+            if name != "o0":
+                c1.put_object("clu", name, body)
+        puts, gets = [], []
+        for _ in range(CL_REPS):
+            t0 = time.perf_counter()
+            c1.put_object_chunked("clu", "big", big, chunk_size=1 << 20)
+            puts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            check(c3.get_object("clu", "big").body == big, "256 MiB GET")
+            gets.append(time.perf_counter() - t0)
+        readings["put_256mib_s"], readings["get_256mib_s"] = puts, gets
+        for name, body in bodies.items():
+            check(c3.get_object("clu", name).body == body,
+                  f"GET {name} through node 3")
+        # locks: two PUTs of one key at once through two nodes
+        racers = {"a": bodies["o1"], "b": bodies["o2"]}
+        errs = []
+
+        def race(c, body):
+            try:
+                c.put_object("clu", "raced", body)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append(e)
+        threads = [threading.Thread(target=race, args=(c, b))
+                   for c, b in ((c1, racers["a"]), (c2, racers["b"]))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(not errs, f"a raced PUT failed: {errs}")
+        seen = {client(nid).get_object("clu", "raced").body for nid in ids}
+        check(len(seen) == 1 and seen <= set(racers.values()),
+              "the raced key is not one whole version on every node")
+        # peers: a user and a bucket policy through node 1, a GET through 2
+        user = client("n2", "peer-user", "peer-user-secret")
+        r = user.request("GET", "/clu/o3", expect=())
+        check(r.status == 403, f"the unknown user's GET answered {r.status}")
+        adm = AdminClient(c1.endpoint, S3_KEY, S3_SECRET)
+        t0 = time.perf_counter()
+        adm.add_user("peer-user", "peer-user-secret", [])
+        c1.set_bucket_policy("clu", {"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Principal": {"AWS": ["*"]},
+            "Action": ["s3:GetObject"], "Resource": ["arn:aws:s3:::clu/*"]}]})
+        while True:
+            try:
+                check(user.get_object("clu", "o3").body == bodies["o3"],
+                      "the peer's GET")
+                break
+            except S3ClientError:
+                check(time.perf_counter() - t0 < 5.0,
+                      "node 2 never took node 1's user and policy")
+                time.sleep(0.01)
+        readings["peer_change_s"] = time.perf_counter() - t0
+        # node loss
+        victim = next((n for n in bodies
+                       if holds_data_shard(dirs["n4"], "clu", n)), None)
+        check(victim is not None, "node 4 holds no data shard")
+        held = node_part_files(dirs["n4"], "clu")
+        check(len(held) >= CL_OBJS * CL_PER, f"node 4 holds {len(held)} parts")
+        procs["n4"].kill()
+        procs.pop("n4").wait(timeout=60)
+        t0 = time.perf_counter()
+        got["degraded_get"] = served("n2", lambda: check(
+            c2.get_object("clu", victim).body == bodies[victim],
+            "degraded GET through node 2"))
+        readings["degraded_get_16mib_s"] = time.perf_counter() - t0
+        for name, body in {**bodies, "big": big}.items():
+            check(c2.get_object("clu", name).body == body,
+                  f"GET {name} without node 4")
+        wipe_data_shards(srv.layer, "clu", "o0")
+        want["degraded_get"] = local(lambda: check(
+            cs.get_object("clu", "o0").body == bodies["o0"],
+            "single degraded GET"))
+        srv.stop()
+        srv = None
+        torch.cuda.synchronize()
+        s_end = snapshot()
+        for step in want:
+            check(got[step] == want[step],
+                  f"cluster {step} launched {got[step]}, one process "
+                  f"{want[step]}")
+        check(got["degraded_get"]["gf8_apply"][0] > 0,
+              "the degraded GET launched no Kernel A")
+        # node 4 back on wiped drives: healed by its own start
+        for d in dirs["n4"]:
+            shutil.rmtree(d)
+        t0 = time.perf_counter()
+        start("n4")
+        wait("n4")
+        readings["reboot_s"] = time.perf_counter() - t0
+        t_heal = time.perf_counter()
+        while node_part_files(dirs["n4"], "clu") != held:
+            check(time.perf_counter() - t_heal < CL_HEAL_S,
+                  "node 4's part files never came back byte for byte")
+            time.sleep(0.1)
+        readings["heal_s"] = time.perf_counter() - t_heal
+        check(client("n4").get_object("clu", victim).body == bodies[victim],
+              "GET through the healed node")
+        pinger = RPCClient(f"http://127.0.0.1:{rpc[0]}", CL_SECRET)
+        pings = []
+        for _ in range(CL_PINGS):
+            t0 = time.perf_counter()
+            check(pinger.call("sys", "ping") == "pong", "RPC ping")
+            pings.append((time.perf_counter() - t0) * 1e3)
+        pinger.close()
+        readings["rpc_ping_ms"] = pings
+        node_totals = {nid: node_launches(s3[ids.index(nid)])
+                       for nid in ids}
+        readings["launches_by_step"] = {
+            step: {k: v[0] for k, v in by.items()}
+            for step, by in got.items()}
+    finally:
+        if srv is not None:
+            srv.stop()
+        for nid, p in procs.items():
+            p.terminate()
+        for nid, p in procs.items():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    launches = delta(s_begin, s_end)
+    for nid, by in node_totals.items():
+        for k, (n, plain) in by.items():
+            check(plain == 0, f"node {nid}: {k} plain version ran")
+            launches[k] = (launches[k][0] + n, launches[k][1] + plain)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"cluster path: {kernel} plain version ran")
+    med = statistics.median
+    readings["phase_s"] = time.perf_counter() - t_phase
+    gib = CL_BIG / 2 ** 30
+    readings["put_256mib_gibps"] = gib / med(puts)
+    readings["get_256mib_gibps"] = gib / med(gets)
+    print(f"cluster path on {card}: 4 nodes x 4 drives, 256 MiB PUT "
+          f"{readings['put_256mib_gibps']:.3f} GiB/s, GET "
+          f"{readings['get_256mib_gibps']:.3f} GiB/s (median of {CL_REPS}); "
+          f"16 MiB degraded GET {readings['degraded_get_16mib_s']:.3f} s; "
+          f"heal {readings['heal_s']:.2f} s; RPC ping median "
+          f"{med(pings):.3f} ms; node boot {readings['boot_s']:.1f} s; "
+          f"phase {readings['phase_s']:.1f} s")
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -5284,6 +5621,7 @@ def main() -> int:
         repl_path, repl_readings), (
         br_path, br_readings) = phase_copy_lock(bodies, card, gen)
     fed_path, fed_readings = phase_federation(card, gen)
+    cl_path, cl_readings = phase_cluster(card, gen)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -5299,7 +5637,8 @@ def main() -> int:
                    "events_path": ev_path[k["name"]],
                    "replication_path": repl_path[k["name"]],
                    "brokers_path": br_path[k["name"]],
-                   "identities_path": fed_path[k["name"]]}
+                   "identities_path": fed_path[k["name"]],
+                   "cluster_path": cl_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -5316,7 +5655,8 @@ def main() -> int:
                       "events_path": ev_readings,
                       "replication_path": repl_readings,
                       "brokers_path": br_readings,
-                      "identities_path": fed_readings}))
+                      "identities_path": fed_readings,
+                      "cluster_path": cl_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -81,8 +81,14 @@ AccessDenied.  They answer JSON:
                                 totalBytesMoved
   POST set-bandwidth-limit?bucket=&limit=  bytes/s; 0 lifts it
 
-These two answer for this server's targets only: the peers' rows are
-the distributed nodes' (ROADMAP Queue 1 item 18).
+On a cluster member (``cluster.run_node``) ``targets``,
+``targets/replay`` and ``background-status`` add a ``peers`` list, each
+peer's answer or ``{"node", "error"}``, unless ``?local=true``; and
+``/minio-tpu/metrics?scope=cluster`` merges every node's scrape into one
+document, each sample labelled ``server``, with ``mt_node_scrape_ok``
+per node (a peer that fails is marked 0 and counted in
+``mt_node_scrape_errors_total``; the fan-out runs once per
+``CLUSTER_SCRAPE_TTL_S``, since the route takes no credentials).
 
 An unknown user or policy answers 404, another IAM refusal 400, a
 malformed request 400, a pool route on a layer without pools 400 "not a
@@ -130,6 +136,7 @@ _RELOADS = {"api": "reload_api_config",
             "scanner": "reload_background_config",
             "rebalance": "reload_background_config",
             "policy_opa": "reload_policy_config",
+            "rpc": "reload_rpc_config",
             **{sub: "reload_egress_config" for sub in NOTIFY_SUBSYSTEMS}}
 
 
@@ -139,11 +146,9 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
     ``access_key``), ``srv`` the S3Server."""
     from ..s3.server import S3Error
     if path == METRICS_PATH:
-        body = metrics.render(srv.layer, healer=srv.healer,
-                              config=srv.config, api_stats=srv.api_stats,
-                              crawler=srv.crawler,
-                              rebalancer=srv.rebalancer, egress=srv.egress,
-                              replication=srv.replication)
+        qm = {k: v[0] for k, v in query.items()}
+        body = _metrics_cluster(srv, qm) if qm.get("scope") == "cluster" \
+            else render_local(srv)
         h._send(200, body.encode(),
                 content_type="text/plain; version=0.0.4")
         return True
@@ -185,14 +190,21 @@ def handle(h, srv, path: str, query: dict, payload: bytes) -> bool:
                 if info is not None else None,
                 "cache": srv.usage.snapshot_doc()})
         if route == "targets" and h.command == "GET":
-            return send_json({"node": srv.api_stats.label,
-                              "targets": srv.egress.status()})
+            return send_json(_with_peers(
+                srv, q1, {"node": srv.node_name,
+                          "targets": srv.egress.status()},
+                "target_status", 5.0))
         if route == "targets/replay" and h.command == "POST":
-            return send_json({"node": srv.api_stats.label,
-                              "replayed": srv.egress.replay_all()})
+            # not idempotent: a replayed call would deliver again what
+            # the first drained
+            return send_json(_with_peers(
+                srv, q1, {"node": srv.node_name,
+                          "replayed": srv.egress.replay_all()},
+                "target_replay", 30.0, idempotent=False))
         if route == "background-status" and h.command == "GET":
-            return send_json({**background_status(srv),
-                              "node": srv.api_stats.label})
+            return send_json(_with_peers(
+                srv, q1, {**background_status(srv), "node": srv.node_name},
+                "background_status", 5.0))
         pool_route = _POOL_ROUTES.get((h.command, route))
         if pool_route is not None:
             return pool_route(srv, q1, payload, send_json)
@@ -513,6 +525,73 @@ _REPLICATION_ROUTES = {
     ("GET", "bandwidth"): _bandwidth,
     ("POST", "set-bandwidth-limit"): _set_bandwidth_limit,
 }
+
+
+def _with_peers(srv, q1: dict, out: dict, method: str, timeout_s: float,
+                idempotent: bool = True) -> dict:
+    """``out`` with ``peers``: each peer's answer to ``peer.<method>``,
+    or ``{"node", "error"}``; on a cluster member, unless
+    ``?local=true``."""
+    if srv.peers is not None and q1.get("local") != "true":
+        out["peers"] = [
+            {"node": ep, "error": err} if err else r
+            for ep, r, err in srv.peers.call_all(
+                method, timeout_s=timeout_s, idempotent=idempotent)]
+    return out
+
+
+def render_local(srv, node: str | None = None) -> str:
+    """This server's scrape (with ``node``, every sample labelled
+    ``server``): the plain route, the local part of the cluster scrape
+    and the peer call all render it here."""
+    return metrics.render(srv.layer, healer=srv.healer, config=srv.config,
+                          api_stats=srv.api_stats, crawler=srv.crawler,
+                          rebalancer=srv.rebalancer, egress=srv.egress,
+                          replication=srv.replication, node=node)
+
+
+CLUSTER_SCRAPE_TTL_S = 2.0
+
+
+def _metrics_cluster(srv, q1: dict) -> str:
+    """``metrics?scope=cluster``: every peer's scrape (at once, bounded by
+    ``?timeout``, 1-15 s, default 10) and this node's merged into one
+    document.  One fan-out at a time and its answer kept for
+    ``CLUSTER_SCRAPE_TTL_S``: the route is public."""
+    cache = srv.__dict__.setdefault(
+        "_cluster_scrape", {"mu": threading.Lock(), "ts": 0.0, "text": ""})
+    with cache["mu"]:
+        now = time.monotonic()
+        if cache["text"] and now - cache["ts"] < CLUSTER_SCRAPE_TTL_S:
+            return cache["text"]
+        try:
+            timeout_s = min(max(float(q1.get("timeout", 10) or 10), 1.0),
+                            15.0)
+        except ValueError:
+            timeout_s = 10.0
+        docs, status = [], []
+        if srv.peers is not None and srv.peers.clients:
+            for ep, reply, err in srv.peers.call_all("metrics_render",
+                                                     timeout_s=timeout_s):
+                doc, name = None, ep
+                if isinstance(reply, dict):
+                    doc, name = reply.get("doc"), reply.get("node", ep)
+                if err or not isinstance(doc, str):
+                    metrics.GLOBAL.inc("mt_node_scrape_errors_total",
+                                       {"peer": ep})
+                    status.append((name, 0))
+                else:
+                    docs.append(doc)
+                    status.append((name, 1))
+        text = metrics.merge_expositions(
+            [render_local(srv, node=srv.node_name)] + docs)
+        lines = ["# TYPE mt_node_scrape_ok gauge"]
+        for server, ok in [(srv.node_name, 1)] + status:
+            lines.append(f'mt_node_scrape_ok{{server="'
+                         f'{metrics._escape_label(server)}"}} {ok}')
+        text += "\n".join(lines) + "\n"
+        cache["ts"], cache["text"] = time.monotonic(), text
+        return text
 
 
 def background_status(srv) -> dict:

@@ -42,9 +42,17 @@ families computed at scrape time from the live server:
                           drops, dead letters, queue and store lengths,
                           state and delivery seconds (``obs/egress.py``);
                           none on a server without targets
+  mt_node_rpc_*           the internode plane's calls, errors, bytes,
+                          framed stream bytes and frames, breaker
+                          openings (``parallel/rpc.py``)
+  mt_node_scrape_*        the cluster scrape's peers (``?scope=cluster``)
+  mt_tpu_kernel_launches_total  the port's own: each hand kernel's
+                          launches and its plain version's runs in this
+                          process; none before a kernel launched on a
+                          card (the reference's kernels are XLA's)
 
-Family names are the reference's, so its dashboards read the port.  A
-family that nothing fills is not rendered.
+Family names are the reference's, so its dashboards read the port, but
+for the last.  A family that nothing fills is not rendered.
 """
 
 from __future__ import annotations
@@ -149,14 +157,15 @@ def _memgov_gauges() -> list[str]:
 
 def render(layer=None, healer=None, config=None, api_stats=None,
            crawler=None, rebalancer=None, egress=None,
-           replication=None) -> str:
+           replication=None, node: str | None = None) -> str:
     """The exposition document: counters, histograms and live gauges.
     ``config`` gives the slow-drive knobs at scrape time; ``api_stats``
     is the server's last-minute per-API ``OpWindows``; ``crawler`` and
     ``rebalancer`` the server's loops; ``egress`` its event targets'
-    registry; ``replication`` its replication plane.  Codec ops whose
-    device time is still being measured are settled first (those whose
-    kernels have finished)."""
+    registry; ``replication`` its replication plane; ``node`` a cluster
+    member's name, given to every sample as its ``server`` label.  Codec
+    ops whose device time is still being measured are settled first
+    (those whose kernels have finished)."""
     from ..ops import codec
     codec.settle_observations()
     lines = [
@@ -205,6 +214,7 @@ def render(layer=None, healer=None, config=None, api_stats=None,
     if api_stats is not None:
         sources.append(lambda: _s3_lastminute_gauges(api_stats))
     sources.append(_memgov_gauges)
+    sources.append(_kernel_launches)
     if healer is not None:
         sources += [lambda: _heal_counters(healer),
                     lambda: _progress_gauges("mt_heal", healer.progress)]
@@ -221,7 +231,84 @@ def render(layer=None, healer=None, config=None, api_stats=None,
             lines += fam()
         except Exception:  # noqa: BLE001 — a scrape must never fail
             pass
-    return "\n".join(lines) + "\n"
+    text = "\n".join(lines) + "\n"
+    return _with_server_label(text, node) if node else text
+
+
+def _kernel_launches() -> list[str]:
+    """``mt_tpu_kernel_launches_total{kernel, engine}``: this process's
+    launches of each hand-written kernel (``engine="cuda"``) and runs of
+    its plain version (``"plain"``), from the wrappers' counts; nothing
+    until a kernel has launched on a card.  A cluster member's scrape
+    shows what the requests it served launched."""
+    from ..ops import hh, rs_fused, rs_kernels
+    counts = {"gf8_apply": rs_kernels.COUNTS, "hh256": hh.COUNTS,
+              "rs_fused": rs_fused.COUNTS}
+    if not any(c.launches for c in counts.values()):
+        return []
+    lines = ["# TYPE mt_tpu_kernel_launches_total counter"]
+    for name, c in counts.items():
+        for engine, n in (("cuda", c.launches), ("plain", c.plain)):
+            lines.append("mt_tpu_kernel_launches_total" + _fmt_labels(
+                (("engine", engine), ("kernel", name))) + f" {n}")
+    return lines
+
+
+def _with_server_label(text: str, node: str) -> str:
+    """``server="<node>"`` added to every sample line (values hold no
+    space, so the last space splits sample from value)."""
+    esc = _escape_label(node)
+    out = []
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            out.append(ln)
+            continue
+        sp = ln.rfind(" ")
+        head, value = ln[:sp], ln[sp + 1:]
+        head = f'{head[:-1]},server="{esc}"}}' if head.endswith("}") \
+            else f'{head}{{server="{esc}"}}'
+        out.append(f"{head} {value}")
+    return "\n".join(out) + "\n"
+
+
+def merge_expositions(docs: list) -> str:
+    """Several nodes' documents as one: one ``# TYPE`` per family and
+    each family's samples together, as the text format requires."""
+    order: list = []
+    meta: dict = {}         # family -> its comment lines
+    samples: dict = {}      # family -> its sample lines
+
+    def ensure(fam: str) -> None:
+        if fam not in meta:
+            meta[fam] = []
+            samples[fam] = []
+            order.append(fam)
+
+    for doc in docs:
+        current = None
+        for ln in doc.splitlines():
+            if not ln.strip():
+                continue
+            if ln.startswith(("# TYPE ", "# HELP ")):
+                kind, fam = ln.split(None, 3)[1:3]
+                ensure(fam)
+                if not any(m.split(None, 3)[1] == kind for m in meta[fam]):
+                    meta[fam].append(ln)
+                current = fam
+                continue
+            if ln.startswith("#"):
+                continue
+            name = ln.split("{", 1)[0].split(" ", 1)[0]
+            # a histogram's _bucket, _sum and _count stay with it
+            if current is None or not name.startswith(current):
+                current = name
+                ensure(current)
+            samples[current].append(ln)
+    out = []
+    for fam in order:
+        out.extend(meta[fam])
+        out.extend(samples[fam])
+    return "\n".join(out) + "\n"
 
 
 def _collect_disks_with_set(layer) -> list[tuple[int, object]]:

@@ -94,6 +94,9 @@ class IAMSys:
         # the OPA webhook (secure/opa.py): when set, every decision but
         # root's is its; swapped live by S3Server.reload_policy_config
         self.authorizer = None
+        # called after every saved change, in either store (a cluster's
+        # peer fan-out, S3Server.attach_peers)
+        self.on_change = None
         # the etcd store (cmd/iam-etcd-store.go), when attached
         self._etcd = None
         self._etcd_prefix = "config/iam/"
@@ -175,12 +178,14 @@ class IAMSys:
                 }
             if self._etcd is not None:
                 self._etcd_save(doc)
-                return
-            blob = configcrypt.encrypt_data(self.root.secret_key,
-                                            json.dumps(doc).encode())
-            er = self._layer.meta_set
-            er._fanout(lambda d: d.write_all(SYS_DIR, IAM_PATH, blob),
-                       er.disks)
+            else:
+                blob = configcrypt.encrypt_data(self.root.secret_key,
+                                                json.dumps(doc).encode())
+                er = self._layer.meta_set
+                er._fanout(lambda d: d.write_all(SYS_DIR, IAM_PATH, blob),
+                           er.disks)
+        if self.on_change is not None:
+            self.on_change()
 
     def load(self) -> None:
         from ..secure import configcrypt

@@ -39,6 +39,16 @@ class BucketMetadataSys:
         # (bucket, name) -> (raw document, parsed): parsed once per raw
         self._parsed: dict[tuple[str, str], tuple[str, Any]] = {}
         self._mu = threading.Lock()
+        # called with the bucket after every write of its document (a
+        # cluster's peer fan-out, S3Server.attach_peers)
+        self.on_change = None
+
+    def invalidate(self, bucket: str) -> None:
+        """Forget what is cached of one bucket (a peer changed it): the
+        next access reads the drives."""
+        with self._mu:
+            self._cache.pop(bucket, None)
+            self._absent.discard(bucket)
 
     @staticmethod
     def _path(bucket: str) -> str:
@@ -95,6 +105,8 @@ class BucketMetadataSys:
         with self._mu:
             self._cache[bucket] = doc
             self._absent.discard(bucket)
+        if self.on_change is not None:
+            self.on_change(bucket)
 
     def drop(self, bucket: str) -> None:
         """Forget a deleted bucket's document, on the drives too."""

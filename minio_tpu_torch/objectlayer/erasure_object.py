@@ -155,11 +155,14 @@ class ErasureObjects(MultipartOps):
                  block_size: int = DEFAULT_BLOCK_SIZE,
                  device: str | torch.device = "cuda",
                  mesh: Optional[Mesh] = None,
-                 enforce_min_part_size: bool = True):
+                 enforce_min_part_size: bool = True,
+                 ns_lock: Optional[NamespaceLock] = None):
         """``mesh``: run the data path on that device mesh (the mesh data
         plane, ``minio_tpu``'s ``backend="mesh"``); ``device`` is then not
         read.  ``enforce_min_part_size``: complete refuses a part below
-        5 MiB that is not the last."""
+        5 MiB that is not the last.  ``ns_lock``: the namespace locks (a
+        cluster's, over every node's locker); by default the set's own,
+        in process."""
         if not disks:
             raise ValueError("no disks")
         self.disks = list(disks)
@@ -177,7 +180,7 @@ class ErasureObjects(MultipartOps):
         # (parity, block size)
         self._codecs: dict[tuple[int, int], Erasure] = {}
         self._codecs_mu = threading.Lock()
-        self.ns_lock = NamespaceLock()
+        self.ns_lock = ns_lock if ns_lock is not None else NamespaceLock()
         # request concurrency x drive fan-out, and the MD5 links
         self._pool = ThreadPoolExecutor(max_workers=min(4 * max(4, n), 64))
         self._serial = SERIAL_FANOUT
@@ -735,7 +738,7 @@ class ErasureObjects(MultipartOps):
             self._check_replaces(fi, opts)
             run = (self._stream_put_pipelined if self._pipeline_on()
                    else self._stream_put_serial)
-            run(fi, chunks, opts, shuffled, readahead_body)
+            run(fi, chunks, opts, shuffled, readahead_body, lk)
             return self._to_object_info(fi)
         finally:
             lk.unlock()
@@ -797,10 +800,11 @@ class ErasureObjects(MultipartOps):
 
     def _stream_put_pipelined(self, fi: FileInfo, chunks,
                               opts: PutObjectOptions, shuffled: list,
-                              readahead_body: bool) -> None:
+                              readahead_body: bool, lk) -> None:
         """Body readahead, chained MD5, encode into a pooled buffer, the
         drives' writer queues.  Per drive the ops run create, appends,
-        then ``rename_data``, in order; errors latch per drive."""
+        then ``rename_data``, in order; errors latch per drive.  Nothing
+        commits once the object's lock ``lk`` was lost (LockLost)."""
         n = len(shuffled)
         wq = _write_quorum(fi.erasure.data_blocks, fi.erasure.parity_blocks)
         tmps: list[Optional[str]] = [None] * n
@@ -836,6 +840,9 @@ class ErasureObjects(MultipartOps):
             if alive < wq:
                 raise WriteQuorumError(
                     f"{alive} of {n} drives writable, need {wq}")
+            # the body streamed under the lock: a holder whose grants
+            # lapsed meanwhile must not commit over a new writer
+            lk.ensure_valid()
 
             def commit_one(idx, disk):
                 disk.rename_data(SYS_DIR, tmps[idx], _disk_fileinfo(fi, idx),
@@ -868,7 +875,7 @@ class ErasureObjects(MultipartOps):
 
     def _stream_put_serial(self, fi: FileInfo, chunks,
                            opts: PutObjectOptions, shuffled: list,
-                           readahead_body: bool) -> None:
+                           readahead_body: bool, lk) -> None:
         """One fan-out round per batch, then the commit (the single-core
         path: same bytes on the drives as the pipeline)."""
         n = len(shuffled)
@@ -909,6 +916,7 @@ class ErasureObjects(MultipartOps):
                     raise WriteQuorumError(
                         f"{alive} of {n} drives writable, need {wq}")
             self._stamp(fi, total, md5.hexdigest(), opts)
+            lk.ensure_valid()
 
             def commit_one(idx):
                 if errs[idx] is not None:

@@ -80,7 +80,8 @@ class ErasureSets:
                  distribution_algo: str = DISTRIBUTION_ALGO_V3,
                  **set_kwargs):
         """``set_kwargs`` go to every set's ``ErasureObjects`` (parity,
-        block_size, device, mesh, enforce_min_part_size)."""
+        block_size, device, mesh, enforce_min_part_size, and a cluster's
+        ns_lock, which every set shares)."""
         if len(disks) != set_count * set_drive_count:
             raise ValueError(f"{len(disks)} drives are not {set_count} "
                              f"sets of {set_drive_count}")

@@ -124,7 +124,7 @@ from ..objectlayer.metacache import leaf_layers_of, managers_of
 from ..objectlayer.tiering import TransitionSys
 from ..obs.egress import EgressRegistry, config_queue_limit
 from ..obs.lastminute import OpWindows
-from ..parallel.dsync import LockTimeout
+from ..parallel.dsync import LockLost, LockTimeout
 from ..secure.certs import CertManager, enable_server_tls
 from ..secure.opa import OpaWebhook
 from ..storage import commit as _commit
@@ -416,8 +416,11 @@ class S3Server:
             enable_server_tls(self.httpd, self.tls)
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        # the name the admin views and the scrape give this server
+        # (``run_node`` gives a cluster member its node id)
+        self.node_name = f"{host}:{self.port}"
         # the last-minute per-API windows (cmd/last-minute.go)
-        self.api_stats = OpWindows(f"{host}:{self.port}")
+        self.api_stats = OpWindows(self.node_name)
         # set once the server has stopped (admin service?action=stop)
         self.shutdown = threading.Event()
         # the background plane (initBackgroundHealing, initDataCrawler,
@@ -427,6 +430,8 @@ class S3Server:
         self.crawler = None
         self.rebalancer = None
         self.tracker = None
+        # a cluster member's fan-out to its peers (``attach_peers``)
+        self.peers = None
         self._deep_every_before_bitrot: int | None = None
         # the hard quota's usage view: the last persisted crawler
         # snapshot plus the writes since
@@ -547,6 +552,22 @@ class S3Server:
         for mc in managers_of(self.layer):
             mc.tracker = tracker
 
+    def attach_peers(self, notifier) -> None:
+        """A cluster member's peer fan-out (``parallel/peer.py``): IAM and
+        bucket metadata changes reload on every node at once, and every
+        write marks the peers' trackers (cmd/peer-rest-common.go:27-61).
+        ``stop()`` closes it."""
+        self.peers = notifier
+        self.bucket_meta.on_change = notifier.bucket_meta_changed
+        self.iam.on_change = notifier.iam_changed
+
+    def reload_rpc_config(self) -> None:
+        """Push the ``rpc`` streaming knobs into the process's internode
+        streaming config (``parallel/rpc.py STREAM``): at a node's start
+        and after a SetConfigKV of them."""
+        from ..parallel.rpc import STREAM
+        STREAM.load(self.config)
+
     def attach_background(self, *services, rebalancer=None) -> None:
         """Background loops (the crawler, the heal sweep, and a pools
         layer's ``rebalancer``) started by ``start()`` and stopped
@@ -619,10 +640,15 @@ class S3Server:
                req_params: dict | None = None) -> None:
         """Fire a bucket event (the reference's ``notify``).  A call
         that changed the object (every event but ``s3:ObjectAccessed:*``)
-        also marks the tracker, so a read keeps the cached listing."""
-        if self.tracker is not None and oi is not None and \
+        also marks the tracker, and the peers' trackers in a cluster, so
+        a read keeps the cached listing."""
+        if oi is not None and \
                 not event_name.startswith("s3:ObjectAccessed:"):
-            self.tracker.mark(bucket, getattr(oi, "name", ""))
+            if self.tracker is not None:
+                self.tracker.mark(bucket, getattr(oi, "name", ""))
+            if self.peers is not None:
+                # the peers' cached listings of the bucket go stale now
+                self.peers.object_changed(bucket, getattr(oi, "name", ""))
         self.events.send(event_name, bucket, oi, req_params or {})
 
     def replicate(self, bucket: str, oi, delete: bool = False) -> None:
@@ -707,6 +733,8 @@ class S3Server:
         # still queued stay PENDING on the drives)
         if self.replication is not None:
             self.replication.stop()
+        if self.peers is not None:
+            self.peers.close()
         self.layer.close()
         self.shutdown.set()
 
@@ -1048,7 +1076,7 @@ def _make_handler(srv: S3Server):
                 api = s3err.get(e.code)
             elif isinstance(e, ol.ObjectLayerError):
                 api = s3err.from_object_error(e)
-            elif isinstance(e, LockTimeout):
+            elif isinstance(e, (LockTimeout, LockLost)):
                 api = s3err.get("SlowDown")     # contention, not a fault
             elif isinstance(e, TimeoutError):
                 # the socket stalled mid-body: the unread rest would
@@ -1185,7 +1213,7 @@ def _make_handler(srv: S3Server):
                     if admin_handlers.handle(self, srv, path, query,
                                              payload):
                         return
-                    # the web UI, next in ROADMAP Queue 1
+                    # the web UI, ROADMAP Queue 1 item 2
                     raise S3Error("NotImplemented")
                 if bucket in RESERVED_BUCKETS:
                     # isMinioReservedBucket (cmd/generic-handlers.go)

@@ -18,8 +18,15 @@ at rest under the root secret, with AES-GCM from the system libcrypto;
 without it the server does not start.  Erasure coding and bitrot hashing
 run on the card (``--device cuda``, the default, which raises without
 one) or, when asked, on the CPU through the kernels' plain versions
-(``--device cpu``).  The reference's LDAP and OpenID identities, gateway
-and node subcommands are not served.
+(``--device cpu``).
+
+``python -m minio_tpu_torch node --node-id n1 n1=host:port=/d1,/d2
+n2=...`` starts one member of a cluster (``cluster.run_node``): its
+drives and lock table served over the internode RPC on ``host:port``,
+the erasure sets over every node's drives in the order given (the same
+on every node), S3 on ``--address``.  The RPC secret comes from
+``--secret`` or ``MT_CLUSTER_SECRET``; without one, a default serves
+only loopback endpoints.  The gateway subcommand is not served.
 """
 
 from __future__ import annotations
@@ -143,7 +150,21 @@ def main(argv: list[str] | None = None) -> int:
     ps.add_argument("--region", default="us-east-1")
     ps.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    pn = sub.add_parser("node", help="start one distributed cluster node")
+    pn.add_argument("--node-id", required=True)
+    pn.add_argument("--secret", default=None,
+                    help="internode RPC secret (env MT_CLUSTER_SECRET)")
+    pn.add_argument("--address", default="127.0.0.1:0",
+                    help="S3 front address")
+    pn.add_argument("--set-drive-count", type=int, default=None)
+    pn.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    pn.add_argument("peers", nargs="+",
+                    help="layout: id=host:rpcport=dir1,dir2 per node, in "
+                         "the same order on every node")
     args = parser.parse_args(argv)
+    if args.command == "node":
+        return _node(parser, args)
     try:
         srv = build_server(args.dirs, args.address, args.access_key,
                            args.secret_key, args.block_size, args.region,
@@ -167,6 +188,53 @@ def main(argv: list[str] | None = None) -> int:
         pass
     finally:
         srv.stop()
+    return 0
+
+
+def _node(parser, args) -> int:
+    """The ``node`` subcommand: run one member until its admin stop or
+    ^C."""
+    from .cluster import NodeSpec, run_node
+    secret = args.secret or os.environ.get("MT_CLUSTER_SECRET", "")
+    specs = []
+    for p in args.peers:
+        nid, endpoint, dirs = p.split("=", 2)
+        drive_dirs = [d for d in dirs.split(",") if d]
+        if nid == args.node_id:
+            for d in drive_dirs:
+                os.makedirs(d, exist_ok=True)
+        specs.append(NodeSpec(nid, drive_dirs,
+                              endpoint=f"http://{endpoint}"))
+    if not secret:
+        # the RPC plane reads and writes every shard: a well-known secret
+        # is refused unless every endpoint is on loopback
+        if any(not s.endpoint.startswith(("http://127.", "http://localhost"))
+               for s in specs):
+            parser.error("distributed nodes require --secret or "
+                         "MT_CLUSTER_SECRET (refusing a default secret on "
+                         "non-loopback endpoints)")
+        secret = "cluster-secret"
+    try:
+        resolve(args.device)        # no card: refuse before anything
+        configcrypt.require_encryption()
+        node, srv = run_node(
+            args.node_id, specs, secret, args.address, args.set_drive_count,
+            access_key=os.environ.get("MT_ROOT_USER", "minioadmin"),
+            secret_key=os.environ.get("MT_ROOT_PASSWORD", "minioadmin"),
+            device=args.device)
+    except (RuntimeError, ValueError, OSError) as e:
+        print(f"minio_tpu_torch: {e}", file=sys.stderr)
+        return 1
+    shost = args.address.rpartition(":")[0] or "127.0.0.1"
+    print(f"minio_tpu_torch node {args.node_id}: rpc={node.rpc.endpoint} "
+          f"s3=http://{shost}:{srv.port} device {args.device}", flush=True)
+    try:
+        srv.shutdown.wait()         # admin service?action=stop, or ^C
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.stop()
+        node.stop()
     return 0
 
 

@@ -63,3 +63,19 @@ class DiskAccessDenied(StorageError):
 class FaultyDisk(StorageError):
     """errFaultyDisk: the drive failed an I/O (an fsync of a group
     commit)."""
+
+
+class DiskFull(StorageError):
+    """errDiskFull."""
+
+
+class FileNameTooLong(StorageError):
+    """errFileNameTooLong."""
+
+
+class IsNotRegular(StorageError):
+    """errIsNotRegular: the path is not a regular file."""
+
+
+class MethodNotAllowed(StorageError):
+    """errMethodNotAllowed."""

@@ -30,6 +30,7 @@ import time
 from typing import Callable, Optional
 
 from . import errors
+from .api import StorageAPI
 from .format import FORMAT_FILE, FormatErasure
 from .xl_storage import SYS_DIR
 
@@ -249,6 +250,10 @@ class HealthDisk:
                 return self._guard(_fn, *args, **kwargs)
             return guarded
         return attr
+
+
+# a proxy forwards every StorageAPI call by name
+StorageAPI.register(HealthDisk)
 
 
 def wrap_disks(disks: list, fmt: Optional[FormatErasure] = None,

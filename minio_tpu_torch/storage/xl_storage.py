@@ -39,16 +39,17 @@ from __future__ import annotations
 import itertools
 import os
 import shutil
+import stat as stat_mod
 import threading
 import time
 import uuid
-from dataclasses import dataclass
 
 from ..admin import metrics as _metrics
 from ..hashing.bitrot import bitrot_shard_file_size
 from ..obs import lastminute as _lastminute
 from . import commit as _commit
 from . import errors
+from .api import DiskInfo, StorageAPI, VolInfo
 from .datatypes import FileInfo
 from .xl_meta import XLMeta
 
@@ -59,23 +60,6 @@ META_FILE = "xl.meta"
 # spindle's fsync in hundreds of milliseconds
 DRIVE_OP_BUCKETS = (0.000025, 0.00005, 0.0001, 0.00025, 0.0005, 0.001,
                     0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25)
-
-
-@dataclass
-class VolInfo:
-    name: str
-    created: int = 0   # unix ns
-
-
-@dataclass
-class DiskInfo:
-    total: int
-    free: int
-    used: int
-    free_inodes: int
-    endpoint: str
-    mount_path: str
-    disk_id: str = ""
 
 
 _TMP_SEQ = itertools.count()
@@ -156,7 +140,7 @@ def _is_valid_volname(volume: str) -> bool:
         and "/" not in volume and volume not in ("", ".", "..")
 
 
-class XLStorage:
+class XLStorage(StorageAPI):
     """One local drive."""
 
     def __init__(self, root: str):
@@ -291,9 +275,14 @@ class XLStorage:
         except PermissionError as e:
             raise errors.FileAccessDenied(path) from e
 
-    def create_file(self, volume: str, path: str, data) -> None:
+    def create_file(self, volume: str, path: str, data,
+                    file_size: int = -1) -> None:
         """Whole-file write into a staging path (``rename_data`` later
-        moves the staging dir as a unit)."""
+        moves the staging dir as a unit); FileCorrupt when ``file_size``
+        is given and the data is not that long."""
+        if file_size >= 0 and len(data) != file_size:
+            raise errors.FileCorrupt(
+                f"size mismatch: {len(data)} != {file_size}")
         full = self._file_path(volume, path)
         self._check_vol(volume)
         os.makedirs(os.path.dirname(full), exist_ok=True)
@@ -322,15 +311,59 @@ class XLStorage:
             _fsync_dir(sync_dir)
         self._prof("fsync", t0)
 
-    def list_dir(self, volume: str, dir_path: str) -> list[str]:
+    def write_stream(self, volume: str, path: str, chunks,
+                     op: str = "create", file_size: int = -1) -> int:
+        """``create_file`` or ``append_file`` from an iterator of chunks,
+        each written as it arrives (the landing side of a framed RPC
+        stream, ``parallel/rpc.py``), one fsync at the end.  A created
+        file that fails part way is removed; returns the bytes
+        written."""
+        full = self._file_path(volume, path)
+        self._check_vol(volume)
+        os.makedirs(os.path.dirname(full), exist_ok=True)
+        created = op != "append"
+        flags = os.O_WRONLY | os.O_CREAT | \
+            (os.O_TRUNC if created else os.O_APPEND)
+        total = 0
+        t0 = time.monotonic_ns()
+        try:
+            fd = os.open(full, flags, 0o644)
+            try:
+                for chunk in chunks:
+                    _commit.write_full(fd, chunk)
+                    total += len(chunk)
+                if file_size >= 0 and total != file_size:
+                    raise errors.FileCorrupt(
+                        f"size mismatch: {total} != {file_size}")
+                t0 = self._prof("create" if created else "append", t0, total)
+                _fsync_fd(fd)
+            finally:
+                os.close(fd)
+        except BaseException:
+            if created:
+                try:
+                    os.remove(full)
+                except OSError:
+                    pass
+            raise
+        self._prof("fsync", t0)
+        return total
+
+    def list_dir(self, volume: str, dir_path: str,
+                 count: int = -1) -> list[str]:
         """The entries of a directory, sorted, subdirectories with a
-        trailing slash."""
+        trailing slash; with ``count`` > 0 at most that many, the first
+        the directory yields."""
         base = self._file_path(volume, dir_path)
         self._check_vol(volume)
         try:
+            names = []
             with os.scandir(base) as it:
-                return sorted(e.name + "/" if e.is_dir() else e.name
-                              for e in it)
+                for e in it:
+                    names.append(e.name + "/" if e.is_dir() else e.name)
+                    if 0 < count <= len(names):
+                        break
+            return sorted(names)
         except (FileNotFoundError, NotADirectoryError):
             raise errors.FileNotFound(dir_path) from None
 
@@ -371,6 +404,45 @@ class XLStorage:
             raise errors.FileCorrupt(
                 f"short read {len(data)} < {length} at {path}")
         return data
+
+    def read_stream(self, volume: str, path: str, offset: int,
+                    length: int, chunk: int):
+        """``[offset, offset + length)`` in ``chunk``-sized slices from one
+        open (the serving side of a streamed raw read).  The file is
+        opened now, so a missing one raises here; a short file raises
+        FileCorrupt from the slice that finds its end."""
+        full = self._file_path(volume, path)
+        try:
+            f = open(full, "rb")
+        except FileNotFoundError:
+            raise errors.FileNotFound(path) from None
+        except PermissionError as e:
+            raise errors.FileAccessDenied(path) from e
+
+        def gen():
+            with f:
+                f.seek(offset)
+                left = length
+                while left > 0:
+                    b = f.read(min(chunk, left))
+                    if not b:
+                        raise errors.FileCorrupt(
+                            f"short read {length - left} < {length} "
+                            f"at {path}")
+                    left -= len(b)
+                    yield b
+
+        return gen()
+
+    def stat_info_file(self, volume: str, path: str) -> int:
+        full = self._file_path(volume, path)
+        try:
+            st = os.stat(full)
+        except FileNotFoundError:
+            raise errors.FileNotFound(path) from None
+        if not stat_mod.S_ISREG(st.st_mode):
+            raise errors.IsNotRegular(path)
+        return st.st_size
 
     def delete(self, volume: str, path: str, recursive: bool = False) -> None:
         full = self._file_path(volume, path)
@@ -475,10 +547,21 @@ class XLStorage:
         dst_obj, fresh = self._object_dir(volume, path)
         self._merge_version(volume, path, dst_obj, fresh, fi, fi.to_dict())
 
+    def update_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Replace an existing version's entry (FileVersionNotFound when
+        the journal lacks it)."""
+        meta = self._read_meta(volume, path)
+        meta.find(fi.version_id)
+        meta.add_version(fi)
+        self._write_meta(volume, path, meta)
+
     def read_version(self, volume: str, path: str,
-                     version_id: str | None = None) -> FileInfo:
+                     version_id: str | None = None,
+                     read_data: bool = False) -> FileInfo:
         """The latest version, or ``version_id`` ("" the null version;
-        FileVersionNotFound when the journal lacks it)."""
+        FileVersionNotFound when the journal lacks it).  Inline data is
+        always in it (``read_data`` is the reference's flag, unread
+        there too)."""
         return self._read_meta(volume, path).to_fileinfo(volume, path,
                                                          version_id)
 
@@ -501,12 +584,31 @@ class XLStorage:
         dst_obj, fresh = self._object_dir(volume, path)
         ddir = os.path.join(dst_obj, fi.data_dir)
         os.mkdir(ddir)
-        self._write_phased(os.path.join(ddir, "part.1"), data,
-                           os.O_WRONLY | os.O_CREAT | os.O_TRUNC, "create",
-                           sync_dir=ddir)
+        # an iterator of chunks is a framed RPC stream: a part that fails
+        # to land, or whose gate aborts, is removed here at once
+        streamed = hasattr(data, "__next__")
+        try:
+            if streamed:
+                self.write_stream(volume, os.path.relpath(
+                    os.path.join(ddir, "part.1"),
+                    self._vol_path(volume)), data)
+                _fsync_dir(ddir)
+            else:
+                self._write_phased(os.path.join(ddir, "part.1"), data,
+                                   os.O_WRONLY | os.O_CREAT | os.O_TRUNC,
+                                   "create", sync_dir=ddir)
+        except BaseException:
+            if streamed:
+                shutil.rmtree(ddir, ignore_errors=True)
+            raise
         t0 = time.monotonic_ns()
         if meta_gate is not None:
-            version_dict = meta_gate()
+            try:
+                version_dict = meta_gate()
+            except BaseException:
+                if streamed:
+                    shutil.rmtree(ddir, ignore_errors=True)
+                raise
             # the wait on the object's MD5 is not drive time
             _IN_OP.exclude_ns = getattr(_IN_OP, "exclude_ns", 0) + \
                 time.monotonic_ns() - t0
@@ -639,6 +741,36 @@ class XLStorage:
 
     # -- integrity ---------------------------------------------------------
 
+    def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
+        """Check every block digest of every part (cmd/xl-storage.go:2305
+        VerifyFile), on the CPU with HighwayHash's plain version;
+        FileCorrupt on a size or digest mismatch."""
+        import torch
+        from ..hashing import bitrot
+        ec = fi.erasure
+        ss = ec.shard_size()
+        for part in fi.parts:
+            if fi.seg is not None:
+                pf = f"seg.{fi.seg['sid']:08x}+{fi.seg['off']}"
+                data = self.segments.read(fi.seg["sid"], fi.seg["off"],
+                                          fi.seg["len"])
+            else:
+                pf = os.path.join(path, fi.data_dir, f"part.{part.number}")
+                data = self.read_all(volume, pf)
+            length = ec.shard_file_size(part.size)
+            want = bitrot_shard_file_size(
+                length, ss, ec.get_checksum_info(part.number).algorithm)
+            if len(data) != want:
+                raise errors.FileCorrupt(f"{pf}: size {len(data)} != {want}")
+            if not length:
+                continue
+            try:
+                bitrot.verify_extract(
+                    torch.frombuffer(bytearray(data), dtype=torch.uint8),
+                    ss, length)
+            except bitrot.BitrotError as e:
+                raise errors.FileCorrupt(f"{pf}: {e}") from e
+
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
         """Every part file, or the packed extent, exists with its framed
         size (FileCorrupt or FileNotFound otherwise)."""
@@ -663,7 +795,8 @@ class XLStorage:
 
     # -- walking -----------------------------------------------------------
 
-    def walk_dir(self, volume: str, base_dir: str = "", after: str = ""):
+    def walk_dir(self, volume: str, base_dir: str = "", after: str = "",
+                 recursive: bool = True):
         """Object names (directories holding xl.meta) under ``base_dir``
         in flat key order, the byte order S3 listings promise
         (cmd/metacache-walk.go WalkDir): a subtree ``x`` holds keys
@@ -671,7 +804,9 @@ class XLStorage:
         so subtrees sort by ``name + "/"`` and objects by ``name``.  Each
         drive's stream being sorted lets the listing merge them lazily.
         A subtree whose every name sorts before ``after`` is not entered,
-        so a page that resumes late in the namespace walks little."""
+        so a page that resumes late in the namespace walks little.
+        Without ``recursive`` only ``base_dir`` itself is yielded, if it
+        is an object."""
         vol = self._check_vol(volume)
         base = self._file_path(volume, base_dir) if base_dir else vol
 
@@ -694,20 +829,22 @@ class XLStorage:
                     continue        # ``name`` and ``name/...`` < after
                 leaf = os.path.isfile(os.path.join(e.path, META_FILE))
                 keyed.append((e.name if leaf else e.name + "/", e.path))
-            for _, path in sorted(keyed):
-                yield from walk(path)
+            if recursive:
+                for _, path in sorted(keyed):
+                    yield from walk(path)
 
         yield from walk(base)
 
     def walk_entries(self, volume: str, base_dir: str = "",
-                     versions: bool = False, after: str = ""):
+                     versions: bool = False, after: str = "",
+                     recursive: bool = True):
         """``(name, FileInfo of its latest version)`` per object, in
         ``walk_dir`` order: part-file, inline and packed objects alike;
         with ``versions``, ``(name, [FileInfo of every version, newest
         first])``.  Names before ``after`` are passed over unread (a
         listing page resumes there).  An entry whose xl.meta does not
         read is skipped (the other drives decide it)."""
-        for name in self.walk_dir(volume, base_dir, after):
+        for name in self.walk_dir(volume, base_dir, after, recursive):
             if name < after:
                 continue
             try:
@@ -765,7 +902,7 @@ def _timed_op(op: str, fn, in_arg: int | None):
             nbytes = 0
             if in_arg is not None:
                 data = a[in_arg] if len(a) > in_arg else kw.get("data")
-                nbytes = len(data) if data is not None else 0
+                nbytes = len(data) if hasattr(data, "__len__") else 0
             elif isinstance(out, (bytes, bytearray)):
                 nbytes = len(out)
             self.latency.record(op, dt, nbytes)

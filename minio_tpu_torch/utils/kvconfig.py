@@ -151,6 +151,20 @@ register_subsys("commit", {
     "pack_threshold": "1048576",
     "segment_max_bytes": "67108864",
 })
+register_subsys("rpc", {
+    # the internode plane (parallel/rpc.py): the per-peer circuit
+    # breaker, the shared retry policy (utils/retry.py; retry_budget 0
+    # turns the budget off), and the framed streaming of bulk bodies
+    # longer than stream_chunk_bytes (live: S3Server.reload_rpc_config)
+    "breaker_failures": "3",
+    "breaker_cooldown": "3s",
+    "retry_attempts": "3",
+    "retry_base": "50ms",
+    "retry_cap": "2s",
+    "retry_budget": "10",
+    "stream_enable": "on",
+    "stream_chunk_bytes": "1048576",
+})
 register_subsys("notify_webhook", {
     # the webhook event target (events/targets.py, ARN
     # arn:minio:sqs::1:webhook), rebuilt live on a change

@@ -6,8 +6,8 @@ queue, and a publish to a full one drops the item (pubsub.go:37-39
 writes in a select with a default).  ListenNotification streams the
 bucket events through it.  ``close`` ends every subscription, so a
 stream held open by a listener ends when its server stops.  The
-reference's sequence-numbered ring for peer polls is left out with the
-distributed nodes (ROADMAP Queue 1 item 18).
+reference's sequence-numbered ring, which its peers poll for trace
+streams, is left out with the trace plane (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations

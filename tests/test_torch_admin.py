@@ -42,8 +42,8 @@ PORT_SUBSYS = ("api", "commit", "compression", "drive", "etcd", "heal",
                "identity_ldap", "identity_openid", "notify_amqp", "notify_elasticsearch", "notify_kafka",
                "notify_mqtt", "notify_mysql", "notify_nats", "notify_nsq",
                "notify_postgresql", "notify_redis", "notify_webhook",
-               "pipeline", "policy_opa", "quota", "rebalance", "scanner",
-               "storage_class", "tls")
+               "pipeline", "policy_opa", "quota", "rebalance", "rpc",
+               "scanner", "storage_class", "tls")
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,9 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "storage_class": ["standard", "rrs"],
              "compression": ["enable", "extensions", "mime_types"],
              "tls": ["enable", "certs_dir"],
+             "rpc": ["breaker_failures", "breaker_cooldown",
+                     "retry_attempts", "retry_base", "retry_cap",
+                     "retry_budget", "stream_enable", "stream_chunk_bytes"],
              "notify_webhook": ["enable", "endpoint", "auth_token",
                                 "queue_dir", "queue_limit"],
              "notify_amqp": ["enable", "url", "exchange", "routing_key",
