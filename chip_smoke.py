@@ -356,7 +356,36 @@
    degraded GET's, the heal's, a node boot's and the phase's seconds,
    and an RPC ping's median milliseconds.  Every node process is stopped
    and waited for, also when a check fails.
-22. One JSON line of readings, one describing each kernel, the card line,
+22. Internode TLS, the chaos drills and bucket federation.  A CA, an S3
+   leaf and an internode leaf minted with the port's ``secure/pki.py``
+   (whether the system ``openssl`` is there is printed) and laid out as
+   a ``certs_dir``.  Phase 21's four node processes again, with
+   ``MT_TLS_ENABLE=on``: every node dials its peers at ``https://`` and
+   serves S3 over ``https``; a 16 MiB and a 256 MiB object PUT through
+   node 1 and read through node 3 byte for byte, each request launching
+   by the serving node's scrape what it launched in phase 21; a client
+   without the internode certificate refused by node 2's RPC port and
+   counted in its ``mt_tls_handshake_failed_total{plane="internode"}``;
+   every scrape carries ``mt_tls_handshake_total`` and
+   ``mt_tls_cert_expiry_seconds``.  Then, in this process, the same 4 x
+   4 layout under ``tls`` with a ``FaultyProxy`` in front of each RPC
+   port (the nodes boot, the proxies are advertised, then the layers
+   assemble), the ``rpc`` breaker at 2 failures, a 200 ms cooldown and
+   one attempt: node 4's proxy resets every new connection from the
+   middle of a streamed 256 MiB PUT, which commits on the other 12
+   drives; node 4's breakers open and fail fast; back to pass-through,
+   the heal brings its part files back (Kernel A), a deep check
+   verifies all 16 and a GET through node 2 returns the body; black-holed,
+   an RPC call with a 1 s timeout raises within 5 s.  Last, two
+   ``build_server`` fronts of 4 drives on one ``federation.dns_file``: a
+   bucket made on A is refused on B (BucketAlreadyExists), a GET through
+   B answers 307 to A and the redirect serves the body, and DELETE
+   bucket frees the name.  Printed beside the card: the 256 MiB PUT and
+   GET through the TLS cluster (median of two) beside phase 21's, the
+   mTLS RPC ping's median beside phase 21's, a handshake's median, the
+   chaos PUT's, the heal's and the black-holed call's seconds, node boot
+   and the phase.
+23. One JSON line of readings, one describing each kernel, the card line,
    and the result line.
 
 Any mismatch raises, and the script exits nonzero without the result
@@ -5283,13 +5312,20 @@ def free_ports(n: int) -> list:
     return ports
 
 
-def node_launches(port: int) -> dict:
+def node_scrape(port: int, ctx=None) -> dict:
+    """A node's parsed scrape, over ``https`` when given an SSL context."""
+    import urllib.request
+    scheme = "https" if ctx is not None else "http"
+    with urllib.request.urlopen(
+            f"{scheme}://127.0.0.1:{port}/minio-tpu/metrics", timeout=30,
+            context=ctx) as r:
+        return parse_scrape(r.read().decode())
+
+
+def node_launches(port: int, ctx=None) -> dict:
     """A node process's {kernel: (launches, plain runs)} from its scrape
     (``mt_tpu_kernel_launches_total``; zeros before its first launch)."""
-    import urllib.request
-    with urllib.request.urlopen(
-            f"http://127.0.0.1:{port}/minio-tpu/metrics", timeout=30) as r:
-        samples = parse_scrape(r.read().decode())
+    samples = node_scrape(port, ctx)
     out = {k: [0, 0] for k in KERNELS}
     for (name, labels), v in samples.items():
         if name == "mt_tpu_kernel_launches_total":
@@ -5433,13 +5469,20 @@ def phase_cluster(card: str, gen):
             if name != "o0":
                 c1.put_object("clu", name, body)
         puts, gets = [], []
-        for _ in range(CL_REPS):
+        for rep in range(CL_REPS):
+            # the first rep's launches, read outside its time
+            a = node_launches(s3[0])
             t0 = time.perf_counter()
             c1.put_object_chunked("clu", "big", big, chunk_size=1 << 20)
             puts.append(time.perf_counter() - t0)
+            if not rep:
+                got["put_big"] = delta(a, node_launches(s3[0]))
+            a = node_launches(s3[2])
             t0 = time.perf_counter()
             check(c3.get_object("clu", "big").body == big, "256 MiB GET")
             gets.append(time.perf_counter() - t0)
+            if not rep:
+                got["get_big"] = delta(a, node_launches(s3[2]))
         readings["put_256mib_s"], readings["get_256mib_s"] = puts, gets
         for name, body in bodies.items():
             check(c3.get_object("clu", name).body == body,
@@ -5575,6 +5618,430 @@ def phase_cluster(card: str, gen):
     return {k: v[0] for k, v in launches.items()}, readings
 
 
+TL_SECRET = "smoke-tls-secret"                        # phase 22
+TL_REPS, TL_SHAKES = 2, 20
+TL_FAULT_AT = 128 << 20         # the chaos PUT's bytes read before the cut
+TL_HOLE_TIMEOUT_S, TL_HOLE_BOUND_S = 1.0, 5.0
+TL_HEAL_S = 60.0
+
+
+def tls_pki(root: str):
+    """A CA, an S3 leaf and an internode leaf minted with the port's
+    ``secure/pki.py`` (the system ``openssl``), laid out as a
+    ``certs_dir``: (pki, certs dir)."""
+    from minio_tpu_torch.secure import pki as port_pki
+    check(port_pki.available(), f"{port_pki.OPENSSL} is missing: the phase "
+          "cannot mint its PKI")
+    pki = port_pki.mint_cluster_pki(f"{root}/pki")
+    return pki, pki.write_certs_dir(f"{root}/certs")
+
+
+def phase_tls_cluster(card: str, gen, cluster: dict):
+    """Phase 22: phase 21's four node processes with both planes under
+    TLS, the RPC plane's chaos drills on an in-process cluster behind
+    fault proxies, and two federated fronts.  ``cluster``: phase 21's
+    readings (its launches per request and its timings).  Returns the
+    launches (the node processes' and this process's) and the
+    readings."""
+    import io
+    import socket
+    import ssl
+    import statistics
+    from minio_tpu_torch.cluster import Node, NodeSpec
+    from minio_tpu_torch.objectlayer.healing import heal_object
+    from minio_tpu_torch.parallel import dsync
+    from minio_tpu_torch.parallel import rpc as port_rpc
+    from minio_tpu_torch.parallel.faulty import Fault, FaultyProxy
+    from minio_tpu_torch.s3.client import S3Client, S3ClientError
+    from minio_tpu_torch.secure import pki as port_pki
+    from minio_tpu_torch.secure import transport
+    from minio_tpu_torch.secure.certs import CertManager
+    from minio_tpu_torch.server_main import build_server
+    from minio_tpu_torch.utils.retry import RetryPolicy
+    t_phase = time.perf_counter()
+    readings: dict = {"openssl": port_pki.OPENSSL,
+                      "openssl_present": port_pki.available()}
+    print(f"phase 22: {port_pki.OPENSSL} "
+          f"{'present' if readings['openssl_present'] else 'missing'}",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="chip-smoke-tls-")
+    prior_manager = transport.manager()
+    ids = [f"n{i + 1}" for i in range(CL_NODES)]
+    ports = free_ports(2 * CL_NODES)
+    rpc, s3 = ports[:CL_NODES], ports[CL_NODES:]
+    dirs = {nid: [f"{root}/{nid}/d{j}" for j in range(CL_PER)]
+            for nid in ids}
+    peers = [f"{nid}=127.0.0.1:{rpc[i]}={','.join(dirs[nid])}"
+             for i, nid in enumerate(ids)]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs: dict = {}
+    nodes: list = []
+    proxies: list = []
+    fronts: list = []
+    saved_env: dict = {}
+
+    def set_env(**kv) -> None:
+        for k, v in kv.items():
+            saved_env.setdefault(k, os.environ.get(k))
+            os.environ[k] = v
+
+    def log_tail(nid: str) -> str:
+        with open(f"{root}/{nid}.log", "rb") as fh:
+            return fh.read()[-2000:].decode(errors="replace")
+
+    node_totals: dict = {}
+    s_begin = s_end = None
+    try:
+        t0 = time.perf_counter()
+        pki, certs = tls_pki(root)
+        readings["mint_s"] = time.perf_counter() - t0
+        mgr = CertManager.from_dir(certs)
+        transport.configure(mgr)
+        ca = ssl.create_default_context(cafile=pki.ca_cert)
+        env = dict(os.environ, MT_CLUSTER_SECRET=TL_SECRET,
+                   MT_ROOT_USER=S3_KEY, MT_ROOT_PASSWORD=S3_SECRET,
+                   MT_HEAL_INTERVAL_S=str(24 * 3600), MT_TLS_ENABLE="on",
+                   MT_TLS_CERTS_DIR=certs)
+
+        def client(nid: str) -> S3Client:
+            return S3Client(f"https://127.0.0.1:{s3[ids.index(nid)]}",
+                            S3_KEY, S3_SECRET, ca_file=pki.ca_cert)
+
+        def served(nid: str, fn) -> dict:
+            port = s3[ids.index(nid)]
+            a = node_launches(port, ca)
+            fn()
+            return delta(a, node_launches(port, ca))
+
+        # -- four TLS node processes ----------------------------------------
+        t0 = time.perf_counter()
+        for i, nid in enumerate(ids):
+            with open(f"{root}/{nid}.log", "ab") as log:
+                procs[nid] = subprocess.Popen(
+                    [sys.executable, "-m", "minio_tpu_torch", "node",
+                     "--node-id", nid, "--device", "cuda",
+                     "--address", f"127.0.0.1:{s3[i]}", *peers],
+                    cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+        for nid in ids:
+            c = client(nid)
+            c.timeout = 5.0
+            deadline = time.monotonic() + CL_BOOT_S
+            while True:
+                check(procs[nid].poll() is None,
+                      f"TLS node {nid} exited: {log_tail(nid)}")
+                try:
+                    c.request("GET", "/minio/health/live", sign=False,
+                              expect=(200,))
+                    break
+                except OSError:
+                    check(time.monotonic() < deadline,
+                          f"TLS node {nid} never served: {log_tail(nid)}")
+                    time.sleep(0.2)
+        readings["boot_s"] = time.perf_counter() - t0
+        with open(f"{root}/n1.log") as fh:
+            check(f"rpc=https://127.0.0.1:{rpc[0]} " in fh.read(),
+                  "node 1 does not serve its RPC over https")
+        small = rand_bytes((CL_OBJ,), gen).cpu().numpy().tobytes()
+        big = rand_bytes((CL_BIG,), gen).cpu().numpy().tobytes()
+        c1, c3 = client("n1"), client("n3")
+        c1.make_bucket("tls")
+        got: dict = {}
+        got["put"] = served("n1", lambda: c1.put_object("tls", "o0", small))
+        got["get"] = served("n3", lambda: check(
+            c3.get_object("tls", "o0").body == small, "TLS GET of 16 MiB"))
+        puts, gets = [], []
+        for rep in range(TL_REPS):
+            # the first rep's launches, read outside its time
+            a = node_launches(s3[0], ca)
+            t0 = time.perf_counter()
+            c1.put_object_chunked("tls", "big", big, chunk_size=1 << 20)
+            puts.append(time.perf_counter() - t0)
+            if not rep:
+                got["put_big"] = delta(a, node_launches(s3[0], ca))
+            a = node_launches(s3[2], ca)
+            t0 = time.perf_counter()
+            check(c3.get_object("tls", "big").body == big,
+                  "TLS GET of 256 MiB")
+            gets.append(time.perf_counter() - t0)
+            if not rep:
+                got["get_big"] = delta(a, node_launches(s3[2], ca))
+        gib = CL_BIG / 2 ** 30
+        readings["put_256mib_s"], readings["get_256mib_s"] = puts, gets
+        readings["put_256mib_gibps"] = gib / statistics.median(puts)
+        readings["get_256mib_gibps"] = gib / statistics.median(gets)
+        want = cluster["launches_by_step"]
+        for step, by in got.items():
+            for k in ("gf8_apply", "hh256"):
+                check(by[k][0] == want[step][k],
+                      f"TLS cluster {step}: {k} launched {by[k][0]}, phase "
+                      f"21 {want[step][k]}")
+            check(all(p == 0 for _, p in by.values()),
+                  f"TLS cluster {step}: a plain version ran")
+        readings["launches_by_step"] = {
+            step: {k: v[0] for k, v in by.items()}
+            for step, by in got.items()}
+        # the RPC port refuses a client without the internode identity
+        fail_key = ("mt_tls_handshake_failed_total",
+                    (("plane", "internode"),))
+        before = node_scrape(s3[1], ca).get(fail_key, 0.0)
+        with socket.create_connection(("127.0.0.1", rpc[1]),
+                                      timeout=10) as raw:
+            try:
+                with ca.wrap_socket(raw, server_hostname="127.0.0.1") as sk:
+                    sk.sendall(b"POST /rpc/sys/ping HTTP/1.1\r\n"
+                               b"Content-Length: 0\r\n\r\n")
+                    answered = sk.recv(1)
+            except (ssl.SSLError, OSError):
+                answered = b""
+        check(answered == b"", "node 2's RPC port answered a client "
+              "without a certificate")
+        deadline = time.monotonic() + 10
+        while node_scrape(s3[1], ca).get(fail_key, 0.0) < before + 1:
+            check(time.monotonic() < deadline,
+                  "node 2 did not count the refused handshake")
+            time.sleep(0.05)
+        # the internode identity's handshakes and pings
+        inter = mgr.client_context("internode")
+        shakes = []
+        for _ in range(TL_SHAKES):
+            with socket.create_connection(("127.0.0.1", rpc[0]),
+                                          timeout=10) as raw:
+                t = time.perf_counter()
+                with inter.wrap_socket(raw, server_hostname="127.0.0.1"):
+                    shakes.append((time.perf_counter() - t) * 1e3)
+        readings["handshake_ms"] = shakes
+        pinger = port_rpc.RPCClient(f"https://127.0.0.1:{rpc[0]}", TL_SECRET)
+        pings = []
+        try:
+            for _ in range(CL_PINGS):
+                t = time.perf_counter()
+                check(pinger.call("sys", "ping") == "pong", "mTLS RPC ping")
+                pings.append((time.perf_counter() - t) * 1e3)
+        finally:
+            pinger.close()
+        readings["rpc_ping_ms"] = pings
+        for nid in ids:
+            sc = node_scrape(s3[ids.index(nid)], ca)
+            check(sc.get(("mt_tls_handshake_total",
+                          (("plane", "internode"),)), 0) > 0,
+                  f"node {nid}'s scrape has no internode handshakes")
+            check({dict(lab).get("cert") for n, lab in sc
+                   if n == "mt_tls_cert_expiry_seconds"} ==
+                  {"s3", "internode"},
+                  f"node {nid}'s scrape lacks the certificate expiries")
+        node_totals = {nid: node_launches(s3[ids.index(nid)], ca)
+                       for nid in ids}
+        for nid, p in procs.items():
+            p.terminate()
+        for nid, p in procs.items():
+            p.wait(timeout=60)
+        procs.clear()
+
+        # -- chaos: an in-process cluster behind fault proxies ----------------
+        set_env(MT_RPC_BREAKER_FAILURES="2", MT_RPC_BREAKER_COOLDOWN="200ms",
+                MT_RPC_RETRY_ATTEMPTS="1")
+        torch.cuda.synchronize()
+        reset_counts()
+        s_begin = snapshot()
+        t0 = time.perf_counter()
+        specs = [NodeSpec(f"c{i + 1}", [f"{root}/c{i + 1}/d{j}"
+                                        for j in range(CL_PER)])
+                 for i in range(CL_NODES)]
+        for sp in specs:
+            for d in sp.drive_dirs:
+                os.makedirs(d)
+        # boot every node, advertise a proxy in front of each RPC port,
+        # then assemble over the proxied endpoints
+        for sp in specs:
+            nodes.append(Node(sp, specs, TL_SECRET, K + M, tls=mgr,
+                              parity=M, block_size=BLOCK, device="cuda"))
+        for sp in specs:
+            proxy = FaultyProxy("127.0.0.1", int(sp.endpoint.rsplit(":", 1)[1]))
+            proxies.append(proxy.start())
+            sp.endpoint = f"https://127.0.0.1:{proxy.port}"
+        for node in nodes:
+            node.assemble()
+        readings["chaos_boot_s"] = time.perf_counter() - t0
+        layer = nodes[0].layer
+        layer.make_bucket("chaos")
+        p4 = proxies[3]
+
+        class CutReader(io.BytesIO):
+            """Reset node 4's link once the PUT has read TL_FAULT_AT."""
+            cut = False
+
+            def read(self, n=-1):
+                chunk = super().read(n)
+                if not self.cut and self.tell() >= TL_FAULT_AT:
+                    self.cut = True
+                    p4.set_default(Fault.reset(after_bytes=0))
+                    p4.sever()
+                return chunk
+        reader = CutReader(big)
+        t0 = time.perf_counter()
+        layer.put_object("chaos", "cut", reader)
+        readings["chaos_put_s"] = time.perf_counter() - t0
+        check(reader.cut, "the chaos PUT never reached its fault")
+        er = layer.get_hashed_set("cut")
+        fis, _ = er._fanout(lambda d: d.read_version("chaos", "cut", None),
+                            er.disks)
+        check(sum(f is not None for f in fis) == K,
+              f"the chaos PUT committed on {sum(f is not None for f in fis)}"
+              f" drives, not {K}")
+        # node 4's drives behind the resetting link: each RPC client's
+        # breaker opens within two failures, and then calls fail fast
+        from minio_tpu_torch.storage.errors import StorageError
+        n4 = [d.inner for d in er.disks
+              if d.endpoint().startswith(specs[3].endpoint + "/")]
+        check(len(n4) == CL_PER, f"{len(n4)} drives behind node 4's proxy")
+        for d in n4:
+            for _ in range(2):
+                try:
+                    d.read_all("chaos-probe-vol", "nope")
+                    check(False, "a drive behind a resetting link answered")
+                except StorageError:
+                    pass
+        check(all(d._c.breaker.state == d._c.breaker.OPEN for d in n4),
+              "node 4's breakers did not open")
+        t0 = time.perf_counter()
+        for d in n4:
+            try:
+                d.read_all("chaos-probe-vol", "nope")
+            except StorageError:
+                pass
+        readings["fail_fast_ms"] = (time.perf_counter() - t0) * 1e3
+        p4.set_default(Fault.passthrough())
+        t0 = time.perf_counter()
+        a = snapshot()
+        while True:
+            time.sleep(0.25)           # the cooldown, then the probe
+            r = heal_object(er, "chaos", "cut")
+            if r.after_ok == K + M:
+                break
+            check(time.perf_counter() - t0 < TL_HEAL_S,
+                  f"node 4 never healed: {r}")
+        readings["chaos_heal_s"] = time.perf_counter() - t0
+        healed = delta(a, snapshot())
+        check(healed["gf8_apply"][0] > 0, "the heal launched no Kernel A")
+        readings["heal_launches"] = {k: v[0] for k, v in healed.items()}
+        check(len([f for f in node_part_files(specs[3].drive_dirs, "chaos")
+                   if "cut/" in f[1]]) == CL_PER,
+              "node 4's drives do not hold the healed part files")
+        verified = heal_object(er, "chaos", "cut", deep=True, dry_run=True)
+        check(verified.before_ok == K + M,
+              f"the healed shards do not verify: {verified}")
+        check(nodes[1].layer.get_object("chaos", "cut")[1] == big,
+              "GET of the healed object")
+        p4.set_default(Fault.blackhole())
+        p4.sever()
+        hole = port_rpc.RPCClient(specs[3].endpoint, TL_SECRET,
+                                  timeout=TL_HOLE_TIMEOUT_S,
+                                  retry=RetryPolicy(attempts=1))
+        t0 = time.perf_counter()
+        try:
+            hole.call("sys", "ping")
+            check(False, "a black-holed RPC answered")
+        except port_rpc.RPCError:
+            pass
+        finally:
+            hole.close()
+        readings["blackhole_s"] = time.perf_counter() - t0
+        check(readings["blackhole_s"] < TL_HOLE_BOUND_S,
+              f"the black-holed call took {readings['blackhole_s']:.2f} s")
+        wait_heal_kicks()
+        for node in nodes:
+            node.stop()
+        nodes.clear()
+        for proxy in proxies:
+            proxy.stop()
+        proxies.clear()
+
+        # -- federation: two fronts on one DNS file ----------------------------
+        set_env(MT_FEDERATION_ENABLE="on",
+                MT_FEDERATION_DOMAIN="fed.smoke.test",
+                MT_FEDERATION_DNS_FILE=f"{root}/dns.json")
+        for tag in ("fa", "fb"):
+            fronts.append(build_server([f"{root}/{tag}/d{i}"
+                                        for i in range(4)], "127.0.0.1:0",
+                                       S3_KEY, S3_SECRET, BLOCK,
+                                       device="cuda"))
+            fronts[-1].start()
+        fa, fb = (S3Client(f.endpoint, S3_KEY, S3_SECRET) for f in fronts)
+        fa.make_bucket("fedb")
+        try:
+            fb.make_bucket("fedb")
+            check(False, "front B made front A's bucket")
+        except S3ClientError as e:
+            check(e.code == "BucketAlreadyExists",
+                  f"front B answered {e.code}")
+        fa.put_object("fedb", "obj", small)
+        r = fb.request("GET", "/fedb/obj", expect=(307,))
+        loc = r.headers["Location"]
+        check(loc == f"{fronts[0].endpoint}/fedb/obj",
+              f"the redirect names {loc}")
+        check(S3Client(loc.rsplit("/fedb/", 1)[0], S3_KEY, S3_SECRET)
+              .get_object("fedb", "obj").body == small,
+              "the followed redirect's body")
+        fa.delete_object("fedb", "obj")
+        fa.request("DELETE", "/fedb", expect=(204,))
+        fb.make_bucket("fedb")
+        check(fronts[1].federation.store.get("fedb").port == fronts[1].port,
+              "DELETE bucket did not free the name")
+        for f in fronts:
+            f.stop()
+        fronts.clear()
+        torch.cuda.synchronize()
+        s_end = snapshot()
+    finally:
+        for f in fronts:
+            f.stop()
+        for node in nodes:
+            node.stop()
+        for proxy in proxies:
+            proxy.stop()
+        for nid, p in procs.items():
+            p.terminate()
+        for nid, p in procs.items():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        transport.configure(prior_manager)
+        # the cluster's locks started the shared refresher
+        dsync.stop_refresher()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = delta(s_begin, s_end)
+    for nid, by in node_totals.items():
+        for k, (n, plain) in by.items():
+            check(plain == 0, f"TLS node {nid}: {k} plain version ran")
+            launches[k] = (launches[k][0] + n, launches[k][1] + plain)
+    for kernel, (_, plain) in launches.items():
+        check(plain == 0, f"TLS cluster path: {kernel} plain version ran")
+    med = statistics.median
+    readings["phase_s"] = time.perf_counter() - t_phase
+    print(f"TLS cluster path on {card}: 4 nodes x 4 drives over mTLS, "
+          f"256 MiB PUT {readings['put_256mib_gibps']:.3f} GiB/s, GET "
+          f"{readings['get_256mib_gibps']:.3f} GiB/s (median of {TL_REPS}; "
+          f"phase 21: "
+          f"{cluster['put_256mib_gibps']:.3f}, "
+          f"{cluster['get_256mib_gibps']:.3f}); RPC ping median "
+          f"{med(readings['rpc_ping_ms']):.3f} ms (phase 21: "
+          f"{med(cluster['rpc_ping_ms']):.3f}); handshake median "
+          f"{med(readings['handshake_ms']):.3f} ms; chaos PUT "
+          f"{readings['chaos_put_s']:.2f} s, heal "
+          f"{readings['chaos_heal_s']:.2f} s, black-holed call "
+          f"{readings['blackhole_s']:.3f} s; node boot "
+          f"{readings['boot_s']:.1f} s; phase {readings['phase_s']:.1f} s",
+          flush=True)
+    return {k: v[0] for k, v in launches.items()}, readings
+
+
 def sm_clock_mhz() -> float:
     """The card's maximum SM clock as nvidia-smi reports it."""
     out = subprocess.run(
@@ -5622,6 +6089,7 @@ def main() -> int:
         br_path, br_readings) = phase_copy_lock(bodies, card, gen)
     fed_path, fed_readings = phase_federation(card, gen)
     cl_path, cl_readings = phase_cluster(card, gen)
+    tl_path, tl_readings = phase_tls_cluster(card, gen, cl_readings)
     for k in kernels:
         by_path = {"path": path[k["name"]], "mesh_path": mesh_path[k["name"]],
                    "s3_path": s3_path[k["name"]],
@@ -5638,7 +6106,8 @@ def main() -> int:
                    "replication_path": repl_path[k["name"]],
                    "brokers_path": br_path[k["name"]],
                    "identities_path": fed_path[k["name"]],
-                   "cluster_path": cl_path[k["name"]]}
+                   "cluster_path": cl_path[k["name"]],
+                   "tls_cluster_path": tl_path[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
     print(json.dumps({"card": card, "path": path_readings,
@@ -5656,7 +6125,8 @@ def main() -> int:
                       "replication_path": repl_readings,
                       "brokers_path": br_readings,
                       "identities_path": fed_readings,
-                      "cluster_path": cl_readings}))
+                      "cluster_path": cl_readings,
+                      "tls_cluster_path": tl_readings}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,8 +35,9 @@ class AdminClient:
     PREFIX = "/minio-tpu/admin/v1"
 
     def __init__(self, endpoint: str, access_key: str, secret_key: str,
-                 region: str = "us-east-1"):
-        self._c = S3Client(endpoint, access_key, secret_key, region)
+                 region: str = "us-east-1", ca_file: str | None = None):
+        self._c = S3Client(endpoint, access_key, secret_key, region,
+                           ca_file=ca_file)
 
     def _call(self, method: str, route: str, query: str = "",
               body: bytes = b"") -> Any:

@@ -46,6 +46,11 @@ families computed at scrape time from the live server:
                           framed stream bytes and frames, breaker
                           openings (``parallel/rpc.py``)
   mt_node_scrape_*        the cluster scrape's peers (``?scope=cluster``)
+  mt_tls_*                handshakes and failed handshakes per plane (s3,
+                          internode), certificate reloads, and each live
+                          certificate's seconds to expiry
+                          (``secure/certs.py``); none in a process that
+                          never built a cert manager
   mt_tpu_kernel_launches_total  the port's own: each hand kernel's
                           launches and its plain version's runs in this
                           process; none before a kernel launched on a
@@ -215,6 +220,7 @@ def render(layer=None, healer=None, config=None, api_stats=None,
         sources.append(lambda: _s3_lastminute_gauges(api_stats))
     sources.append(_memgov_gauges)
     sources.append(_kernel_launches)
+    sources.append(_tls_gauges)
     if healer is not None:
         sources += [lambda: _heal_counters(healer),
                     lambda: _progress_gauges("mt_heal", healer.progress)]
@@ -252,6 +258,13 @@ def _kernel_launches() -> list[str]:
             lines.append("mt_tpu_kernel_launches_total" + _fmt_labels(
                 (("engine", engine), ("kernel", name))) + f" {n}")
     return lines
+
+
+def _tls_gauges() -> list[str]:
+    """``mt_tls_cert_expiry_seconds{cert}`` of every live cert manager
+    (the handshake and reload counters are ticked where they happen)."""
+    from ..secure.certs import render_metrics
+    return render_metrics()
 
 
 def _with_server_label(text: str, node: str) -> str:

@@ -11,25 +11,35 @@ dsync quorum locks over every node's table.  Every node serves S3
 hashes, verifies and reconstructs on its own device, and ships shards to
 the other nodes' drives over the RPC.
 
-Not here yet (ROADMAP Queue 1 items 18, 10 and 11): internode TLS, the
-codec service and the observability half of the peer service.
+Given a ``CertManager`` (``tls``, or the ``tls`` subsystem for
+``run_node``), both planes run over TLS: each RPC listener serves the
+internode identity and requires a client certificate from the CA, each
+internode client presents it (``secure/transport.py``), endpoints are
+``https://``, and the S3 front serves the front's pair.
+
+Not here yet (ROADMAP Queue 1 items 10 and 11): the codec service and the
+observability half of the peer service.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import urllib.parse
 from dataclasses import dataclass
 
 from .objectlayer.sets import ErasureSets
 from .parallel.dsync import (LocalLocker, NamespaceLock, RemoteLocker,
                              register_lock_service)
 from .parallel.rpc import RPCClient, RPCError, RPCServer
+from .secure import transport
+from .secure.certs import CertManager
 from .storage import errors as serrors
 from .storage import health as health_mod
 from .storage.format import FORMAT_FILE, load_or_init_format
 from .storage.remote import RemoteStorage, register_storage_service
 from .storage.xl_storage import SYS_DIR, XLStorage
+from .utils.kvconfig import Config
 
 
 @dataclass
@@ -48,13 +58,19 @@ class Node:
 
     def __init__(self, spec: NodeSpec, all_specs: list[NodeSpec],
                  secret: str, set_drive_count: int | None = None,
-                 host: str = "127.0.0.1", port: int = 0, **set_kwargs):
+                 host: str = "127.0.0.1", port: int = 0, tls=None,
+                 **set_kwargs):
         self.spec = spec
         self.secret = secret
+        self.tls = tls
+        if tls is not None:
+            # this node's internode clients take the CA and the identity
+            # from the process's registry
+            transport.configure(tls)
         self.drives = {f"drive{i}": XLStorage(d)
                        for i, d in enumerate(spec.drive_dirs)}
         self.locker = LocalLocker()
-        self.rpc = RPCServer(secret, host=host, port=port)
+        self.rpc = RPCServer(secret, host=host, port=port, tls=tls)
         register_storage_service(self.rpc, self.drives)
         register_lock_service(self.rpc, self.locker)
         self.rpc.start()
@@ -128,11 +144,13 @@ class Node:
 
 
 def start_cluster(specs: list[NodeSpec], secret: str,
-                  set_drive_count: int | None = None,
+                  set_drive_count: int | None = None, tls=None,
                   **set_kwargs) -> list[Node]:
     """Every node in this process: start them all, then assemble each
-    (the first formats a fresh deployment, the rest find its format)."""
-    nodes = [Node(s, specs, secret, set_drive_count, **set_kwargs)
+    (the first formats a fresh deployment, the rest find its format).
+    ``tls``: a ``CertManager`` that puts the internode plane under mutual
+    TLS."""
+    nodes = [Node(s, specs, secret, set_drive_count, tls=tls, **set_kwargs)
              for s in specs]
     for node in nodes:
         node.assemble()
@@ -190,13 +208,17 @@ def run_node(self_id: str, specs: list[NodeSpec], secret: str,
              s3_address: str = "127.0.0.1:0",
              set_drive_count: int | None = None,
              access_key: str = "minioadmin",
-             secret_key: str = "minioadmin", **set_kwargs):
+             secret_key: str = "minioadmin", tls=None, **set_kwargs):
     """One member as a process of its own: the RPC services on the
     declared endpoint (so peers can dial before the rendezvous), wait for
     the layout, assemble, and serve S3 with IAM loaded, the peer service
     and fan-out, and a tracker.  Only the first node formats a fresh
     deployment, and only it runs the crawler and the heal sweep (their
-    walks cover the whole layer).  Returns (node, started S3Server)."""
+    walks cover the whole layer).  ``tls``: a ``CertManager``, by default
+    from the ``tls`` subsystem (``MT_TLS_ENABLE``, ``MT_TLS_CERTS_DIR``);
+    with one, both planes run over TLS and every peer is dialled at
+    ``https://`` (ROADMAP Queue 3 record 63).  Returns (node, started
+    S3Server)."""
     from .background.crawler import Crawler
     from .background.heal import BackgroundHealer
     from .background.tracker import DataUpdateTracker
@@ -204,12 +226,18 @@ def run_node(self_id: str, specs: list[NodeSpec], secret: str,
     from .parallel.peer import PeerNotifier, register_peer_service
     from .s3.server import S3Server
 
+    if tls is None:
+        tls = CertManager.from_config(Config())
     spec = next(s for s in specs if s.node_id == self_id)
     if not spec.endpoint:
         raise ValueError(f"node {self_id} needs a declared endpoint")
-    rhost, _, rport = spec.endpoint.removeprefix("http://").rpartition(":")
+    scheme = "https" if tls is not None else "http"
+    for s in specs:                 # the scheme the plane serves
+        s.endpoint = f"{scheme}://{urllib.parse.urlsplit(s.endpoint).netloc}"
+    u = urllib.parse.urlsplit(spec.endpoint)
     node = Node(spec, specs, secret, set_drive_count,
-                host=rhost or "127.0.0.1", port=int(rport), **set_kwargs)
+                host=u.hostname or "127.0.0.1", port=u.port, tls=tls,
+                **set_kwargs)
     srv = None
     try:
         wait_for_peers(specs, secret, self_id)
@@ -220,7 +248,7 @@ def run_node(self_id: str, specs: list[NodeSpec], secret: str,
         layer = node.assemble()
         shost, _, sport = s3_address.rpartition(":")
         srv = S3Server(layer, access_key=access_key, secret_key=secret_key,
-                       host=shost or "127.0.0.1", port=int(sport))
+                       host=shost or "127.0.0.1", port=int(sport), tls=tls)
         srv.node_name = srv.api_stats.label = self_id
         srv.iam.load()
         register_peer_service(node.rpc, srv)

@@ -27,9 +27,16 @@ The client keeps a pool of keep-alive connections per peer, replays a
 call whose pooled connection turned out stale, trips a per-peer circuit
 breaker on transport failures, retries idempotent calls under the shared
 ``utils/retry.py`` policy, and sizes each service's deadline from its
-observed latencies (``DynamicTimeout``).  Left for later: internode TLS,
-and the request-id and span headers of the tracing plane (ROADMAP Queue 1
-items 18 and 11).
+observed latencies (``DynamicTimeout``).
+
+Given a ``CertManager`` (``RPCServer(tls=)``), the server serves the
+internode identity and requires a client certificate from its CA; each
+accepted socket is wrapped on the accept loop and its handshake completed
+on the handler thread under the idle deadline.  A client of an
+``https://`` endpoint takes its context (the CA and the internode
+identity) from ``secure/transport.py``; a failed or cut handshake is a
+transport failure like any other.  Left for later: the request-id and
+span headers of the tracing plane (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import hashlib
 import hmac
 import http.client
 import socket
+import ssl
 import struct
 import threading
 import time
@@ -390,10 +398,12 @@ class _HTTPServer(ThreadingHTTPServer):
         t.start()
 
     def handle_error(self, request, client_address):
-        # severed peers are routine on this plane; keep the stock
-        # traceback for anything else
+        # severed peers and failed handshakes (counted where they fail)
+        # are routine on this plane; keep the stock traceback for
+        # anything else
         import sys
-        if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError)):
+        if isinstance(sys.exc_info()[1],
+                      (ConnectionError, TimeoutError, ssl.SSLError)):
             return
         super().handle_error(request, client_address)
 
@@ -405,14 +415,21 @@ class RPCServer:
     # (cmd/http/server.go:185)
     IDLE_TIMEOUT_S = 60.0
 
-    def __init__(self, secret: str, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, secret: str, host: str = "127.0.0.1", port: int = 0,
+                 tls=None):
+        """``tls``: a ``secure.certs.CertManager``; the listener then
+        serves mutual TLS on the ``internode`` plane."""
         self.secret = secret
+        self.tls = tls
         self._services: dict[str, dict] = {}
         self._raw: dict = {}
         self._raw_stream: dict = {}
         self._conns: set = set()
         self._conns_mu = threading.Lock()
         self.httpd = _HTTPServer((host, port), self._make_handler())
+        if tls is not None:
+            from ..secure.certs import enable_server_tls
+            enable_server_tls(self.httpd, tls, "internode")
         self.host = host
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
@@ -436,7 +453,8 @@ class RPCServer:
 
     @property
     def endpoint(self) -> str:
-        return f"http://{self.host}:{self.port}"
+        scheme = "https" if self.tls is not None else "http"
+        return f"{scheme}://{self.host}:{self.port}"
 
     def start(self) -> None:
         self._thread = threading.Thread(target=self.httpd.serve_forever,
@@ -475,10 +493,23 @@ class RPCServer:
             timeout = srv_self.IDLE_TIMEOUT_S
 
             def setup(self):
+                # listed before the handshake, so stop() cuts one that
+                # stalls
+                with srv_self._conns_mu:
+                    srv_self._conns.add(self.request)
+                if srv_self.tls is not None:
+                    # the handshake the accept loop deferred, here and
+                    # under the idle deadline; a failure ends only this
+                    # connection
+                    try:
+                        srv_self.tls.handshake(self.request, "internode",
+                                               timeout=self.timeout)
+                    except BaseException:
+                        with srv_self._conns_mu:
+                            srv_self._conns.discard(self.request)
+                        raise
                 super().setup()
                 _nodelay(self.connection)
-                with srv_self._conns_mu:
-                    srv_self._conns.add(self.connection)
 
             def finish(self):
                 try:
@@ -709,6 +740,7 @@ class RPCClient:
                  breaker: CircuitBreaker | None = None, retry=None):
         u = urllib.parse.urlsplit(endpoint)
         self.host, self.port = u.hostname, u.port
+        self.scheme = u.scheme or "http"
         self.endpoint = endpoint
         self.secret = secret
         self.timeout = timeout
@@ -740,6 +772,10 @@ class RPCClient:
             if conn.sock is not None:
                 conn.sock.settimeout(timeout)
             return conn, True
+        if self.scheme == "https":
+            from ..secure import transport
+            return transport.https_connection(self.host, self.port, timeout,
+                                              plane="internode"), False
         return _Connection(self.host, self.port, timeout=timeout), False
 
     def _put_conn(self, conn: http.client.HTTPConnection) -> None:

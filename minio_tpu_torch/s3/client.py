@@ -9,8 +9,11 @@ SigV2 header-signed requests and presigned URLs; POST-policy uploads;
 CopyObject and UploadPartCopy; object and bucket tagging; object lock
 (lock-enabled buckets, their default retention, a version's retention
 and legal hold, and a delete that bypasses governance retention).
-``send`` takes any request signed by ``sigv4`` or ``sigv2``; an
-``https://`` endpoint is reached with ``ssl_context`` (SSE-C needs it).
+``send`` takes any request signed by ``sigv4`` or ``sigv2``.  An
+``https://`` endpoint is reached with ``ssl_context`` when one is given,
+else with a context that trusts ``ca_file``, else with the process's
+``s3`` context from ``secure/transport.py`` (a TLS server or node of this
+process configured its CA there; the system's roots otherwise).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from xml.sax.saxutils import escape
 
+from ..secure import transport
 from . import postpolicy, sigv2
 from .sigv4 import Credentials, sign_request, sign_request_streaming
 
@@ -64,6 +68,7 @@ class S3Client:
     timeout: float = 600.0
     session_token: str = ""             # an STS session's
     ssl_context: ssl.SSLContext | None = None   # an https endpoint's
+    ca_file: str | None = None          # or the CA that pins it
 
     @property
     def _creds(self) -> Credentials:
@@ -80,9 +85,14 @@ class S3Client:
         anonymous); raise S3ClientError for a status not in ``expect``."""
         u = urllib.parse.urlsplit(url)
         if u.scheme == "https":
-            conn = http.client.HTTPSConnection(u.hostname, u.port,
-                                               timeout=self.timeout,
-                                               context=self.ssl_context)
+            if self.ssl_context is None and self.ca_file:
+                # built once: a CA bundle parsed per request would tax
+                # every call
+                self.ssl_context = ssl.create_default_context(
+                    cafile=self.ca_file)
+            conn = transport.https_connection(u.hostname, u.port,
+                                              self.timeout, plane="s3",
+                                              context=self.ssl_context)
         else:
             conn = http.client.HTTPConnection(u.hostname, u.port,
                                               timeout=self.timeout)
@@ -399,7 +409,8 @@ class S3Client:
                         ce.findtext(f"{STS_NS}AccessKeyId"),
                         ce.findtext(f"{STS_NS}SecretAccessKey"),
                         self.region, self.timeout,
-                        ce.findtext(f"{STS_NS}SessionToken"))
+                        ce.findtext(f"{STS_NS}SessionToken"),
+                        self.ssl_context, self.ca_file)
 
     def post_object(self, bucket: str, key: str, data: bytes,
                     conditions: list | None = None, expires_s: int = 900,

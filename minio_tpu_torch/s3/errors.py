@@ -30,6 +30,9 @@ _ERRORS = {e.code: e for e in (
              "Error parsing the X-Amz-Credential parameter.", 400),
     APIError("BadDigest", "The Content-Md5 you specified did not match what "
              "we received.", 400),
+    APIError("BucketAlreadyExists", "The requested bucket name is not "
+             "available. The bucket namespace is shared by all users of the "
+             "system.", 409),
     APIError("BucketAlreadyOwnedByYou",
              "Your previous request to create the named bucket succeeded "
              "and you already own it.", 409),

@@ -47,6 +47,7 @@ from ..iam import policy as iampol
 from ..objectlayer import interface as ol
 from ..objectlayer import metacache
 from ..objectlayer.interface import PutObjectOptions
+from ..utils.fed_dns import BucketTaken
 from . import errors as s3err
 from . import postpolicy, sigv4
 from .server import (MAX_PUT_SIZE, S3_NS, S3Error, _actual_size,
@@ -143,7 +144,19 @@ def _bucket_api(self, bucket, query, payload):
         raise S3Error("NotImplemented")
     if cmd == "PUT":
         self._allow(iampol.CREATE_BUCKET, bucket)
-        self.srv.layer.make_bucket(bucket)
+        fed = self.srv.federation
+        fresh = False
+        if fed is not None:
+            try:
+                fresh = fed.register(bucket)
+            except BucketTaken:
+                raise S3Error("BucketAlreadyExists") from None
+        try:
+            self.srv.layer.make_bucket(bucket)
+        except Exception:
+            if fresh:                   # only a record made just now
+                fed.unregister(bucket)
+            raise
         if self.headers.get("x-amz-bucket-object-lock-enabled",
                             "").lower() == "true":
             # a lock bucket is versioned (PutBucketHandler)
@@ -160,6 +173,8 @@ def _bucket_api(self, bucket, query, payload):
         self._allow(iampol.DELETE_BUCKET, bucket)
         self.srv.layer.delete_bucket(bucket)
         self.srv.bucket_meta.drop(bucket)
+        if self.srv.federation is not None:
+            self.srv.federation.unregister(bucket)
         return self._send(204)
     if cmd == "GET":
         self._allow(iampol.LIST_BUCKET, bucket)

@@ -22,8 +22,14 @@ listing and a HEAD give a transformed object's plain size
 (``_actual_size``).  ``kms`` is the key service of SSE-S3 and SSE-KMS
 (``crypto/kms.py``: KES, Vault or the local master key); ``tls``, when
 given or set in the ``tls`` subsystem, serves the front over TLS
-(``secure/certs.py``), and a request with SSE-C headers over plain HTTP
-is refused (InsecureSSECustomerRequest) before it is authenticated.
+(``secure/certs.py``; its CA then serves the process's https clients,
+``secure/transport.py``), and a request with SSE-C headers over plain
+HTTP is refused (InsecureSSECustomerRequest) before it is authenticated.
+``federation``, from the ``federation`` subsystem (``utils/fed_dns.py``),
+registers each bucket this server makes in a DNS store shared with other
+servers (a JSON file, or etcd's skydns keys) and frees it on delete; a
+name another server holds answers BucketAlreadyExists, and a request for
+a bucket homed on another server answers 307 to it.
 Transitions to a remote tier and their restore (``transition``, the
 tiers registered in ``tiers/tiers.json``) and S3 Select are served, and
 so are the replication and notification configs, the canned private
@@ -125,11 +131,13 @@ from ..objectlayer.tiering import TransitionSys
 from ..obs.egress import EgressRegistry, config_queue_limit
 from ..obs.lastminute import OpWindows
 from ..parallel.dsync import LockLost, LockTimeout
+from ..secure import transport
 from ..secure.certs import CertManager, enable_server_tls
 from ..secure.opa import OpaWebhook
 from ..storage import commit as _commit
 from ..utils import memgov
 from ..utils.etcd import from_config as etcd_from_config
+from ..utils.fed_dns import FederationSys
 from ..utils.kvconfig import Config, parse_duration
 from . import errors as s3err
 from . import sigv2, sigv4
@@ -373,6 +381,10 @@ class S3Server:
         self.bucket_meta = BucketMetadataSys(layer)
         self.tls = tls if tls is not None else \
             CertManager.from_config(self.config)
+        if self.tls is not None:
+            # the process's https clients (S3, admin, internode) take
+            # this server's CA
+            transport.configure(self.tls)
         self.kms = kms_from_env(layer)
         # IAM's store is etcd when the ``etcd`` subsystem names endpoints
         # (cmd/iam-etcd-store.go); the identity providers of the
@@ -413,8 +425,16 @@ class S3Server:
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         if self.tls is not None:
-            enable_server_tls(self.httpd, self.tls)
+            enable_server_tls(self.httpd, self.tls, "s3")
         self.port = self.httpd.server_address[1]
+        # bucket DNS federation (``federation`` subsystem, read once): its
+        # records name the bound port
+        try:
+            self.federation = FederationSys.from_config(
+                self.config, host or "127.0.0.1", self.port)
+        except Exception:
+            self.httpd.server_close()
+            raise
         self._thread: threading.Thread | None = None
         # the name the admin views and the scrape give this server
         # (``run_node`` gives a cluster member its node id)
@@ -818,7 +838,7 @@ def _make_handler(srv: S3Server):
             if srv.tls is not None:
                 # the handshake the accept loop deferred, in this thread
                 # and under the header deadline
-                srv.tls.handshake(self.request, self.timeout)
+                srv.tls.handshake(self.request, "s3", self.timeout)
             super().setup()
             self.rfile = _DeadlineRFile(self.rfile, self.connection,
                                         self.timeout)
@@ -1213,7 +1233,7 @@ def _make_handler(srv: S3Server):
                     if admin_handlers.handle(self, srv, path, query,
                                              payload):
                         return
-                    # the web UI, ROADMAP Queue 1 item 2
+                    # the web UI, ROADMAP Queue 1 item 16.9
                     raise S3Error("NotImplemented")
                 if bucket in RESERVED_BUCKETS:
                     # isMinioReservedBucket (cmd/generic-handlers.go)
@@ -1224,9 +1244,24 @@ def _make_handler(srv: S3Server):
                     return self._list_buckets()
                 if not _BUCKET_RE.match(bucket):
                     raise S3Error("InvalidBucketName")
-                if key:
-                    return self._object_api(bucket, key, query, payload)
-                return self._bucket_api(bucket, query, payload)
+                try:
+                    if key:
+                        return self._object_api(bucket, key, query,
+                                                payload)
+                    return self._bucket_api(bucket, query, payload)
+                except ol.BucketNotFound:
+                    # a federated bucket homed on another server: 307 to
+                    # its owner, in this front's scheme
+                    # (cmd/handler-utils.go's redirect)
+                    rec = srv.federation.lookup_other(bucket) \
+                        if srv.federation is not None else None
+                    if rec is None:
+                        raise
+                    u = urllib.parse.urlsplit(self.path)
+                    scheme = "https" if srv.tls is not None else "http"
+                    loc = (f"{scheme}://{rec.host}:{rec.port}{u.path}"
+                           + (f"?{u.query}" if u.query else ""))
+                    return self._send(307, b"", headers={"Location": loc})
             except ConnectionError:
                 raise                   # nobody left to answer
             except Exception as e:  # noqa: BLE001 — every error is XML

@@ -26,7 +26,11 @@ drives and lock table served over the internode RPC on ``host:port``,
 the erasure sets over every node's drives in the order given (the same
 on every node), S3 on ``--address``.  The RPC secret comes from
 ``--secret`` or ``MT_CLUSTER_SECRET``; without one, a default serves
-only loopback endpoints.  The gateway subcommand is not served.
+only loopback endpoints.  With ``MT_TLS_ENABLE=on`` and
+``MT_TLS_CERTS_DIR`` (``public.crt``/``private.key``, ``internode/``,
+``CAs/``) both planes run over TLS: the internode RPC under mutual TLS,
+every peer dialled at ``https://``, and S3 served over ``https``.  The
+gateway subcommand is not served.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from .objectlayer.sets import ErasureSets
 from .objectlayer.tiering import transition_fn
 from .s3.server import S3Server
 from .secure import configcrypt
+from .secure.certs import CertManager, TLSConfigError
+from .utils.kvconfig import Config
 
 # set sizing (cmd/endpoint-ellipses.go:44 setSizes{4..16})
 SET_SIZES = list(range(16, 3, -1))
@@ -179,7 +185,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{layer.set_count} set(s) x {layer.set_drive_count} drives "
               f"of {er.data_blocks} data + {er.parity} parity, block "
               f"{er.block_size} B, device {er.device}", flush=True)
-        print("S3 endpoint: http://"
+        print(f"S3 endpoint: {srv.endpoint.split('://')[0]}://"
               f"{args.address.rpartition(':')[0] or '0.0.0.0'}:{srv.port}",
               flush=True)
         srv.start_background()
@@ -196,6 +202,14 @@ def _node(parser, args) -> int:
     ^C."""
     from .cluster import NodeSpec, run_node
     secret = args.secret or os.environ.get("MT_CLUSTER_SECRET", "")
+    try:
+        # the ``tls`` subsystem (MT_TLS_ENABLE, MT_TLS_CERTS_DIR) puts
+        # both planes under TLS; ``run_node`` then dials every peer at
+        # https:// (ROADMAP Queue 3 record 63)
+        tls = CertManager.from_config(Config())
+    except (TLSConfigError, OSError) as e:
+        print(f"minio_tpu_torch: {e}", file=sys.stderr)
+        return 1
     specs = []
     for p in args.peers:
         nid, endpoint, dirs = p.split("=", 2)
@@ -221,13 +235,15 @@ def _node(parser, args) -> int:
             args.node_id, specs, secret, args.address, args.set_drive_count,
             access_key=os.environ.get("MT_ROOT_USER", "minioadmin"),
             secret_key=os.environ.get("MT_ROOT_PASSWORD", "minioadmin"),
-            device=args.device)
+            tls=tls, device=args.device)
     except (RuntimeError, ValueError, OSError) as e:
         print(f"minio_tpu_torch: {e}", file=sys.stderr)
         return 1
     shost = args.address.rpartition(":")[0] or "127.0.0.1"
+    scheme = srv.endpoint.split("://")[0]
     print(f"minio_tpu_torch node {args.node_id}: rpc={node.rpc.endpoint} "
-          f"s3=http://{shost}:{srv.port} device {args.device}", flush=True)
+          f"s3={scheme}://{shost}:{srv.port} device {args.device}",
+          flush=True)
     try:
         srv.shutdown.wait()         # admin service?action=stop, or ^C
     except KeyboardInterrupt:

@@ -138,11 +138,23 @@ register_subsys("compression", {
     "mime_types": "text/*,application/json,application/xml",
 })
 register_subsys("tls", {
-    # TLS on the S3 front (secure/certs.py): ``certs_dir`` holds
-    # public.crt and private.key (and CAs/, sni/<host>/); read when the
-    # server is built, while the certificate files reload live
+    # TLS on both planes (secure/certs.py): enable=on serves the S3 front
+    # and the internode RPC (mutual TLS) over TLS, and their clients
+    # speak it, with the files of ``certs_dir`` (public.crt and
+    # private.key, internode/, CAs/, sni/<host>/); read when the server
+    # or node is built, while the certificate files reload live
     "enable": "off",
     "certs_dir": "",
+})
+register_subsys("federation", {
+    # bucket DNS federation (utils/fed_dns.py): the records of this
+    # server's buckets in ``dns_file`` (or etcd, when the etcd subsystem
+    # names endpoints), under ``domain``, naming ``advertise`` (host:port)
+    # or the bound address; read once, when the server is built
+    "enable": "off",
+    "domain": "",
+    "dns_file": "",
+    "advertise": "",
 })
 register_subsys("commit", {
     # the group-commit plane (storage/commit.py): ops per group commit,

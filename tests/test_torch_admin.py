@@ -38,8 +38,8 @@ from minio_tpu_torch.storage.xl_storage import SYS_DIR
 from ._torch_control import AK, BS, PER, SK, both, client, drive_no, servers
 from ._torch_versions import body
 
-PORT_SUBSYS = ("api", "commit", "compression", "drive", "etcd", "heal",
-               "identity_ldap", "identity_openid", "notify_amqp", "notify_elasticsearch", "notify_kafka",
+PORT_SUBSYS = ("api", "commit", "compression", "drive", "etcd",
+               "federation", "heal", "identity_ldap", "identity_openid", "notify_amqp", "notify_elasticsearch", "notify_kafka",
                "notify_mqtt", "notify_mysql", "notify_nats", "notify_nsq",
                "notify_postgresql", "notify_redis", "notify_webhook",
                "pipeline", "policy_opa", "quota", "rebalance", "rpc",

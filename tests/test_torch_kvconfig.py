@@ -25,6 +25,7 @@ PORT_KEYS = {"api": ["requests_max", "requests_deadline", "requests_queue",
              "storage_class": ["standard", "rrs"],
              "compression": ["enable", "extensions", "mime_types"],
              "tls": ["enable", "certs_dir"],
+             "federation": ["enable", "domain", "dns_file", "advertise"],
              "rpc": ["breaker_failures", "breaker_cooldown",
                      "retry_attempts", "retry_base", "retry_cap",
                      "retry_budget", "stream_enable", "stream_chunk_bytes"],

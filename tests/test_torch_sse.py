@@ -27,6 +27,7 @@ from minio_tpu.secure import transport as ref_transport
 from minio_tpu_torch import server_main as port_main
 from minio_tpu_torch.crypto import dare as port_dare
 from minio_tpu_torch.crypto import sse as port_sse
+from minio_tpu_torch.secure import transport as port_transport
 
 from . import _pki
 from ._torch_control import AK, SK, client, servers
@@ -114,6 +115,7 @@ def pair(tmp_path_factory):
     finally:
         mp.undo()
         ref_transport.configure(None)
+        port_transport.configure(None)
 
 
 def _get_headers(key):
